@@ -1,0 +1,172 @@
+"""DAE, the stage-1 autoencoder, channel last: the decode path
+(JAX: dualdiffusion_tpu/models/dae.py:140-319; reference:
+src/modules/daes/dae_edm2_q4.py:91-405).
+
+The encoder's modules are built so that model directories round-trip, but
+``encode`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from .layers import MPConv
+from .mp import mp_silu, mp_sum, normalize, normalize_groups, resample_2d
+
+
+@dataclass
+class DAEConfig:
+    """Field names and defaults of dualdiffusion_tpu.models.dae.DAEConfig."""
+    in_channels: int = 2
+    out_channels: int = 2
+    in_channels_emb: int = 0
+    in_num_freqs: int = 256
+    latent_channels: int = 8
+
+    model_channels: int = 64
+    channel_mult_enc: Tuple[int, ...] = (1, 2, 4, 8)
+    channel_mult_dec: Tuple[int, ...] = (1, 2, 4, 8)
+    channel_mult_emb: int = 4
+    num_enc_layers_per_block: int = 3
+    num_dec_layers_per_block: int = 3
+    res_balance: float = 0.3
+    clip_act: float = 256.0
+    mlp_multiplier: int = 2
+    mlp_groups: int = 1
+    emb_linear_groups: int = 1
+    add_pixel_norm: bool = False
+    latent_stats_momentum: float = 0.99
+    supersampled: bool = False
+    compute_dtype: str = "bfloat16"
+    #: TPU-only (W-axis lane packing); only the default is taken
+    w_pack_channels: int = 0
+
+
+class DAEBlock(nn.Module):
+    """MP residual block (JAX dae.py:69-137)."""
+
+    def __init__(self, cfg: DAEConfig, in_channels: int, out_channels: int,
+                 emb_channels: int, flavor: str = "enc", resample_mode: str = "keep",
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.flavor = flavor
+        self.resample_mode = resample_mode
+        self.emb_channels = emb_channels
+        c_mid = out_channels * cfg.mlp_multiplier
+        c_in0 = out_channels if flavor == "enc" else in_channels
+        self.conv_skip = (MPConv(in_channels, out_channels, (1, 1), device=device)
+                          if in_channels != out_channels else None)
+        self.conv_res0 = MPConv(c_in0, c_mid, (3, 3), groups=cfg.mlp_groups, device=device)
+        self.conv_res1 = MPConv(c_mid, out_channels, (3, 3), groups=cfg.mlp_groups,
+                                device=device)
+        if emb_channels > 0:
+            self.emb_gain = nn.Parameter(torch.zeros((), device=device))
+            self.emb_linear = MPConv(emb_channels, c_mid, (), groups=cfg.emb_linear_groups,
+                                     device=device)
+
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        x = resample_2d(x, self.resample_mode)
+        if self.flavor == "enc":
+            if self.conv_skip is not None:
+                x = self.conv_skip(x)
+            if cfg.add_pixel_norm:
+                x = normalize(x, dim=-1)
+        # no activation before conv_res0 (dae_edm2_q4.py:180)
+        y = self.conv_res0(x)
+        if self.emb_channels > 0 and emb is not None:
+            c = self.emb_linear(emb, gain=self.emb_gain) + 1.0
+            y = y * c[:, None, None, :].to(y.dtype)
+        y = self.conv_res1(mp_silu(normalize_groups(y, cfg.mlp_groups)))
+        if self.flavor == "dec" and self.conv_skip is not None:
+            x = self.conv_skip(x)
+        x = mp_sum(x, y, t=cfg.res_balance)
+        if cfg.clip_act is not None:
+            x = x.clamp(-cfg.clip_act, cfg.clip_act)
+        return x
+
+
+class DAE(nn.Module):
+    """Stage-1 autoencoder. Latents: (B, H/ds, W/ds, latent_channels)."""
+
+    def __init__(self, cfg: DAEConfig, device=None):
+        super().__init__()
+        if cfg.w_pack_channels != 0:
+            raise NotImplementedError("DAEConfig.w_pack_channels is TPU-only; use 0")
+        if cfg.supersampled or cfg.in_channels_emb > 0:
+            raise NotImplementedError("supersampled / label-conditioned DAEs are not ported")
+        self.cfg = cfg
+        enc_ch = [cfg.model_channels * m for m in cfg.channel_mult_enc]
+        dec_ch = [cfg.model_channels * m for m in cfg.channel_mult_dec]
+        if len(enc_ch) != len(dec_ch):
+            raise ValueError("asymmetric enc/dec levels require supersampled=True")
+
+        self.conv_in = MPConv(cfg.in_channels, enc_ch[0], (5, 5), use_bias=True, device=device)
+        enc = []
+        cin = enc_ch[0]
+        for level, cout in enumerate(enc_ch):
+            if level > 0:
+                enc.append(DAEBlock(cfg, cin, cout, 0, "enc", "down", device=device))
+            for _ in range(cfg.num_enc_layers_per_block):
+                enc.append(DAEBlock(cfg, cout, cout, 0, "enc", device=device))
+            cin = cout
+        self.enc = nn.ModuleList(enc)
+        self.conv_latents_out = MPConv(enc_ch[-1], cfg.latent_channels, (3, 3), device=device)
+        self.conv_latents_in = MPConv(cfg.latent_channels, dec_ch[-1], (3, 3), use_bias=True,
+                                      device=device)
+        dec = []
+        cin = dec_ch[-1]
+        for level in reversed(range(len(dec_ch))):
+            cout = dec_ch[level]
+            mode = "keep" if level == len(dec_ch) - 1 else "up"
+            dec.append(DAEBlock(cfg, cin, cout, 0, "dec", mode, device=device))
+            for _ in range(cfg.num_dec_layers_per_block):
+                dec.append(DAEBlock(cfg, cout, cout, 0, "dec", device=device))
+            cin = cout
+        self.dec = nn.ModuleList(dec)
+        self.conv_out = MPConv(dec_ch[0], cfg.out_channels, (5, 5), device=device)
+        self.out_gain = nn.Parameter(torch.ones((), device=device))
+        self.recon_loss_logvar = nn.Parameter(torch.zeros((), device=device))
+        lc = cfg.latent_channels
+        # the latent stats tracker's state (the flax "stats" collection)
+        self.register_buffer("latents_mean", torch.zeros(lc, device=device))
+        self.register_buffer("latents_var", torch.ones(lc, device=device))
+        self.register_buffer("latents_global_mean", torch.zeros((), device=device))
+        self.register_buffer("latents_global_var", torch.ones((), device=device))
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.cfg.channel_mult_dec)
+
+    @property
+    def downsample_ratio(self) -> int:
+        return 2 ** (self.num_levels - 1)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "DAE":
+        for m in self.modules():
+            if isinstance(m, MPConv):
+                m.init_weights(generator)
+        return self
+
+    def get_latent_shape(self, sample_shape: Sequence[int]) -> Tuple[int, ...]:
+        b, h, w, _ = sample_shape
+        ds = self.downsample_ratio
+        return (b, h // ds, w // ds, self.cfg.latent_channels)
+
+    def unnormalize_latents(self, latents: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        std = torch.sqrt(self.latents_var + eps)
+        return (latents * std + self.latents_mean).to(latents.dtype)
+
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, latent_channels) -> (B, h*ds, w*ds, out_channels) fp32."""
+        x = latents.to(getattr(torch, self.cfg.compute_dtype))
+        x = self.conv_latents_in(x)
+        for block in self.dec:
+            x = block(x)
+        return self.conv_out(x, gain=self.out_gain).float()

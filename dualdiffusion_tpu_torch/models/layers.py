@@ -1,0 +1,155 @@
+"""Magnitude-preserving layers, channel last (JAX: dualdiffusion_tpu/models/
+layers.py:160-269, 629-650; reference: src/modules/mp_tools.py:316-378).
+
+MP weights are stored reference-style as (out, in/groups, *kernel) under
+the parameter name ``w_mp`` (``w_raw`` when weight norm is disabled).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.kernels import grouped_conv3x3, prepare_weights
+from .mp import normalize
+
+MP_WEIGHT_NAME = "w_mp"
+RAW_WEIGHT_NAME = "w_raw"
+
+
+class MPConv(nn.Module):
+    """Weight-normalized magnitude-preserving conv / linear.
+
+    kernel () -> linear on the last dim; (kh, kw) -> 2D conv on NHWC input.
+    A grouped 3x3 stride-1 conv of a CUDA tensor runs kernel K1
+    (ops/kernels/grouped_conv.py); every other conv runs
+    ``torch.nn.functional.conv2d`` (the JAX package leaves those to XLA).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel: Tuple[int, ...] = (), groups: int = 1, stride: int = 1,
+                 disable_weight_norm: bool = False, use_bias: bool = False,
+                 zero_init: bool = False, w_pad_mode: str = "zeros",
+                 device=None):
+        super().__init__()
+        if len(kernel) not in (0, 2):
+            raise NotImplementedError(f"kernel rank {len(kernel)} (3-D convs) is not ported")
+        if w_pad_mode != "zeros":
+            raise NotImplementedError(f"w_pad_mode={w_pad_mode!r} is not ported")
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel = tuple(kernel)
+        self.groups = groups
+        self.stride = stride
+        self.disable_weight_norm = disable_weight_norm
+        self.use_bias = use_bias
+        self.zero_init = zero_init
+        shape = (out_channels, in_channels // groups) + self.kernel
+        name = RAW_WEIGHT_NAME if disable_weight_norm else MP_WEIGHT_NAME
+        self.weight_name = name
+        self.register_parameter(name, nn.Parameter(torch.empty(shape, device=device)))
+        if use_bias:
+            self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+        else:
+            self.bias = None
+        self._kernel_weight_cache = None
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return getattr(self, self.weight_name)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX package's init: N(0, 1) (zeros with zero_init); bias
+        alternating +-1/sqrt(out/groups)."""
+        w = self.weight
+        if self.zero_init:
+            w.zero_()
+        else:
+            w.copy_(torch.randn(w.shape, generator=generator, device=generator.device))
+        if self.bias is not None:
+            group_dim = self.out_channels // self.groups
+            sign = np.where(np.arange(self.out_channels) % 2 == 0, 1.0, -1.0)
+            self.bias.copy_(torch.as_tensor(sign / np.sqrt(group_dim), dtype=torch.float32))
+
+    def _scaled_weight(self, gain, training: bool) -> torch.Tensor:
+        w = self.weight
+        if training and not self.disable_weight_norm:
+            w = normalize(w)
+        w = w / np.sqrt(float(np.prod(w.shape[1:])))
+        if not (isinstance(gain, (int, float)) and gain == 1.0):
+            w = w * gain
+        return w
+
+    def _uses_kernel(self, x: torch.Tensor) -> bool:
+        return (self.groups > 1 and self.kernel == (3, 3) and self.stride == 1
+                and x.dim() == 4)
+
+    def _kernel_weight(self, gain, dtype) -> torch.Tensor:
+        """K1's pre-arranged weights, made once per module and reused until
+        the parameter changes."""
+        w = self.weight
+        gain_key = gain if isinstance(gain, (int, float)) else (id(gain), gain._version)
+        key = (w._version, w.data_ptr(), gain_key, dtype)
+        if self._kernel_weight_cache is None or self._kernel_weight_cache[0] != key:
+            with torch.no_grad():
+                wt = prepare_weights(self._scaled_weight(gain, False), self.groups, dtype)
+            self._kernel_weight_cache = (key, wt)
+        return self._kernel_weight_cache[1]
+
+    def forward(self, x: torch.Tensor, gain: Union[float, torch.Tensor] = 1.0,
+                training: bool = False) -> torch.Tensor:
+        if isinstance(gain, torch.Tensor) and gain.dim() > 0:
+            raise NotImplementedError("per-sample gains are not ported")
+        if len(self.kernel) == 0:
+            w = self._scaled_weight(gain, training)
+            if self.groups > 1:
+                g = self.groups
+                xg = x.reshape(x.shape[:-1] + (g, self.in_channels // g))
+                wg = w.to(x.dtype).reshape(g, self.out_channels // g, self.in_channels // g)
+                out = torch.einsum("...gi,goi->...go", xg, wg)
+                out = out.reshape(x.shape[:-1] + (self.out_channels,))
+            else:
+                out = torch.matmul(x, w.t().to(x.dtype))
+        elif self._uses_kernel(x) and not training:
+            out = grouped_conv3x3(x.contiguous(), self._kernel_weight(gain, x.dtype),
+                                  self.groups)
+        else:
+            w = self._scaled_weight(gain, training).to(x.dtype)
+            out = self._conv(x, w)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        kh, kw = self.kernel
+        if self.stride == 1 and (kh, kw) == (1, 1) and self.groups == 1:
+            # 1x1 conv == matmul over the channel dim
+            return torch.matmul(x, w.reshape(w.shape[0], w.shape[1]).t())
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
+                     padding=(kh // 2, kw // 2), groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class MPFourier(nn.Module):
+    """MP Fourier features with erfinv-spaced frequencies and alternating
+    pi/2 phases (EDM2 eq. 75). No parameters."""
+
+    def __init__(self, num_channels: int, bandwidth: float = 1.0, eps: float = 1e-3,
+                 device=None):
+        super().__init__()
+        lin = torch.as_tensor(np.linspace(0, 1 - eps, num_channels), dtype=torch.float64)
+        freqs = np.pi * torch.special.erfinv(lin) * bandwidth
+        phases = np.pi / 2 * (np.arange(num_channels) % 2 == 0)
+        self.register_buffer("freqs", freqs.float().to(device), persistent=False)
+        self.register_buffer("phases", torch.as_tensor(phases, dtype=torch.float32,
+                                                       device=device), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B,) -> (B, C)."""
+        y = x.float()[:, None] * self.freqs[None, :] + self.phases
+        return (torch.cos(y) * np.sqrt(2.0)).to(x.dtype)

@@ -1,0 +1,328 @@
+"""EDM2 magnitude-preserving UNet, channel last, 2-D path
+(JAX: dualdiffusion_tpu/models/unet.py:155-700; reference:
+src/modules/unets/unet_edm2_d1.py, unet_edm2_q4_ddec.py).
+
+EDM2 preconditioning is in-model, with bf16 activations and fp32 io.
+Module and parameter names mirror the JAX package's flax paths, so
+``weights.py`` maps one onto the other by rule.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Literal, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .attention import scaled_dot_product_attention
+from .layers import MPConv, MPFourier
+from .mp import mp_cat, mp_silu, mp_sum, normalize, resample_2d
+
+
+@dataclass
+class UNetConfig:
+    """Field names and defaults of dualdiffusion_tpu.models.unet.UNetConfig."""
+    in_channels: int = 4
+    out_channels: int = 4
+    in_channels_emb: int = 0
+    in_num_freqs: int = 256
+    in_psd_freqs: int = 0
+
+    sigma_max: float = 200.0
+    sigma_min: float = 0.03
+    sigma_data: float = 1.0
+
+    model_channels: int = 64
+    channel_mult: Tuple[int, ...] = (1, 2, 3, 4)
+    channel_mult_noise: Optional[int] = None
+    channel_mult_emb: Optional[int] = None
+    num_layers_per_block: int = 2
+    attn_levels: Tuple[int, ...] = ()
+    attn_axis: Literal["freq", "time", "full"] = "freq"
+    midblock_attn: bool = False
+    double_midblock: bool = False
+    channels_per_head: int = 64
+    label_balance: float = 0.5
+    concat_balance: float = 0.5
+    res_balance: float = 0.3
+    attn_balance: float = 0.3
+    clip_act: float = 256.0
+    mlp_multiplier: int = 1
+    mlp_groups: int = 1
+    emb_linear_groups: int = 1
+    dropout: float = 0.0
+    logvar_channels: int = 128
+    use_3d: bool = False
+    input_kernel: Tuple[int, int] = (3, 3)
+    io_kernel_z: int = 1
+    skip_kernel_z: int = 2
+    io_bias: bool = True
+    always_skip: bool = False
+    conv_w_pad: str = "zeros"
+    add_constant_channel: bool = False
+    add_ln_freqs_channel: bool = False
+    #: TPU-only (activation rematerialization); only the default is taken
+    remat_blocks: bool = False
+    #: TPU-only (W-axis lane packing); only the default is taken
+    w_pack_channels: int = 0
+
+
+def _check_supported(cfg: UNetConfig) -> None:
+    unported = {"w_pack_channels": 0, "remat_blocks": False, "use_3d": False,
+                "in_psd_freqs": 0, "conv_w_pad": "zeros", "add_constant_channel": False,
+                "add_ln_freqs_channel": False, "dropout": 0.0}
+    for name, default in unported.items():
+        if getattr(cfg, name) != default:
+            raise NotImplementedError(f"UNetConfig.{name}={getattr(cfg, name)!r} is not ported")
+
+
+class UNetBlock(nn.Module):
+    """Emb-modulated MP residual block with optional freq/time/full
+    self-attention (JAX unet.py:155-360)."""
+
+    def __init__(self, cfg: UNetConfig, in_channels: int, out_channels: int,
+                 emb_channels: int, flavor: str = "enc", resample_mode: str = "keep",
+                 use_attention: bool = False, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.emb_channels = emb_channels
+        self.flavor = flavor
+        self.resample_mode = resample_mode
+        self.use_attention = use_attention
+        c_mid = out_channels * cfg.mlp_multiplier
+        c_in_res0 = out_channels if flavor == "enc" else in_channels
+        if cfg.always_skip or in_channels != out_channels:
+            self.conv_skip = MPConv(in_channels, out_channels, (1, 1), device=device)
+        else:
+            self.conv_skip = None
+        self.conv_res0 = MPConv(c_in_res0, c_mid, (3, 3), groups=cfg.mlp_groups, device=device)
+        self.conv_res1 = MPConv(c_mid, out_channels, (3, 3), groups=cfg.mlp_groups,
+                                device=device)
+        if emb_channels > 0:
+            self.emb_gain = nn.Parameter(torch.zeros((), device=device))
+            self.emb_linear = MPConv(emb_channels, c_mid, (), groups=cfg.emb_linear_groups,
+                                     device=device)
+        if use_attention:
+            ch = out_channels
+            self.attn_qk = MPConv(ch, ch * 2, (1, 1), device=device)
+            self.attn_v = MPConv(ch, ch, (1, 1), device=device)
+            self.attn_proj = MPConv(ch, ch, (1, 1), device=device)
+            if emb_channels > 0:
+                self.emb_gain_qk = nn.Parameter(torch.zeros((), device=device))
+                self.emb_linear_qk = MPConv(emb_channels, ch, (), device=device)
+                self.emb_gain_v = nn.Parameter(torch.zeros((), device=device))
+                self.emb_linear_v = MPConv(emb_channels, ch, (), device=device)
+
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        x = resample_2d(x, self.resample_mode)
+        if self.flavor == "enc":
+            if self.conv_skip is not None:
+                x = self.conv_skip(x)
+            x = normalize(x, dim=-1)
+        y = self.conv_res0(mp_silu(x))
+        if self.emb_channels > 0 and emb is not None:
+            c = self.emb_linear(emb, gain=self.emb_gain) + 1.0
+            y = y * c.reshape(c.shape[0], 1, 1, c.shape[-1]).to(y.dtype)
+        y = self.conv_res1(mp_silu(y))
+        if self.flavor == "dec" and self.conv_skip is not None:
+            x = self.conv_skip(x)
+        x = mp_sum(x, y, t=cfg.res_balance)
+        if self.use_attention:
+            x = self._attention(x, emb)
+        if cfg.clip_act is not None:
+            x = x.clamp(-cfg.clip_act, cfg.clip_act)
+        return x
+
+    def _modulation(self, name: str, emb: Optional[torch.Tensor], x: torch.Tensor):
+        if self.emb_channels > 0 and emb is not None:
+            c = getattr(self, f"emb_linear_{name}")(emb, gain=getattr(self, f"emb_gain_{name}"))
+            c = c + 1.0
+            return c.reshape(c.shape[0], 1, 1, c.shape[-1]).to(x.dtype)
+        return 1.0
+
+    def _attention(self, x: torch.Tensor, emb: Optional[torch.Tensor]) -> torch.Tensor:
+        """q/k-normalized SDPA with emb-modulated qk and v gains."""
+        cfg = self.cfg
+        ch = self.out_channels
+        num_heads = max(ch // cfg.channels_per_head, 1)
+        qk = self.attn_qk(x * self._modulation("qk", emb, x))
+        v = self.attn_v(x)
+        b, h, w, _ = x.shape
+
+        def to_seq(t: torch.Tensor) -> torch.Tensor:
+            if cfg.attn_axis == "full":
+                return t.reshape(b, h * w, t.shape[-1])
+            if cfg.attn_axis == "freq":   # sequence = H, batch' = B * W
+                return t.permute(0, 2, 1, 3).reshape(b * w, h, t.shape[-1])
+            return t.reshape(b * h, w, t.shape[-1])  # "time": sequence = W
+
+        qk_s, v_s = to_seq(qk), to_seq(v)
+        bs, seq = qk_s.shape[:2]
+        hd = ch // num_heads
+        qk_h = qk_s.reshape(bs, seq, num_heads, 2, hd)
+        q = normalize(qk_h[..., 0, :], dim=-1)
+        k = normalize(qk_h[..., 1, :], dim=-1)
+        vh = normalize(v_s.reshape(bs, seq, num_heads, hd), dim=-1)
+        y = scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                         vh.transpose(1, 2), scale=1.0 / np.sqrt(hd))
+        y = y.transpose(1, 2).to(x.dtype).reshape(bs, seq, ch)
+        if cfg.attn_axis == "freq":
+            y = y.reshape(b, w, h, ch).permute(0, 2, 1, 3)
+        else:
+            y = y.reshape(b, h, w, ch)
+        y = mp_silu(y * self._modulation("v", emb, x))
+        y = self.attn_proj(y)
+        return mp_sum(x, y, t=cfg.attn_balance)
+
+
+class UNetCore(nn.Module):
+    """EDM2-preconditioned MP-UNet trunk (JAX unet.py:363-638)."""
+
+    def __init__(self, cfg: UNetConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        cblock = [cfg.model_channels * m for m in cfg.channel_mult]
+        cemb = (cfg.model_channels * cfg.channel_mult_emb if cfg.channel_mult_emb
+                else max(cblock)) * cfg.mlp_multiplier
+        cnoise = (cfg.model_channels * cfg.channel_mult_noise if cfg.channel_mult_noise
+                  else max(cblock))
+        self.schedule = self._build_schedule(cblock)
+        self.emb_fourier = MPFourier(cnoise, device=device)
+        self.emb_noise = MPConv(cnoise, cemb, (), device=device)
+        for name, kind, level, cin, cout in self.schedule:
+            if kind == "enc_in":
+                mod = MPConv(cin, cout, tuple(cfg.input_kernel), use_bias=cfg.io_bias,
+                             device=device)
+            elif kind == "conv_out":
+                mod = MPConv(cin, cout, (3, 3), device=device)
+            else:
+                flavor = "enc" if kind.startswith("enc") else "dec"
+                resample = {"enc_down": "down", "dec_up": "up"}.get(kind, "keep")
+                attn = cfg.midblock_attn if kind == "dec_mid" else level in cfg.attn_levels
+                mod = UNetBlock(cfg, cin, cout, cemb, flavor=flavor, resample_mode=resample,
+                                use_attention=attn, device=device)
+            self.add_module(name, mod)
+        self.out_gain = nn.Parameter(torch.zeros((), device=device))
+
+    def _build_schedule(self, cblock):
+        """(name, kind, level, cin, cout) in execution order (JAX unet.py:389-434)."""
+        cfg = self.cfg
+        cout = cfg.in_channels
+        ops, skip_ch = [], []
+        for level, channels in enumerate(cblock):
+            if level == 0:
+                ops.append(("enc_conv_in", "enc_in", 0, cout, channels))
+                cout = channels
+            else:
+                ops.append((f"enc_b{level}_down", "enc_down", level, cout, cout))
+            skip_ch.append(cout)
+            for idx in range(cfg.num_layers_per_block):
+                ops.append((f"enc_b{level}_l{idx}", "enc_layer", level, cout, channels))
+                cout = channels
+                skip_ch.append(cout)
+        for level, channels in reversed(list(enumerate(cblock))):
+            if level == len(cblock) - 1:
+                ops.append((f"dec_b{level}_in0", "dec_mid", level, cout, cout))
+                if cfg.double_midblock:
+                    ops.append((f"dec_b{level}_in1", "dec_mid", level, cout, cout))
+            else:
+                ops.append((f"dec_b{level}_up", "dec_up", level, cout, cout))
+            for idx in range(cfg.num_layers_per_block + 1):
+                sc = skip_ch.pop()
+                ops.append((f"dec_b{level}_l{idx}", "dec_layer", level, cout + sc, channels))
+                cout = channels
+        ops.append(("conv_out", "conv_out", 0, cout, cfg.out_channels))
+        return ops
+
+    def precondition(self, x_in: torch.Tensor, sigma: torch.Tensor,
+                     embeddings: Optional[torch.Tensor]):
+        """EDM2 preconditioning + noise/label embedding.
+        Returns (x, emb, c_skip, c_out)."""
+        cfg = self.cfg
+        sigma = sigma.reshape(-1, 1, 1, 1).float()
+        sd = cfg.sigma_data
+        c_skip = sd ** 2 / (sigma ** 2 + sd ** 2)
+        c_out = sigma * sd / torch.sqrt(sigma ** 2 + sd ** 2)
+        c_in = 1.0 / torch.sqrt(sd ** 2 + sigma ** 2)
+        c_noise = torch.log(sigma.reshape(-1)) / 4.0
+        x = (c_in * x_in.float()).to(torch.bfloat16)
+        emb = self.emb_noise(self.emb_fourier(c_noise))
+        if cfg.in_channels_emb > 0 and embeddings is not None:
+            emb = mp_silu(mp_sum(emb, embeddings.to(emb.dtype), t=cfg.label_balance))
+        return x, emb.to(torch.bfloat16), c_skip, c_out
+
+    def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
+                embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        div = 1 << (len(cfg.channel_mult) - 1)
+        h, w = x_in.shape[-3], x_in.shape[-2]
+        if h % div or w % div:
+            raise ValueError(f"UNet input H,W=({h},{w}) must be divisible by {div} "
+                             f"(2^(levels-1), {len(cfg.channel_mult)} levels)")
+        x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings)
+        skips = []
+        for name, kind, _, _, _ in self.schedule:
+            mod = getattr(self, name)
+            if kind == "enc_in":
+                x = mod(x)
+                skips.append(x)
+            elif kind in ("enc_down", "enc_layer"):
+                x = mod(x, emb)
+                skips.append(x)
+            elif kind in ("dec_mid", "dec_up"):
+                x = mod(x, emb)
+            elif kind == "dec_layer":
+                x = mod(mp_cat(x, skips.pop(), dim=-1, t=cfg.concat_balance), emb)
+            else:
+                x = mod(x, gain=self.out_gain)
+        return c_skip * x_in.float() + c_out * x.float()
+
+
+class UNet(nn.Module):
+    """MP-UNet with its label-embedding heads (JAX unet.py:641-709)."""
+
+    def __init__(self, cfg: UNetConfig, device=None):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.core = UNetCore(cfg, device=device)
+        cblock = [cfg.model_channels * m for m in cfg.channel_mult]
+        cemb = (cfg.model_channels * cfg.channel_mult_emb if cfg.channel_mult_emb
+                else max(cblock)) * cfg.mlp_multiplier
+        if cfg.in_channels_emb > 0:
+            self.emb_label = MPConv(cfg.in_channels_emb, cemb, (), device=device)
+            self.emb_label_unconditional = MPConv(1, cemb, (), device=device)
+        # the logvar head's weight rides along so model directories round-trip
+        self.logvar_linear = MPConv(cfg.logvar_channels, 1, (), disable_weight_norm=True,
+                                    zero_init=True, device=device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "UNet":
+        """Random init from ``generator``, as the JAX package initializes:
+        N(0, 1) MP weights, zero gains."""
+        for m in self.modules():
+            if isinstance(m, MPConv):
+                m.init_weights(generator)
+        for name, p in self.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith(("emb_gain", "out_gain")):
+                p.zero_()
+        return self
+
+    def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
+                embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.core(x_in, sigma, embeddings)
+
+    def get_embeddings(self, emb_in: torch.Tensor,
+                       conditioning_mask: torch.Tensor) -> Optional[torch.Tensor]:
+        """CFG label embedding: mp_sum(unconditional, conditional, t=mask)."""
+        if self.cfg.in_channels_emb <= 0:
+            return None
+        u = self.emb_label_unconditional(torch.ones((1, 1), dtype=emb_in.dtype,
+                                                    device=emb_in.device))
+        c = self.emb_label(normalize(emb_in, dim=-1))
+        return mp_sum(u, c, t=conditioning_mask[:, None])

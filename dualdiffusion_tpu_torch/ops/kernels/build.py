@@ -1,0 +1,112 @@
+"""Build the port's CUDA kernels from ``dualdiffusion_tpu_torch/csrc`` and load
+them with ctypes.
+
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds). The
+library is built at first use into ``csrc/build/``, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+# argtypes of every exported C function
+SIGNATURES = {
+    "dd_grouped_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dd_fgla_frame": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_I), _I,
+                      _LL, _I, _F, _F, _I, _P],
+    "dd_ola_reframe": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+}
+
+
+class KernelLibrary:
+    """The loaded library plus what its build printed and took."""
+
+    def __init__(self, path: Path, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        self.lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self.lib.dd_error_string.argtypes = [ctypes.c_int]
+        self.lib.dd_error_string.restype = ctypes.c_char_p
+
+    def check(self, err: int, what: str) -> None:
+        """Raise if a launcher returned a CUDA error."""
+        if err != 0:
+            msg = self.lib.dd_error_string(err).decode()
+            raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build() -> KernelLibrary:
+    """Compile (if needed) and load the kernel library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libdd_kernels_{h.hexdigest()[:16]}.so"
+    if lib_path.is_file():
+        return KernelLibrary(lib_path, 0.0, "(cached)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib_path)
+    return KernelLibrary(lib_path, seconds, log)
+
+
+_LOCK = threading.Lock()
+_LIB: Optional[KernelLibrary] = None
+
+
+def library() -> KernelLibrary:
+    """The process's kernel library, built on the first call."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = build()
+        return _LIB

@@ -1,0 +1,70 @@
+"""The weight bridge between the JAX package's flat parameter dicts and the
+port's ``state_dict``s.
+
+The JAX package stores a module's variables flattened to '/'-joined flax
+paths (``params/core/enc_b0_l0/conv_res0/w_mp``), with 0-d leaves stored as
+shape (1,) under a ``#0d`` suffix (dualdiffusion_tpu/pipelines/
+pipeline.py:81-107). The port names its modules and parameters after the
+flax paths, so the whole map is the table below.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+#: flax collection of a torch state_dict entry, by its last name; the rest
+#: live in "params"
+COLLECTIONS = {
+    "latents_mean": "stats",
+    "latents_var": "stats",
+    "latents_global_mean": "stats",
+    "latents_global_var": "stats",
+}
+
+#: (torch pattern, flax replacement) renames, applied in order to a torch
+#: key whose '.' separators already became '/'
+TORCH_TO_FLAX = [
+    (r"^(enc|dec)/(\d+)/", r"\1_\2/"),   # DAE block lists: enc.3 <-> enc_3
+]
+
+SCALAR_SUFFIX = "#0d"
+
+
+def flax_key(torch_key: str, scalar: bool) -> str:
+    path = torch_key.replace(".", "/")
+    for pat, rep in TORCH_TO_FLAX:
+        path = re.sub(pat, rep, path)
+    collection = COLLECTIONS.get(path.rsplit("/", 1)[-1], "params")
+    return f"{collection}/{path}" + (SCALAR_SUFFIX if scalar else "")
+
+
+def to_flat(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The module's state as the JAX package's flat dict (fp32 numpy)."""
+    out = {}
+    for k, v in module.state_dict().items():
+        a = v.detach().float().cpu().numpy()
+        out[flax_key(k, a.ndim == 0)] = a.reshape(1) if a.ndim == 0 else a
+    return out
+
+
+def load_flat(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
+    """Load a JAX-package flat dict into ``module``; every key must match."""
+    state = module.state_dict()
+    want = {flax_key(k, v.dim() == 0): k for k, v in state.items()}
+    missing = sorted(set(want) - set(flat))
+    unexpected = sorted(set(flat) - set(want))
+    if missing or unexpected:
+        raise KeyError(f"weight keys differ: missing {missing[:8]}, unexpected {unexpected[:8]}")
+    new_state = {}
+    for fk, tk in want.items():
+        a = np.asarray(flat[fk], np.float32)
+        shape = tuple(state[tk].shape)
+        if a.shape != (shape or (1,)):
+            raise ValueError(f"{fk}: shape {a.shape} does not fit {shape}")
+        new_state[tk] = torch.from_numpy(a.copy()).reshape(shape)
+    module.load_state_dict(new_state)

@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+Every test here is marked ``cuda`` and skips without a card. The file
+imports no JAX, so it runs on a machine with only PyTorch and the CUDA
+toolkit:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py sets up JAX for the rest of the suite.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dualdiffusion_tpu_torch.ops.kernels import (dft_twiddles, fgla_frame, fgla_frame_plain,
+                                                 grouped_conv3x3, grouped_conv3x3_plain,
+                                                 ola_reframe, ola_reframe_plain,
+                                                 prepare_weights)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,groups,cig,cog", [(1, 3, 5, 2, 8, 8), (2, 4, 86, 8, 288, 256),
+                                                  (2, 2, 43, 8, 320, 320)])
+def test_grouped_conv_kernel_matches_plain(cuda, b, h, w, groups, cig, cog):
+    """bf16 out: one rounding of an fp32 sum taken in another order."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((b, h, w, groups * cig), generator=g, device=cuda).bfloat16()
+    wt = prepare_weights(torch.randn((groups * cog, cig, 3, 3), generator=g, device=cuda)
+                         / (9 * cig) ** 0.5, groups)
+    before = grouped_conv3x3.launches
+    got = grouped_conv3x3(x, wt, groups)
+    torch.cuda.synchronize()
+    assert grouped_conv3x3.launches == before + 1
+    assert _rel_err(got.float().cpu(), grouped_conv3x3_plain(x, wt, groups).float().cpu()) \
+        <= 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hop,dtype,tol", [(1280, 256, torch.float32, 1e-5),
+                                             (6400, 256, torch.bfloat16, 2 ** -6),
+                                             (384, 128, torch.float32, 1e-5)])
+def test_fgla_kernels_match_plain(cuda, n, hop, dtype, tol):
+    """fp32: transforms' rounding in another order; bf16: one rounding of
+    the stored result."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    f, bins = 40, n // 2 + 1
+    y = torch.randn((1, 2, f, n), generator=g, device=cuda).to(dtype)
+    win = torch.rand(n, generator=g, device=cuda) + 0.1
+    inv_env = torch.rand((f - 1) * hop + n, generator=g, device=cuda) + 0.5
+    frames = ola_reframe(y, win, inv_env, hop)
+    torch.cuda.synchronize()
+    assert _rel_err(frames.float().cpu(),
+                    ola_reframe_plain(y, win, inv_env, hop).float().cpu()) <= tol
+    spec = torch.rand((1, 2, f, bins), generator=g, device=cuda).to(dtype)
+    merged = spec.float().mean(1, keepdim=True).expand_as(spec).to(dtype).contiguous()
+    prev = torch.randn((1, 2, f, bins, 2), generator=g, device=cuda).to(dtype)
+    tw = dft_twiddles(n, cuda)
+    r, y2 = fgla_frame(frames, prev, spec, merged, 0.3, 0.4975, tw)
+    r_p, y2_p = fgla_frame_plain(frames, prev, spec, merged, 0.3, 0.4975)
+    torch.cuda.synchronize()
+    assert _rel_err(r.float().cpu(), r_p.float().cpu()) <= tol
+    assert _rel_err(y2.float().cpu(), y2_p.float().cpu()) <= tol
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
+    x = torch.randn((1, 4, 8, 16), device=cuda)            # fp32: K1 takes bf16 only
+    wt = prepare_weights(torch.randn((16, 8, 3, 3), device=cuda), 2)
+    with pytest.raises(TypeError):
+        grouped_conv3x3(x, wt, 2)
+    with pytest.raises(ValueError):
+        grouped_conv3x3(x.bfloat16(), wt.cpu(), 2)          # mixed devices
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase_init,tol", [("spsi", 1e-3), ("flat", 1e-2)])
+def test_griffinlim_kernel_loop_matches_plain_loop(cuda, phase_init, tol):
+    """fp32 state: the K3 + K2 loop and the plain stft/istft loop run the
+    same iteration on different FFTs; after 3 iterations they agree to 1e-3
+    of max from SPSI phases, and to 1e-2 from flat phases, whose
+    near-cancelling bins take their phase from rounding noise (measured
+    1.2e-3)."""
+    import math
+
+    from dualdiffusion_tpu_torch.ops import get_window, griffinlim, griffinlim_reference, stft
+    n_fft, hop, frames = 1280, 256, 41
+    win = get_window("hann_power", n_fft, exponent=8.0)
+    t = torch.arange((frames - 1) * hop, device=cuda, dtype=torch.float64) / 32000
+    sig = sum(0.2 * torch.sin(2 * math.pi * f * t) for f in (220.0, 473.0, 881.0)).float()
+    mag = stft(torch.stack([sig, 0.8 * sig])[None], win, n_fft, hop).abs()
+    kw = dict(n_iter=3, work_dtype="float32", phase_init=phase_init)
+    got = griffinlim(mag, win, n_fft, hop, **kw)
+    want = griffinlim_reference(mag, win, n_fft, hop, **kw)
+    assert _rel_err(got.cpu(), want.cpu()) < tol
+
+
+@pytest.mark.cuda
+def test_tiny_pipeline_generates_through_the_kernels(cuda):
+    """A tiny model (grouped MLP convs) generates finite audio on the card
+    and every kernel is launched on the way."""
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+    from dualdiffusion_tpu_torch.models.formats import (SpectrogramFormat,
+                                                        SpectrogramFormatConfig)
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    from dualdiffusion_tpu_torch.sampling import SampleParams
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ucfg = UNetConfig(in_channels=8, out_channels=8, in_channels_emb=1024, model_channels=32,
+                      channel_mult=(1, 2), num_layers_per_block=1, channels_per_head=32,
+                      mlp_multiplier=2, mlp_groups=2, attn_levels=(1,))
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                     num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=8)
+    fcfg = SpectrogramFormatConfig(window_duration_ms=40, padded_duration_ms=40,
+                                   num_frequencies=64, default_raw_length=63 * 256)
+    pipe = Pipeline({
+        "unet": ModuleHandle("unet", "unet", ucfg, UNet(ucfg, device=cuda).init_weights(g)),
+        "dae": ModuleHandle("dae", "dae", dcfg, DAE(dcfg, device=cuda).init_weights(g)),
+        "format": ModuleHandle("format", "format:spectrogram", fcfg, SpectrogramFormat(fcfg))})
+    before = launch_counts()
+    prompt = torch.randn((1, 1024), generator=g, device=cuda)
+    raw = pipe.generate(SampleParams(steps=2, num_fgla_iters=3), prompt_embedding=prompt)["raw"]
+    after = launch_counts()
+    assert raw.shape == (1, 2, 63 * 256) and torch.isfinite(raw).all()
+    assert all(after[k] > before[k] for k in after), (before, after)
