@@ -7,16 +7,24 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
 
 1. prints the card's name and power limit;
 2. builds the port's CUDA kernels from ``dualdiffusion_tpu_torch/csrc``;
-3. holds each kernel against its plain PyTorch version at the main path's
-   shapes (the reference-scale UNet's grouped convs at batch 2; one 45 s
-   stereo Griffin-Lim iteration; a 5-iteration Griffin-Lim run) and times
-   both, then holds a tiny model's whole slice on the card against the
-   same model on the CPU;
-4. drives the main path: builds the reference-scale pipeline (356M-param
+3. holds each kernel against its plain PyTorch version at the main paths'
+   shapes and times both: the reference-scale UNet's grouped convs forward
+   at batch 2 (K1), their backward at the training batch 8 (K1 on rotated
+   weights for dgrad, K4 for wgrad), one 45 s stereo Griffin-Lim iteration
+   (K2, K3) and a 5-iteration Griffin-Lim run;
+4. holds a tiny model's generate slice and its train steps on the card
+   against the same model on the CPU;
+5. drives the serving path: builds the reference-scale pipeline (356M-param
    UNet, 64-ch DAE, 256-bin mel format) from a seed, saves it, loads it with
    ``Pipeline.from_pretrained`` and calls ``generate`` twice (45 s, batch 1,
    CFG 1.5, Heun, SPSI + 100 Griffin-Lim iterations), checking the audio and
-   that every kernel was launched.
+   that K1, K2 and K3 were launched;
+6. drives the training path: writes a synthetic latent dataset and runs
+   ``python -m dualdiffusion_tpu_torch.train``'s entry in-process on that
+   model directory for 4 steps, then ``--resume`` for 1 more (device batch
+   8, gradient accumulation 2, AdamW, one EMA), checking the losses, that
+   params and EMA moved, that the checkpoint round-trips and that K1 and K4
+   were launched.
 
 Any failure raises, so the exit code is not 0. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -35,11 +43,17 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SAMPLER_STEPS = 100
 SEEDS = (1, 2)
+TRAIN_BATCH = 8          # device batch of the training path
+TRAIN_ACCUM = 2          # gradient accumulation steps
+TRAIN_STEPS = 4          # then one more after --resume
+TRAIN_SAMPLES = 32       # synthetic latents in the dataset
 
 #: (name, route, source, TPU kernel it replaces)
 KERNEL_INFO = [
     ("grouped_conv3x3", "cuda", "dualdiffusion_tpu_torch/csrc/grouped_conv3x3.cu",
      "dualdiffusion_tpu/ops/pallas/grouped_conv.py:120"),
+    ("grouped_conv3x3_wgrad", "cuda", "dualdiffusion_tpu_torch/csrc/grouped_conv3x3_wgrad.cu",
+     "dualdiffusion_tpu/ops/pallas/grouped_conv.py:342"),
     ("fgla_frame", "cuda", "dualdiffusion_tpu_torch/csrc/fgla_frame.cu",
      "dualdiffusion_tpu/ops/pallas/fgla_iter.py:75"),
     ("ola_reframe", "cuda", "dualdiffusion_tpu_torch/csrc/ola_reframe.cu",
@@ -132,6 +146,44 @@ def kernel_phase_conv(unet, groups: int, lat_h: int, lat_w: int, gen):
     print(f"  per UNet forward: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms, "
           f"cuDNN bf16 {cudnn_ms:.3f} ms", flush=True)
     return worst, ms, plain_ms
+
+
+def kernel_phase_conv_backward(unet, groups: int, lat_h: int, lat_w: int, gen):
+    """K1 dgrad (K1 on ``dgrad_weights``) and K4 wgrad against their plain
+    versions at every distinct grouped-conv shape of one training microbatch.
+    Both return bf16: one rounding of an fp32 sum taken in another order,
+    so they agree to one bf16 ulp of the max (2**-7)."""
+    import torch
+    from dualdiffusion_tpu_torch.ops.kernels import (dgrad_weights, grouped_conv3x3,
+                                                     grouped_conv3x3_plain, grouped_conv3x3_wgrad,
+                                                     grouped_conv3x3_wgrad_plain, prepare_weights)
+    shapes = grouped_conv_shapes(unet, TRAIN_BATCH, lat_h, lat_w)
+    counts = {s: shapes.count(s) for s in dict.fromkeys(shapes)}
+    print(f"K1 dgrad / K4 grouped_conv3x3_wgrad: {len(counts)} distinct shapes, {len(shapes)} "
+          f"convs per UNet backward (batch {TRAIN_BATCH}, groups {groups}); bf16 in/out, fp32 "
+          f"accumulation", flush=True)
+    res = {"dgrad": [0.0, 0.0, 0.0], "wgrad": [0.0, 0.0, 0.0]}
+    for (b, h, w, cin, cout), n in counts.items():
+        x = torch.randn((b, h, w, cin), generator=gen, device="cuda").bfloat16()
+        gy = torch.randn((b, h, w, cout), generator=gen, device="cuda").bfloat16()
+        wgt = torch.randn((cout, cin // groups, 3, 3), generator=gen, device="cuda")
+        wd = dgrad_weights(prepare_weights(wgt / (9 * cin // groups) ** 0.5, groups))
+        tag = f"({b},{h},{w},{cin}->{cout}) x{n}"
+        for key, fn, plain in (
+                ("dgrad", lambda: grouped_conv3x3(gy, wd, groups),
+                 lambda: grouped_conv3x3_plain(gy, wd, groups)),
+                ("wgrad", lambda: grouped_conv3x3_wgrad(x, gy, groups),
+                 lambda: grouped_conv3x3_wgrad_plain(x, gy, groups))):
+            got = fn()
+            torch.cuda.synchronize()
+            r = res[key]
+            r[0] = max(r[0], check_close(f"{key} {tag}", got, plain(), 2 ** -7))
+            r[1] += n * time_ms(fn)
+            r[2] += n * time_ms(plain)
+    for key, (_, ms, plain_ms) in res.items():
+        print(f"  {key} per UNet backward: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms",
+              flush=True)
+    return {k: tuple(v) for k, v in res.items()}
 
 
 def fgla_inputs(fmt, gen):
@@ -272,6 +324,207 @@ def slice_phase():
         raise AssertionError("the slice on the card disagrees with the CPU run")
 
 
+def train_slice_phase():
+    """Two train steps (gradient accumulation 2, AdamW, one EMA) of a tiny
+    grouped UNet on the card (K1 forward and dgrad, K4 wgrad) against the
+    same model on the CPU (their plain versions), with the same draws. Both
+    run the trunk in bf16 and round at different places: loss and grad norm
+    agree to 2e-2 relative. AdamW's first updates are about +-lr per element
+    whatever the gradient's size, so a bf16-level difference on a near-zero
+    gradient flips an element's update: params and EMA agree to 6 lr per
+    element, and no more than 2% of the elements differ by more than lr/2."""
+    import copy
+    import torch
+    from dualdiffusion_tpu_torch.models import UNet, UNetConfig
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.training import (EMABank, EMAConfig, SigmaSampler,
+                                                  UNetTrainConfig, build_optimizer,
+                                                  init_train_state, make_unet_train_step)
+    from dualdiffusion_tpu_torch.training.train_state import draw_unet_step
+    from dualdiffusion_tpu_torch.weights import state_to_flat, to_flat
+    ucfg = UNetConfig(in_channels=4, out_channels=4, in_channels_emb=64, model_channels=32,
+                      channel_mult=(1, 2), num_layers_per_block=1, channels_per_head=32,
+                      mlp_multiplier=2, mlp_groups=2, attn_levels=(1,))
+    tc = UNetTrainConfig(grad_accum_steps=2)
+    lr, n, shape = 1e-3, 8, (8, 16, 64, 4)
+    gen = torch.Generator().manual_seed(3)
+    unet = UNet(ucfg).init_weights(gen)
+    with torch.no_grad():
+        unet.core.out_gain.fill_(1.0)      # a zero out_gain stops every other gradient
+    batches = [{"samples": torch.randn(shape, generator=gen),
+                "embeddings": torch.randn((n, 64), generator=gen)} for _ in range(2)]
+    sampler = SigmaSampler(tc.sigma)
+    draws = [draw_unet_step(gen, sampler, tc, n, (n // 2,) + shape[1:], True,
+                            unet.emb_label.out_channels) for _ in batches]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(unet).to(dev)
+        opt = build_optimizer("adamw", model.parameters(), lr)
+        bank = EMABank([EMAConfig(name="std0.05", std=0.05)])
+        step = make_unet_train_step(opt, bank, tc, n)
+        state = init_train_state(model, opt, bank, tc.sigma, torch.Generator(device=dev))
+        before = launch_counts()
+        logs = [step(state, {k: v.to(dev) for k, v in b.items()}, d.to(dev))
+                for b, d in zip(batches, draws)]
+        after = launch_counts()
+        if dev == "cuda" and not all(after[k] > before[k]
+                                     for k in ("grouped_conv3x3", "grouped_conv3x3_wgrad")):
+            raise AssertionError(f"the train steps on the card skipped a kernel: {before} {after}")
+        out[dev] = ([float(g["loss"]) for g in logs], [float(g["grad_norm"]) for g in logs],
+                    to_flat(model), state_to_flat(state.ema_state["std0.05"]))
+    print("2 train steps of a tiny model, CUDA (kernels) vs CPU (plain versions):", flush=True)
+    (lc, gc, pc, ec), (lg, gg, pg, eg) = out["cpu"], out["cuda"]
+    for name, a, b in (("loss", lg, lc), ("grad norm", gg, gc)):
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        ok = rel <= 2e-2
+        print(f"  {name} {a} vs {b}: rel {rel:.3g} (tol 2e-2) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"train step {name} on the card disagrees with the CPU run")
+    worst, far, total = 0.0, 0, 0
+    for got, want in ((pg, pc), (eg, ec)):
+        for k in want:
+            diff = abs(got[k] - want[k])
+            worst = max(worst, float(diff.max()))
+            far += int((diff > lr / 2).sum())
+            total += diff.size
+    ok = worst <= 6 * lr and far <= 0.02 * total
+    print(f"  params and EMA: max abs diff {worst:.3g} (tol {6 * lr:g}), {far} of {total} "
+          f"elements beyond lr/2 (tol 2%) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("train step params on the card disagree with the CPU run")
+
+
+def serving_path(model_dir, fmt, prompt) -> None:
+    """``Pipeline.from_pretrained`` then ``generate`` once per seed, checking
+    the audio's shape, finiteness and loudness."""
+    import torch
+    from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline
+    from dualdiffusion_tpu_torch.sampling import SampleParams
+    t0 = time.perf_counter()
+    pipe = Pipeline.from_pretrained(model_dir, device="cuda")
+    print(f"from_pretrained: {time.perf_counter() - t0:.2f} s", flush=True)
+    params = SampleParams(steps=SAMPLER_STEPS, cfg_scale=1.5, use_heun=True,
+                          num_fgla_iters=100, fgla_phase_init="spsi")
+    outs = []
+    for seed in SEEDS:
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        t0 = time.perf_counter()
+        out = pipe.generate(params, torch.Generator(device="cuda").manual_seed(seed),
+                            prompt_embedding=prompt, decode_mode="fgla", timings=timings)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        raw = out["raw"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"generate seed {seed}: {params.steps} steps (CFG {params.cfg_scale}, Heun), "
+              f"{params.num_fgla_iters} FGLA iters; "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+              + f", total {total:.3f} s; peak memory {peak:.2f} GiB", flush=True)
+        rms = raw.float().square().mean().sqrt().item()
+        if tuple(raw.shape) != (1, 2, fmt.get_raw_crop_width()):
+            raise AssertionError(f"audio shape {tuple(raw.shape)}")
+        if not torch.isfinite(raw).all() or not rms > 0:
+            raise AssertionError(f"audio not finite or silent (rms {rms})")
+        print(f"  audio {tuple(raw.shape)} rms {rms:.5f}", flush=True)
+        outs.append(raw)
+    if torch.equal(outs[0], outs[1]):
+        raise AssertionError("two seeds gave identical audio")
+
+
+def _train_snapshot(trainer) -> dict:
+    """Everything a checkpoint must restore, copied to the host."""
+    st = trainer.state
+    opt = st.optimizer
+
+    def host(d):
+        return {k: v.detach().cpu().clone() for k, v in d.items()}
+    return {"counters": (st.global_step, st.total_samples_processed),
+            "params": host(dict(st.module.named_parameters())),
+            "ema": {name: host(p) for name, p in st.ema_state.items()},
+            "adamw": [host(opt.adamw.state[p]) for p in opt.params],
+            "clip": host(opt.clip.state_dict()),
+            "sigma_pdf": st.sigma_pdf.cpu(), "generator": st.generator.get_state()}
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if hasattr(a, "shape"):
+        return a.shape == b.shape and bool((a == b).all())
+    return a == b
+
+
+def training_path(model_dir: Path, data_dir: Path, latent_chw, emb_dim: int,
+                  device: str, batch: int = TRAIN_BATCH, accum: int = TRAIN_ACCUM,
+                  steps: int = TRAIN_STEPS) -> dict:
+    """The port's training entry on ``model_dir`` (a pipeline model
+    directory with a ``unet``): a synthetic latent dataset, ``steps`` steps,
+    then ``--resume`` for one more. Checks finite losses, that params and
+    the EMA moved, and that the resumed state is the saved one exactly.
+    Returns step seconds (after the first), samples/s and peak memory."""
+    import gc
+    import numpy as np
+    import torch
+    from dualdiffusion_tpu_torch import train
+    from dualdiffusion_tpu_torch.dataset import write_latent_dataset
+    write_latent_dataset(data_dir, TRAIN_SAMPLES, latent_chw, emb_dim, seed=5)
+    config = model_dir / "train_config.json"
+    config.write_text(json.dumps({
+        "device_batch_size": batch, "gradient_accumulation_steps": accum,
+        "lr_schedule": {"lr_warmup_steps": 0}, "emas": {"std0.05": {"std": 0.05}},
+        "dataloader": {"latents_crop_width": latent_chw[-1]}}))
+    argv = ["--model_path", str(model_dir), "--train_config_path", str(config),
+            "--dataset_path", str(data_dir), "--device", device]
+    cuda = device == "cuda"
+    print(f"training: latents {tuple(latent_chw)}, device batch {batch} x accumulation {accum}, "
+          f"{TRAIN_SAMPLES} samples, {steps} steps then --resume for 1", flush=True)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train.main(argv + ["--max_steps", str(steps)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+    history = list(trainer.history)
+    saved = _train_snapshot(trainer)
+    del trainer
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    resumed = train.build_trainer(train.parse_args(argv + ["--resume",
+                                                           "--max_steps", str(steps + 1)]))
+    if not _same(_train_snapshot(resumed), saved):
+        raise AssertionError("the resumed train state differs from the saved one")
+    print(f"  checkpoint round-trip: step {resumed.state.global_step}, params, EMA, AdamW "
+          f"moments, clip, sigma pdf and generator restored exactly", flush=True)
+    resumed.train(max_steps=steps + 1)
+    history += resumed.history
+    final = resumed.state
+    losses = [h["loss"] for h in history]
+    if len(losses) != steps + 1 or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    if final.global_step != steps + 1:
+        raise AssertionError(f"ended at step {final.global_step}")
+    def moved(now, before) -> float:
+        return max(float((now[k].detach().float().cpu() - before[k].float()).abs().max())
+                   for k in before)
+    params_moved = moved(dict(final.module.named_parameters()), saved["params"])
+    ema_moved = moved(final.ema_state["std0.05"], saved["ema"]["std0.05"])
+    print(f"  losses {[round(x, 5) for x in losses]}; in the resumed step params moved by up to "
+          f"{params_moved:.4g} and the EMA by up to {ema_moved:.4g}", flush=True)
+    if not (params_moved > 0 and ema_moved > 0):
+        raise AssertionError("params or EMA did not move")
+    step_s = [h["seconds"] for h in history[1:steps]]
+    stats = {"step_s": float(np.mean(step_s)), "samples_per_s": batch * accum / np.mean(step_s),
+             "peak_gib": peak, "wall_s": wall}
+    print(f"  step seconds after the first {[round(x, 4) for x in step_s]} (mean "
+          f"{stats['step_s']:.4f}); {stats['samples_per_s']:.2f} samples/s; peak memory "
+          f"{peak:.2f} GiB; {steps} steps with checkpoint in {wall:.1f} s", flush=True)
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -286,7 +539,6 @@ def main() -> int:
     from dualdiffusion_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from dualdiffusion_tpu_torch.ops.kernels.build import library
     from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
-    from dualdiffusion_tpu_torch.sampling import SampleParams
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -319,7 +571,12 @@ def main() -> int:
     measured.update(kernel_phase_fgla(fmt, gen))
     slice_phase()
 
-    # ---- main path: save -> from_pretrained -> generate x2 -----------------
+    conv_back = kernel_phase_conv_backward(unet, ucfg.mlp_groups, lat_shape[1], lat_shape[2], gen)
+    measured["grouped_conv3x3_wgrad"] = conv_back["wgrad"]
+    measured.update(kernel_phase_fgla(fmt, gen))
+    slice_phase()
+    train_slice_phase()
+
     src = Pipeline({"unet": ModuleHandle("unet", "unet", ucfg, unet),
                     "dae": ModuleHandle("dae", "dae", dcfg, dae),
                     "format": ModuleHandle("format", "format:spectrogram", fcfg, fmt)})
@@ -332,45 +589,31 @@ def main() -> int:
         del src, unet, dae
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
+
+        # ---- serving path: from_pretrained -> generate x2 ------------------
         reset_launch_counts()
-        t0 = time.perf_counter()
-        pipe = Pipeline.from_pretrained(tmp, device="cuda")
-        print(f"from_pretrained: {time.perf_counter() - t0:.2f} s", flush=True)
-        params = SampleParams(steps=SAMPLER_STEPS, cfg_scale=1.5, use_heun=True,
-                              num_fgla_iters=100, fgla_phase_init="spsi")
-        outs = []
-        for seed in SEEDS:
-            torch.cuda.reset_peak_memory_stats()
-            timings = {}
-            t0 = time.perf_counter()
-            out = pipe.generate(params, torch.Generator(device="cuda").manual_seed(seed),
-                                prompt_embedding=prompt, decode_mode="fgla", timings=timings)
-            torch.cuda.synchronize()
-            total = time.perf_counter() - t0
-            raw = out["raw"]
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            print(f"generate seed {seed}: {params.steps} steps (CFG {params.cfg_scale}, Heun), "
-                  f"{params.num_fgla_iters} FGLA iters; "
-                  + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-                  + f", total {total:.3f} s; peak memory {peak:.2f} GiB", flush=True)
-            rms = raw.float().square().mean().sqrt().item()
-            if tuple(raw.shape) != (1, 2, fmt.get_raw_crop_width()):
-                raise AssertionError(f"audio shape {tuple(raw.shape)}")
-            if not torch.isfinite(raw).all() or not rms > 0:
-                raise AssertionError(f"audio not finite or silent (rms {rms})")
-            print(f"  audio {tuple(raw.shape)} rms {rms:.5f}", flush=True)
-            outs.append(raw)
-        counts = launch_counts()
-    print(f"kernel launches on the main path: {counts}", flush=True)
-    if torch.equal(outs[0], outs[1]):
-        raise AssertionError("two seeds gave identical audio")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+        serving_path(tmp, fmt, prompt)
+        counts = {"generate": launch_counts()}
+        print(f"kernel launches on the serving path: {counts['generate']}", flush=True)
+        for name in ("grouped_conv3x3", "fgla_frame", "ola_reframe"):
+            if counts["generate"][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the serving path")
+
+        # ---- training path: train 4 steps, --resume 1 more ------------------
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        training_path(Path(tmp), Path(tmp) / "latents", (ucfg.in_channels,) + lat_shape[1:3],
+                      ucfg.in_channels_emb, "cuda")
+        counts["train"] = launch_counts()
+        print(f"kernel launches on the training path: {counts['train']}", flush=True)
+        for name in ("grouped_conv3x3", "grouped_conv3x3_wgrad"):
+            if counts["train"][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the training path")
 
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": counts[name], "max_abs_err": measured[name][0],
-                "ms": measured[name][1], "plain_ms": measured[name][2]}
+                "launches": sum(c[name] for c in counts.values()),
+                "max_abs_err": measured[name][0], "ms": measured[name][1],
+                "plain_ms": measured[name][2]}
                for name, route, source, replaces in KERNEL_INFO]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels import grouped_conv3x3, prepare_weights
+from ..ops.kernels import GroupedConv3x3Fn, grouped_conv3x3, prepare_weights
 from .mp import normalize
 
 MP_WEIGHT_NAME = "w_mp"
@@ -25,9 +25,12 @@ class MPConv(nn.Module):
     """Weight-normalized magnitude-preserving conv / linear.
 
     kernel () -> linear on the last dim; (kh, kw) -> 2D conv on NHWC input.
-    A grouped 3x3 stride-1 conv of a CUDA tensor runs kernel K1
-    (ops/kernels/grouped_conv.py); every other conv runs
-    ``torch.nn.functional.conv2d`` (the JAX package leaves those to XLA).
+    A grouped 3x3 stride-1 conv runs kernel K1 (ops/kernels/grouped_conv.py),
+    in training through ``GroupedConv3x3Fn``, whose backward is K1 (dgrad)
+    and K4 (wgrad); CPU tensors take their plain versions. Every other conv
+    runs ``torch.nn.functional.conv2d`` (the JAX package leaves those to XLA).
+    ``training`` re-normalizes the weight in the forward (JAX layers.py
+    MPConv: ``normalize_weight`` when training).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -115,7 +118,11 @@ class MPConv(nn.Module):
                 out = out.reshape(x.shape[:-1] + (self.out_channels,))
             else:
                 out = torch.matmul(x, w.t().to(x.dtype))
-        elif self._uses_kernel(x) and not training:
+        elif self._uses_kernel(x) and training:
+            # no weight cache: the prepared weights carry the parameter's grad
+            wt = prepare_weights(self._scaled_weight(gain, True), self.groups, x.dtype)
+            out = GroupedConv3x3Fn.apply(x.contiguous(), wt, self.groups)
+        elif self._uses_kernel(x):
             out = grouped_conv3x3(x.contiguous(), self._kernel_weight(gain, x.dtype),
                                   self.groups)
         else:

@@ -20,6 +20,9 @@ from .attention import scaled_dot_product_attention
 from .layers import MPConv, MPFourier
 from .mp import mp_cat, mp_silu, mp_sum, normalize, resample_2d
 
+#: the trunk's activation dtype (JAX unet.py:562)
+ACT_DTYPE = torch.bfloat16
+
 
 @dataclass
 class UNetConfig:
@@ -117,41 +120,45 @@ class UNetBlock(nn.Module):
                 self.emb_gain_v = nn.Parameter(torch.zeros((), device=device))
                 self.emb_linear_v = MPConv(emb_channels, ch, (), device=device)
 
-    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor],
+                training: bool = False) -> torch.Tensor:
         cfg = self.cfg
         x = resample_2d(x, self.resample_mode)
         if self.flavor == "enc":
             if self.conv_skip is not None:
-                x = self.conv_skip(x)
+                x = self.conv_skip(x, training=training)
             x = normalize(x, dim=-1)
-        y = self.conv_res0(mp_silu(x))
+        y = self.conv_res0(mp_silu(x), training=training)
         if self.emb_channels > 0 and emb is not None:
-            c = self.emb_linear(emb, gain=self.emb_gain) + 1.0
+            c = self.emb_linear(emb, gain=self.emb_gain, training=training) + 1.0
             y = y * c.reshape(c.shape[0], 1, 1, c.shape[-1]).to(y.dtype)
-        y = self.conv_res1(mp_silu(y))
+        y = self.conv_res1(mp_silu(y), training=training)
         if self.flavor == "dec" and self.conv_skip is not None:
-            x = self.conv_skip(x)
+            x = self.conv_skip(x, training=training)
         x = mp_sum(x, y, t=cfg.res_balance)
         if self.use_attention:
-            x = self._attention(x, emb)
+            x = self._attention(x, emb, training)
         if cfg.clip_act is not None:
             x = x.clamp(-cfg.clip_act, cfg.clip_act)
         return x
 
-    def _modulation(self, name: str, emb: Optional[torch.Tensor], x: torch.Tensor):
+    def _modulation(self, name: str, emb: Optional[torch.Tensor], x: torch.Tensor,
+                    training: bool):
         if self.emb_channels > 0 and emb is not None:
-            c = getattr(self, f"emb_linear_{name}")(emb, gain=getattr(self, f"emb_gain_{name}"))
+            c = getattr(self, f"emb_linear_{name}")(emb, gain=getattr(self, f"emb_gain_{name}"),
+                                                   training=training)
             c = c + 1.0
             return c.reshape(c.shape[0], 1, 1, c.shape[-1]).to(x.dtype)
         return 1.0
 
-    def _attention(self, x: torch.Tensor, emb: Optional[torch.Tensor]) -> torch.Tensor:
+    def _attention(self, x: torch.Tensor, emb: Optional[torch.Tensor],
+                   training: bool) -> torch.Tensor:
         """q/k-normalized SDPA with emb-modulated qk and v gains."""
         cfg = self.cfg
         ch = self.out_channels
         num_heads = max(ch // cfg.channels_per_head, 1)
-        qk = self.attn_qk(x * self._modulation("qk", emb, x))
-        v = self.attn_v(x)
+        qk = self.attn_qk(x * self._modulation("qk", emb, x, training), training=training)
+        v = self.attn_v(x, training=training)
         b, h, w, _ = x.shape
 
         def to_seq(t: torch.Tensor) -> torch.Tensor:
@@ -175,8 +182,8 @@ class UNetBlock(nn.Module):
             y = y.reshape(b, w, h, ch).permute(0, 2, 1, 3)
         else:
             y = y.reshape(b, h, w, ch)
-        y = mp_silu(y * self._modulation("v", emb, x))
-        y = self.attn_proj(y)
+        y = mp_silu(y * self._modulation("v", emb, x, training))
+        y = self.attn_proj(y, training=training)
         return mp_sum(x, y, t=cfg.attn_balance)
 
 
@@ -240,9 +247,12 @@ class UNetCore(nn.Module):
         return ops
 
     def precondition(self, x_in: torch.Tensor, sigma: torch.Tensor,
-                     embeddings: Optional[torch.Tensor]):
+                     embeddings: Optional[torch.Tensor], training: bool = False,
+                     x_perturbed: Optional[torch.Tensor] = None):
         """EDM2 preconditioning + noise/label embedding.
-        Returns (x, emb, c_skip, c_out)."""
+        Returns (x, emb, c_skip, c_out). ``x_perturbed`` (training-time input
+        perturbation) replaces ``x_in`` as the network input only; the c_skip
+        path keeps ``x_in`` (JAX unet.py:570)."""
         cfg = self.cfg
         sigma = sigma.reshape(-1, 1, 1, 1).float()
         sd = cfg.sigma_data
@@ -250,36 +260,39 @@ class UNetCore(nn.Module):
         c_out = sigma * sd / torch.sqrt(sigma ** 2 + sd ** 2)
         c_in = 1.0 / torch.sqrt(sd ** 2 + sigma ** 2)
         c_noise = torch.log(sigma.reshape(-1)) / 4.0
-        x = (c_in * x_in.float()).to(torch.bfloat16)
-        emb = self.emb_noise(self.emb_fourier(c_noise))
+        net_in = x_in if x_perturbed is None else x_perturbed
+        x = (c_in * net_in.float()).to(ACT_DTYPE)
+        emb = self.emb_noise(self.emb_fourier(c_noise), training=training)
         if cfg.in_channels_emb > 0 and embeddings is not None:
             emb = mp_silu(mp_sum(emb, embeddings.to(emb.dtype), t=cfg.label_balance))
-        return x, emb.to(torch.bfloat16), c_skip, c_out
+        return x, emb.to(ACT_DTYPE), c_skip, c_out
 
     def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
-                embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
+                embeddings: Optional[torch.Tensor] = None, training: bool = False,
+                x_perturbed: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         div = 1 << (len(cfg.channel_mult) - 1)
         h, w = x_in.shape[-3], x_in.shape[-2]
         if h % div or w % div:
             raise ValueError(f"UNet input H,W=({h},{w}) must be divisible by {div} "
                              f"(2^(levels-1), {len(cfg.channel_mult)} levels)")
-        x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings)
+        x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings, training,
+                                                  x_perturbed)
         skips = []
         for name, kind, _, _, _ in self.schedule:
             mod = getattr(self, name)
             if kind == "enc_in":
-                x = mod(x)
+                x = mod(x, training=training)
                 skips.append(x)
             elif kind in ("enc_down", "enc_layer"):
-                x = mod(x, emb)
+                x = mod(x, emb, training)
                 skips.append(x)
             elif kind in ("dec_mid", "dec_up"):
-                x = mod(x, emb)
+                x = mod(x, emb, training)
             elif kind == "dec_layer":
-                x = mod(mp_cat(x, skips.pop(), dim=-1, t=cfg.concat_balance), emb)
+                x = mod(mp_cat(x, skips.pop(), dim=-1, t=cfg.concat_balance), emb, training)
             else:
-                x = mod(x, gain=self.out_gain)
+                x = mod(x, gain=self.out_gain, training=training)
         return c_skip * x_in.float() + c_out * x.float()
 
 
@@ -297,7 +310,7 @@ class UNet(nn.Module):
         if cfg.in_channels_emb > 0:
             self.emb_label = MPConv(cfg.in_channels_emb, cemb, (), device=device)
             self.emb_label_unconditional = MPConv(1, cemb, (), device=device)
-        # the logvar head's weight rides along so model directories round-trip
+        self.logvar_fourier = MPFourier(cfg.logvar_channels, device=device)
         self.logvar_linear = MPConv(cfg.logvar_channels, 1, (), disable_weight_norm=True,
                                     zero_init=True, device=device)
 
@@ -314,15 +327,24 @@ class UNet(nn.Module):
         return self
 
     def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
-                embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.core(x_in, sigma, embeddings)
+                embeddings: Optional[torch.Tensor] = None, training: bool = False,
+                x_perturbed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.core(x_in, sigma, embeddings, training, x_perturbed)
 
-    def get_embeddings(self, emb_in: torch.Tensor,
-                       conditioning_mask: torch.Tensor) -> Optional[torch.Tensor]:
+    def get_embeddings(self, emb_in: torch.Tensor, conditioning_mask: torch.Tensor,
+                       training: bool = False) -> Optional[torch.Tensor]:
         """CFG label embedding: mp_sum(unconditional, conditional, t=mask)."""
         if self.cfg.in_channels_emb <= 0:
             return None
         u = self.emb_label_unconditional(torch.ones((1, 1), dtype=emb_in.dtype,
-                                                    device=emb_in.device))
-        c = self.emb_label(normalize(emb_in, dim=-1))
+                                                    device=emb_in.device), training=training)
+        c = self.emb_label(normalize(emb_in, dim=-1), training=training)
         return mp_sum(u, c, t=conditioning_mask[:, None])
+
+    def get_sigma_loss_logvar(self, sigma: torch.Tensor,
+                              training: bool = False) -> torch.Tensor:
+        """Learned per-sigma uncertainty (B,) -> (B, 1, 1, 1) fp32
+        (JAX unet.py:696-701)."""
+        f = self.logvar_fourier(torch.log(sigma.reshape(-1)) / 4.0)
+        lv = self.logvar_linear(f, training=training)
+        return lv.reshape(-1, 1, 1, 1).float()

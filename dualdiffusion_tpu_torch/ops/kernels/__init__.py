@@ -7,13 +7,15 @@ CUDA tensors it launches the kernel or raises (never a silent fallback).
 """
 
 from .fgla_frame import dft_twiddles, fgla_frame, fgla_frame_plain
-from .grouped_conv import (grouped_conv3x3, grouped_conv3x3_plain,
-                           prepare_weights)
+from .grouped_conv import (GroupedConv3x3Fn, dgrad_weights, grouped_conv3x3,
+                           grouped_conv3x3_plain, grouped_conv3x3_wgrad,
+                           grouped_conv3x3_wgrad_plain, prepare_weights)
 from .ola_reframe import ola_reframe, ola_reframe_plain
 
-#: every wrapper on the serving path, with the TPU kernel it replaces
+#: every kernel wrapper of the serving and training paths
 KERNELS = {
     "grouped_conv3x3": grouped_conv3x3,
+    "grouped_conv3x3_wgrad": grouped_conv3x3_wgrad,
     "fgla_frame": fgla_frame,
     "ola_reframe": ola_reframe,
 }

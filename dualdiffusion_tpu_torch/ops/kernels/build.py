@@ -2,10 +2,10 @@
 them with ctypes.
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds). The
-library is built at first use into ``csrc/build/``, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-loaded as it is.
+a plain C interface (no PyTorch headers, so a build takes seconds): one
+``nvcc -c`` per source, all started together, then one link. The library is
+built at first use into ``csrc/build/``, named by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +33,7 @@ _F = ctypes.c_float
 # argtypes of every exported C function
 SIGNATURES = {
     "dd_grouped_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dd_grouped_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dd_fgla_frame": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_I), _I,
                       _LL, _I, _F, _F, _I, _P],
     "dd_ola_reframe": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
@@ -86,17 +87,37 @@ def build() -> KernelLibrary:
     if lib_path.is_file():
         return KernelLibrary(lib_path, 0.0, "(cached)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib_path)
-    return KernelLibrary(lib_path, seconds, log)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True)))
+    log = ""
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, lib_path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return KernelLibrary(lib_path, time.perf_counter() - t0, log)
 
 
 _LOCK = threading.Lock()

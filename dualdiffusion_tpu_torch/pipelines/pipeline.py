@@ -166,6 +166,12 @@ class Pipeline:
                     found.append((int(m.group(1)), p))
         return [p for _, p in sorted(found)]
 
+    @classmethod
+    def get_latest_checkpoint(cls, model_path: Union[str, Path], module_name: str
+                              ) -> Optional[Path]:
+        ckpts = cls.get_checkpoints(model_path, module_name)
+        return ckpts[-1] if ckpts else None
+
     # ---- generation -------------------------------------------------------
     @torch.no_grad()
     def diffusion_decode(self, params: SampleParams, sample_shape: Tuple[int, ...],

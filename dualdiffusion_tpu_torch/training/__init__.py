@@ -1,0 +1,9 @@
+"""UNet diffusion training (JAX: dualdiffusion_tpu/training): the train step,
+sigma sampler, optimizer chain, EMA bank and the trainer loop. Importing
+``builders`` registers the module trainers."""
+from .ema import EMABank, EMAConfig
+from .optim import build_optimizer, lr_schedule, normalize_mp_weights
+from .sigma_sampler import SigmaSampler, SigmaSamplerConfig
+from .train_state import (MicroDraws, StepDraws, TrainState, UNetTrainConfig,
+                          init_train_state, make_unet_eval_step, make_unet_train_step)
+from .trainer import Trainer, TrainerConfig, get_module_trainer

@@ -1,0 +1,77 @@
+"""Wiring: TrainerConfig + Pipeline -> (train step, TrainState, export fn,
+EMA bank, batch adapter), selected by the module-trainer registry
+(JAX: dualdiffusion_tpu/training/builders.py:29-104)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..utils import config_from_dict
+from .ema import EMABank, EMAConfig
+from .optim import Optimizer, build_optimizer, lr_schedule
+from .train_state import UNetTrainConfig, init_train_state, make_unet_train_step
+from .trainer import TrainerConfig, register_module_trainer
+
+
+def make_optimizer(tconf: TrainerConfig, params) -> Optimizer:
+    lrc, oc = tconf.lr_schedule, tconf.optimizer
+    lr = lr_schedule(lrc.lr_schedule, lrc.learning_rate, lrc.lr_warmup_steps,
+                     lrc.lr_reference_steps, lrc.lr_decay_exponent, lrc.min_learning_rate)
+    return build_optimizer(oc.optimizer, params, lr, betas=(oc.adam_beta1, oc.adam_beta2),
+                           eps=oc.adam_epsilon, weight_decay=oc.weight_decay,
+                           muon_patterns=tuple(oc.muon_patterns),
+                           dynamic_clip_z=oc.dynamic_max_grad_norm_z,
+                           max_grad_norm=oc.max_grad_norm)
+
+
+def make_ema_bank(tconf: TrainerConfig) -> Optional[EMABank]:
+    if not tconf.emas:
+        return None
+    return EMABank([EMAConfig(name=k, **v) for k, v in tconf.emas.items()])
+
+
+def export_fn(pipeline, module_name: str):
+    from ..pipelines.pipeline import save_module
+
+    def export(ckpt_dir, module, global_step: int = 0):
+        h = pipeline.modules[module_name]
+        save_module(ckpt_dir, module_name, h.module_type, h.config, module, global_step)
+    return export
+
+
+@register_module_trainer("unet")
+def build_unet_trainer(pipeline, tconf: TrainerConfig, generator: torch.Generator):
+    """Latent-diffusion UNet training on pre-encoded latents."""
+    model = pipeline.modules[tconf.module_name].module
+    cfg = config_from_dict(UNetTrainConfig, dict(tconf.module_trainer_config))
+    cfg.grad_accum_steps = tconf.gradient_accumulation_steps
+    opt = make_optimizer(tconf, model.parameters())
+    bank = make_ema_bank(tconf)
+    step = make_unet_train_step(opt, bank, cfg,
+                                tconf.device_batch_size * tconf.gradient_accumulation_steps)
+    state = init_train_state(model, opt, bank, cfg.sigma, generator)
+    device = next(model.parameters()).device
+
+    def batch_adapter(batch):
+        # dataset latents are stored reference-layout (B, C, H, W); the
+        # model is channel-last (B, H, W, C)
+        lat = torch.as_tensor(batch["latents"], dtype=torch.float32).permute(0, 2, 3, 1)
+        out = {"samples": lat.contiguous().to(device)}
+        if "audio_embeddings" in batch:
+            out["embeddings"] = torch.as_tensor(batch["audio_embeddings"],
+                                                dtype=torch.float32).to(device)
+        return out
+
+    return step, state, export_fn(pipeline, tconf.module_name), bank, batch_adapter
+
+
+def _not_ported(name: str):
+    def build(pipeline, tconf, generator):
+        raise NotImplementedError(f"module trainer '{name}' is not ported")
+    return build
+
+
+for _name in ("dae", "ddec", "dae_ddec"):
+    register_module_trainer(_name)(_not_ported(_name))

@@ -1,0 +1,183 @@
+"""Multi-profile EMA bank with power-function profiles, feedback and switch
+EMA, and bf16 archive snapshots (JAX: dualdiffusion_tpu/training/ema.py:38-270,
+418-429; reference: src/training/ema.py).
+
+A profile is a dict parameter name -> tensor beside the model's parameters,
+updated in place after each optimizer step (``torch._foreach`` lerp in the
+accumulation dtype, stored in the profile's dtype). Profiles kept in host
+memory (``cpu_offload``, JAX ``AsyncHostEMA``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..weights import flax_key
+
+Profile = Dict[str, torch.Tensor]
+
+
+# NVIDIA EDM2 power-function EMA math (Karras et al., arXiv:2312.02696,
+# Algorithms 2/3 and eqs. 121-151, as in NVlabs/edm2 training/phema.py).
+
+def exp_to_std(exp) -> np.ndarray:
+    exp = np.asarray(exp, np.float64)
+    return np.sqrt((exp + 1) / (exp + 2) ** 2 / (exp + 3))
+
+
+def std_to_exp(std) -> np.ndarray:
+    """Relative std -> power-function exponent (eq. 126 / alg. 2)."""
+    std = np.asarray(std, np.float64)
+    tmp = std.flatten() ** -2
+    exp = [np.roots([1, 7, 16 - t, 12 - t]).real.max() for t in tmp]
+    return np.float64(exp).reshape(std.shape)
+
+
+def power_function_beta(std: float, t_next: float, t_delta: float) -> float:
+    """Per-step beta tracking a power-function profile (eq. 127)."""
+    exp = float(std_to_exp(np.array(std)))
+    return (1.0 - t_delta / t_next) ** (exp + 1.0)
+
+
+@dataclass
+class EMAConfig:
+    """One EMA profile; field names and defaults of the JAX EMAConfig."""
+    name: str
+    beta: Optional[float] = None            # classic EMA
+    std: Optional[float] = None             # power-function EMA
+    num_warmup_steps: Optional[int] = None
+    num_archive_steps: Optional[int] = None
+    feedback_beta: Optional[float] = None   # lerp EMA back into train weights
+    num_switch_ema_epochs: Optional[int] = None
+    use_float64: bool = False
+    store_dtype: str = "float32"            # float32 | bfloat16
+    cpu_offload: bool = False
+    include_in_validation: bool = True
+
+    def __post_init__(self):
+        if (self.beta is None) == (self.std is None):
+            raise ValueError(f"ema '{self.name}': specify exactly one of beta/std")
+        if self.beta is not None and not (0 <= self.beta < 1):
+            raise ValueError(f"ema '{self.name}': invalid beta {self.beta}")
+        if self.std is not None and self.std < 0:
+            raise ValueError(f"ema '{self.name}': invalid std {self.std}")
+        if self.feedback_beta is not None and not (0 <= self.feedback_beta < 1):
+            raise ValueError(f"ema '{self.name}': invalid feedback_beta")
+        if self.std is not None and (self.num_warmup_steps or 0) > 0:
+            raise ValueError(f"ema '{self.name}': power-function ema cannot warm up")
+        if self.store_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"ema '{self.name}': store_dtype must be "
+                             f"float32|bfloat16, got {self.store_dtype}")
+        if self.cpu_offload:
+            raise NotImplementedError(f"ema '{self.name}': cpu_offload is not ported")
+
+
+class EMABank:
+    """Named EMA profiles of one module's parameters."""
+
+    def __init__(self, configs: List[EMAConfig]) -> None:
+        names = [c.name for c in configs]
+        if len(set(names)) != len(names):
+            raise ValueError("duplicate ema names")
+        self.configs: Dict[str, EMAConfig] = {c.name: c for c in configs}
+        switch = [c.name for c in configs if c.num_switch_ema_epochs]
+        if len(switch) > 1:
+            raise ValueError("only one EMA can be the switch EMA")
+        self.switch_ema_name = switch[0] if switch else None
+
+    @staticmethod
+    def storage_dtype(cfg: EMAConfig) -> torch.dtype:
+        if cfg.use_float64:
+            return torch.float64
+        return torch.bfloat16 if cfg.store_dtype == "bfloat16" else torch.float32
+
+    def beta(self, cfg: EMAConfig, total_samples_processed: int, batch_size: int,
+             global_step: int) -> float:
+        if cfg.beta is not None:
+            beta = float(np.float32(cfg.beta))
+        else:
+            beta = power_function_beta(cfg.std, total_samples_processed + batch_size, batch_size)
+        if cfg.num_warmup_steps:
+            beta = beta * min(global_step / cfg.num_warmup_steps, 1.0)
+        return beta
+
+    def init(self, module: nn.Module) -> Dict[str, Profile]:
+        """Every profile starts as a copy of the module's parameters."""
+        return {name: {k: p.detach().to(self.storage_dtype(cfg), copy=True)
+                       for k, p in module.named_parameters()}
+                for name, cfg in self.configs.items()}
+
+    @torch.no_grad()
+    def update(self, ema_state: Dict[str, Profile], module: nn.Module,
+               total_samples_processed: int, batch_size: int, global_step: int) -> None:
+        """One EMA step of every profile, in place, with the counters from
+        before the step; a feedback profile then lerps the parameters toward
+        itself."""
+        params = dict(module.named_parameters())
+        for name, cfg in self.configs.items():
+            b = self.beta(cfg, total_samples_processed, batch_size, global_step)
+            store = self.storage_dtype(cfg)
+            keys = list(ema_state[name])
+            ema = [ema_state[name][k] for k in keys]
+            ps = [params[k].detach() for k in keys]
+            if store == torch.bfloat16:
+                new = [e.float() * b + p.float() * (1.0 - b) for e, p in zip(ema, ps)]
+                torch._foreach_copy_(ema, new)
+            else:
+                ps = [p.to(store) for p in ps]
+                torch._foreach_mul_(ema, b)
+                torch._foreach_add_(ema, ps, alpha=1.0 - b)
+            if cfg.feedback_beta is not None:
+                fb = cfg.feedback_beta
+                tgt = [params[k] for k in keys]
+                torch._foreach_mul_(tgt, fb)
+                torch._foreach_add_(tgt, [e.to(t.dtype) for e, t in zip(ema, tgt)],
+                                    alpha=1.0 - fb)
+
+    def get_betas(self, total_samples_processed: int, batch_size: int) -> Dict[str, float]:
+        return {name: cfg.beta if cfg.beta is not None else
+                power_function_beta(cfg.std, total_samples_processed + batch_size, batch_size)
+                for name, cfg in self.configs.items()}
+
+    @torch.no_grad()
+    def maybe_switch(self, ema_state: Dict[str, Profile], module: nn.Module, epoch: int,
+                     global_step: int,
+                     normalize_fn: Optional[Callable[[nn.Module], None]] = None
+                     ) -> Optional[str]:
+        """SwitchEMA: every N epochs load the switch profile into the train
+        weights (in place). Returns the profile's name if it switched."""
+        name = self.switch_ema_name
+        if name is None:
+            return None
+        cfg = self.configs[name]
+        if cfg.num_warmup_steps and global_step < cfg.num_warmup_steps:
+            return None
+        if epoch % cfg.num_switch_ema_epochs != 0:
+            return None
+        for k, p in module.named_parameters():
+            p.copy_(ema_state[name][k])
+        if normalize_fn is not None:
+            normalize_fn(module)
+        return name
+
+    def validation_emas(self) -> List[str]:
+        return [n for n, c in self.configs.items() if c.include_in_validation]
+
+
+def save_ema_archive(profile: Profile, path, global_step: int,
+                     total_samples_processed: int, std: float) -> None:
+    """bf16 archive snapshot of a profile, under the JAX package's flat keys,
+    for post-hoc reconstruction."""
+    from safetensors.torch import save_file
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    flat = {flax_key(k, v.dim() == 0): v.detach().reshape(v.shape or (1,)).to(torch.bfloat16)
+            .cpu().contiguous() for k, v in profile.items()}
+    save_file(flat, str(path), metadata={"std": str(std), "global_step": str(global_step),
+                                         "total_samples_processed": str(total_samples_processed)})

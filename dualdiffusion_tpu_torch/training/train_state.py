@@ -1,0 +1,258 @@
+"""Train state and the UNet diffusion train step
+(JAX: dualdiffusion_tpu/training/train_state.py:46-309; reference:
+src/training/module_trainers/unet_trainer.py:74-308, src/training/
+trainer.py:979-1160).
+
+One step, as the JAX step:
+
+* the ln_pdf sigma distribution's pdf is refreshed from the logvar head;
+* the whole batch's sigmas come from stratified quantiles in a random order;
+* per microbatch (gradient accumulation): conditioning dropout, noise,
+  optional input perturbation, the UNet, the EDM2-weighted MSE (dynamic
+  sigma_data optional) and the NLL with the learned logvar, backward;
+* the summed gradients / accum -> dynamic clip -> AdamW -> forced MP weight
+  re-normalization -> EMA.
+
+The step's random draws (``StepDraws``: quantiles after the permutation,
+and per microbatch the conditioning uniforms, noise, perturbation) are made
+apart from its arithmetic, from the state's ``torch.Generator``, so a test
+can pass in the draws of JAX's key splits instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .ema import EMABank
+from .optim import Optimizer, normalize_mp_weights
+from .sigma_sampler import SigmaSampler, SigmaSamplerConfig
+
+
+@dataclass
+class TrainState:
+    module: nn.Module                   # holds the trained parameters
+    optimizer: Optimizer                # clip + AdamW state
+    ema_state: Dict[str, Dict[str, torch.Tensor]]
+    sigma_pdf: torch.Tensor
+    generator: torch.Generator          # the step's random draws
+    global_step: int = 0
+    total_samples_processed: int = 0
+
+
+@dataclass
+class UNetTrainConfig:
+    """Field names and defaults of the JAX package's UNetTrainConfig."""
+    sigma: SigmaSamplerConfig = field(default_factory=SigmaSamplerConfig)
+    conditioning_dropout: float = 0.1
+    conditioning_perturbation: float = 0.0
+    input_perturbation: float = 0.0
+    use_dynamic_sigma_data: bool = False
+    dynamic_sigma_data_min: float = 0.5
+    dynamic_sigma_data_max: float = 2.0
+    dynamic_sigma_data_exp: float = 1.0
+    num_loss_buckets: int = 10
+    loss_buckets_sigma_min: float = 0.0002
+    loss_buckets_sigma_max: float = 20000.0
+    crop_edges: int = 0
+    grad_accum_steps: int = 1
+
+
+@dataclass
+class MicroDraws:
+    """One microbatch's random draws (None where the option is off)."""
+    cond_u: Optional[torch.Tensor]         # (b,) uniforms for conditioning dropout
+    noise: torch.Tensor                    # N(0,1), the samples' shape
+    perturbation: Optional[torch.Tensor]   # N(0,1), the samples' shape
+    cond_noise: Optional[torch.Tensor]     # N(0,1), the embeddings' shape
+
+
+@dataclass
+class StepDraws:
+    quantiles: torch.Tensor                # (total_batch,), permuted
+    micro: List[MicroDraws]
+
+    def to(self, device) -> "StepDraws":
+        """The same draws on ``device``."""
+        def move(t):
+            return None if t is None else t.to(device)
+        return StepDraws(move(self.quantiles),
+                         [MicroDraws(*(move(getattr(m, f.name)) for f in dataclasses.fields(m)))
+                          for m in self.micro])
+
+
+def _crop(samples: torch.Tensor, config: UNetTrainConfig) -> torch.Tensor:
+    c = config.crop_edges
+    return samples[..., c:-c, :] if c > 0 else samples
+
+
+def draw_unet_step(generator: torch.Generator, sampler: SigmaSampler, config: UNetTrainConfig,
+                   total_batch_size: int, micro_shape, has_embeddings: bool,
+                   emb_channels: int) -> StepDraws:
+    """Every random number one train step uses, from ``generator``."""
+    dev = generator.device
+
+    def normal(shape):
+        return torch.randn(tuple(shape), generator=generator, device=dev)
+
+    q = sampler.draw_quantiles(generator, total_batch_size)
+    b = micro_shape[0]
+    micro = []
+    for _ in range(config.grad_accum_steps):
+        cond_u = (torch.rand((b,), generator=generator, device=dev)
+                  if has_embeddings else None)
+        noise = normal(micro_shape)
+        pert = normal(micro_shape) if config.input_perturbation > 0 else None
+        cond_noise = (normal((b, emb_channels))
+                      if has_embeddings and config.conditioning_perturbation > 0 else None)
+        micro.append(MicroDraws(cond_u, noise, pert, cond_noise))
+    return StepDraws(q, micro)
+
+
+def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
+                         config: UNetTrainConfig, total_batch_size: int,
+                         prepare_fn: Optional[Callable] = None):
+    """Build ``train_step(state, batch, draws=None) -> logs``; it updates
+    ``state`` in place. ``batch``: {"samples": (B, H, W, C), "embeddings":
+    (B, E) optional}, B = device batch x grad_accum_steps. ``prepare_fn``
+    (gradient-free input preparation) is not ported yet."""
+    if prepare_fn is not None:
+        raise NotImplementedError("prepare_fn (the DDEC teacher pipeline) is not ported")
+    sampler = SigmaSampler(config.sigma)
+    accum = config.grad_accum_steps
+
+    def loss_fn(model, batch, sigma, draws: MicroDraws):
+        samples = _crop(batch["samples"].float(), config)
+        emb_in = batch.get("embeddings")
+        embeddings = None
+        if emb_in is not None:
+            cond_mask = (draws.cond_u > config.conditioning_dropout).float()
+            # as the JAX builder, whose get_embeddings runs with training=False
+            embeddings = model.get_embeddings(emb_in, cond_mask)
+            if config.conditioning_perturbation > 0:
+                embeddings = embeddings + draws.cond_noise * config.conditioning_perturbation
+        sig_b = sigma.reshape(-1, 1, 1, 1)
+        x_noisy = samples + draws.noise * sig_b
+        x_pert = None
+        if config.input_perturbation > 0:
+            x_pert = x_noisy + draws.perturbation * sig_b * config.input_perturbation
+        denoised = model(x_noisy, sigma, embeddings, training=True, x_perturbed=x_pert)
+
+        if config.use_dynamic_sigma_data:
+            n = np.prod(samples.shape[1:])
+            sd = torch.sqrt(samples.square().sum(dim=(1, 2, 3), keepdim=True) / n)
+            sd = sd.clamp(config.dynamic_sigma_data_min,
+                          config.dynamic_sigma_data_max) ** config.dynamic_sigma_data_exp
+        else:
+            sd = config.sigma.sigma_data
+        loss_weight = (sig_b ** 2 + sd ** 2) / (sig_b * sd) ** 2
+        weighted = ((denoised - samples) ** 2 * loss_weight).mean(dim=(1, 2, 3))
+        logvar = model.get_sigma_loss_logvar(sigma).reshape(-1)
+        loss = (weighted / torch.exp(logvar) + logvar).mean()
+        return loss, weighted.detach(), denoised.detach().std(correction=0)
+
+    def bucket_losses(weighted, sigma):
+        nb = config.num_loss_buckets
+        lo, hi = np.log(config.loss_buckets_sigma_min), np.log(config.loss_buckets_sigma_max)
+        idx = ((torch.log(sigma) - lo) / (hi - lo) * nb).to(torch.int32).clamp(0, nb - 1)
+        sums = torch.zeros((nb,), device=weighted.device).index_add_(0, idx, weighted)
+        counts = torch.zeros((nb,), device=weighted.device).index_add_(
+            0, idx, torch.ones_like(weighted))
+        return sums, counts
+
+    def train_step(state: TrainState, batch: Dict[str, Any],
+                   draws: Optional[StepDraws] = None) -> Dict[str, Any]:
+        model = state.module
+        n = batch["samples"].shape[0]
+        if n % accum:
+            raise ValueError(f"batch of {n} does not split into {accum} microbatches")
+        mb = n // accum
+        if draws is None:
+            has_emb = batch.get("embeddings") is not None
+            draws = draw_unet_step(state.generator, sampler, config, total_batch_size,
+                                   _crop(batch["samples"][:mb], config).shape, has_emb,
+                                   model.emb_label.out_channels if has_emb else 0)
+
+        if config.sigma.distribution == "ln_pdf":
+            with torch.no_grad():
+                state.sigma_pdf = sampler.update_pdf_from_logvar(
+                    model.get_sigma_loss_logvar, state.sigma_pdf, float(state.global_step))
+        sigma_all = sampler.sample(draws.quantiles, state.sigma_pdf)[:n]
+
+        optimizer.zero_grad()
+        loss_sum = 0.0
+        dstd, sample_losses = [], []
+        nb = max(config.num_loss_buckets, 1)
+        bucket_sums = torch.zeros((nb,), device=sigma_all.device)
+        bucket_counts = torch.zeros((nb,), device=sigma_all.device)
+        for i in range(accum):
+            sl = slice(i * mb, (i + 1) * mb)
+            micro = {k: v[sl] for k, v in batch.items()}
+            sigma = sigma_all[sl]
+            loss, weighted, std = loss_fn(model, micro, sigma, draws.micro[i])
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+            dstd.append(std)
+            sample_losses.append(weighted)
+            if config.num_loss_buckets > 0:
+                s, c = bucket_losses(weighted, sigma)
+                bucket_sums += s
+                bucket_counts += c
+        with torch.no_grad():
+            for p in optimizer.params:
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        optimizer.step(state.global_step)
+        normalize_mp_weights(model)
+        if ema_bank is not None:
+            ema_bank.update(state.ema_state, model, state.total_samples_processed,
+                            total_batch_size, state.global_step)
+        state.global_step += 1
+        state.total_samples_processed += total_batch_size
+        return {"loss": loss_sum / accum, "denoised_std": torch.stack(dstd).mean(),
+                "grad_norm": optimizer.clip.last_grad_norm,
+                "max_grad_norm": optimizer.clip.last_max_norm,
+                "bucket_sums": bucket_sums, "bucket_counts": bucket_counts,
+                "sample_losses": torch.cat(sample_losses)}
+
+    return train_step
+
+
+def make_unet_eval_step(config: UNetTrainConfig):
+    """Validation loss: EDM2-weighted MSE at static stratified sigmas, no
+    conditioning dropout, no logvar term. ``eval_step(model, batch,
+    generator) -> loss``."""
+    sampler = SigmaSampler(dataclasses.replace(config.sigma, use_static_sigma_sampling=True))
+
+    @torch.no_grad()
+    def eval_step(model, batch, generator: torch.Generator) -> torch.Tensor:
+        samples = _crop(batch["samples"].float(), config)
+        b = samples.shape[0]
+        emb_in = batch.get("embeddings")
+        embeddings = None
+        if emb_in is not None:
+            embeddings = model.get_embeddings(emb_in, torch.ones((b,), device=emb_in.device))
+        noise = torch.randn(samples.shape, generator=generator, device=generator.device)
+        sigma = sampler.sample(sampler.draw_quantiles(generator, b))
+        sig = sigma.reshape(-1, 1, 1, 1)
+        denoised = model(samples + noise.to(samples.device) * sig, sigma, embeddings)
+        sd = config.sigma.sigma_data
+        weight = (sig ** 2 + sd ** 2) / (sig * sd) ** 2
+        return (((denoised - samples) ** 2) * weight).mean()
+
+    return eval_step
+
+
+def init_train_state(module: nn.Module, optimizer: Optimizer, ema_bank: Optional[EMABank],
+                     sigma_config: SigmaSamplerConfig,
+                     generator: torch.Generator) -> TrainState:
+    device = next(module.parameters()).device
+    return TrainState(module=module, optimizer=optimizer,
+                      ema_state=ema_bank.init(module) if ema_bank is not None else {},
+                      sigma_pdf=SigmaSampler(sigma_config).init_pdf_state(device),
+                      generator=generator)

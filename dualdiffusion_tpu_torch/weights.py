@@ -43,28 +43,43 @@ def flax_key(torch_key: str, scalar: bool) -> str:
     return f"{collection}/{path}" + (SCALAR_SUFFIX if scalar else "")
 
 
-def to_flat(module: nn.Module) -> Dict[str, np.ndarray]:
-    """The module's state as the JAX package's flat dict (fp32 numpy)."""
+def state_to_flat(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A state dict (or an EMA profile) as the JAX package's flat dict:
+    fp32 numpy, fp64 kept as fp64."""
     out = {}
-    for k, v in module.state_dict().items():
-        a = v.detach().float().cpu().numpy()
+    for k, v in state.items():
+        v = v.detach().cpu()
+        a = (v.double() if v.dtype == torch.float64 else v.float()).numpy()
         out[flax_key(k, a.ndim == 0)] = a.reshape(1) if a.ndim == 0 else a
     return out
 
 
-def load_flat(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
-    """Load a JAX-package flat dict into ``module``; every key must match."""
-    state = module.state_dict()
-    want = {flax_key(k, v.dim() == 0): k for k, v in state.items()}
+def flat_to_state(like: Dict[str, torch.Tensor],
+                  flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The entries of a JAX-package flat dict under the names and shapes of
+    ``like`` (CPU tensors); every key must match."""
+    want = {flax_key(k, v.dim() == 0): k for k, v in like.items()}
     missing = sorted(set(want) - set(flat))
     unexpected = sorted(set(flat) - set(want))
     if missing or unexpected:
         raise KeyError(f"weight keys differ: missing {missing[:8]}, unexpected {unexpected[:8]}")
-    new_state = {}
+    out = {}
     for fk, tk in want.items():
-        a = np.asarray(flat[fk], np.float32)
-        shape = tuple(state[tk].shape)
+        a = np.asarray(flat[fk])
+        if a.dtype != np.float64:
+            a = a.astype(np.float32)
+        shape = tuple(like[tk].shape)
         if a.shape != (shape or (1,)):
             raise ValueError(f"{fk}: shape {a.shape} does not fit {shape}")
-        new_state[tk] = torch.from_numpy(a.copy()).reshape(shape)
-    module.load_state_dict(new_state)
+        out[tk] = torch.from_numpy(a.copy()).reshape(shape)
+    return out
+
+
+def to_flat(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The module's state as the JAX package's flat dict (fp32 numpy)."""
+    return state_to_flat({k: v.float() for k, v in module.state_dict().items()})
+
+
+def load_flat(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
+    """Load a JAX-package flat dict into ``module``; every key must match."""
+    module.load_state_dict(flat_to_state(module.state_dict(), flat))

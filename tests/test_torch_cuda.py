@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from dualdiffusion_tpu_torch.ops.kernels import (dft_twiddles, fgla_frame, fgla_frame_plain,
-                                                 grouped_conv3x3, grouped_conv3x3_plain,
-                                                 ola_reframe, ola_reframe_plain,
-                                                 prepare_weights)
+from dualdiffusion_tpu_torch.ops.kernels import (GroupedConv3x3Fn, dft_twiddles, dgrad_weights,
+                                                 fgla_frame, fgla_frame_plain, grouped_conv3x3,
+                                                 grouped_conv3x3_plain, grouped_conv3x3_wgrad,
+                                                 grouped_conv3x3_wgrad_plain, ola_reframe,
+                                                 ola_reframe_plain, prepare_weights)
 
 
 @pytest.fixture
@@ -48,6 +49,53 @@ def test_grouped_conv_kernel_matches_plain(cuda, b, h, w, groups, cig, cog):
     assert grouped_conv3x3.launches == before + 1
     assert _rel_err(got.float().cpu(), grouped_conv3x3_plain(x, wt, groups).float().cpu()) \
         <= 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,groups,cig,cog", [(1, 3, 5, 2, 8, 8), (2, 4, 70, 4, 12, 20),
+                                                  (8, 32, 688, 8, 32, 64), (8, 2, 43, 8, 320, 320),
+                                                  (2, 3, 9, 1, 40, 72)])
+def test_wgrad_kernel_matches_plain(cuda, b, h, w, groups, cig, cog):
+    """K4: bf16 out, one rounding of an fp32 sum taken in another order (2**-7
+    of max); its split sum runs in a fixed order, so two calls agree bit for
+    bit."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((b, h, w, groups * cig), generator=g, device=cuda).bfloat16()
+    gy = torch.randn((b, h, w, groups * cog), generator=g, device=cuda).bfloat16()
+    before = grouped_conv3x3_wgrad.launches
+    got = grouped_conv3x3_wgrad(x, gy, groups)
+    again = grouped_conv3x3_wgrad(x, gy, groups)
+    torch.cuda.synchronize()
+    assert grouped_conv3x3_wgrad.launches == before + 2
+    assert got.shape == (groups, 9 * cig, cog) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    assert _rel_err(got.float().cpu(),
+                    grouped_conv3x3_wgrad_plain(x, gy, groups).float().cpu()) <= 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,groups,cig,cog", [(2, 4, 70, 4, 16, 8), (2, 32, 688, 8, 32, 64),
+                                                  (2, 2, 43, 8, 320, 320)])
+def test_grouped_conv_fn_matches_plain(cuda, b, h, w, groups, cig, cog):
+    """GroupedConv3x3Fn on the card (K1 forward, K1 on dgrad_weights, K4)
+    against the same Function on CPU copies (the plain versions): forward
+    and input gradient to one bf16 ulp of max (2**-7); the fp32 weight
+    gradient, which passes through prepare_weights' bf16 cast, to 2**-7."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((b, h, w, groups * cig), generator=g, device=cuda).bfloat16()
+    wgt = torch.randn((groups * cog, cig, 3, 3), generator=g, device=cuda) / (9 * cig) ** 0.5
+    r = torch.randn((b, h, w, groups * cog), generator=g, device=cuda)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        tx = x.detach().to(dev).requires_grad_()
+        tw = wgt.detach().to(dev).requires_grad_()
+        out = GroupedConv3x3Fn.apply(tx, prepare_weights(tw, groups), groups)
+        (out.float() * r.to(dev)).sum().backward()
+        res[dev.type] = [t.detach().float().cpu() for t in (out, tx.grad, tw.grad)]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert _rel_err(got, want) <= 2 ** -7
+    wd = dgrad_weights(prepare_weights(wgt, groups))
+    assert wd.shape == (groups, 9 * cog, cig)
 
 
 @pytest.mark.cuda
@@ -137,4 +185,21 @@ def test_tiny_pipeline_generates_through_the_kernels(cuda):
     raw = pipe.generate(SampleParams(steps=2, num_fgla_iters=3), prompt_embedding=prompt)["raw"]
     after = launch_counts()
     assert raw.shape == (1, 2, 63 * 256) and torch.isfinite(raw).all()
-    assert all(after[k] > before[k] for k in after), (before, after)
+    assert all(after[k] > before[k] for k in ("grouped_conv3x3", "fgla_frame", "ola_reframe")), \
+        (before, after)
+
+
+@pytest.mark.cuda
+def test_training_forward_raises_without_its_kernel(cuda, monkeypatch):
+    """No fallback: when the kernel library cannot be had, a training-mode
+    grouped conv on a CUDA tensor raises instead of going to cuDNN."""
+    import dualdiffusion_tpu_torch.ops.kernels.grouped_conv as gc
+    from dualdiffusion_tpu_torch.models.layers import MPConv
+
+    def no_library():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(gc, "library", no_library)
+    conv = MPConv(16, 16, (3, 3), groups=2, device=cuda)
+    conv.init_weights(torch.Generator(device=cuda).manual_seed(0))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        conv(torch.randn((1, 2, 8, 16), device=cuda).bfloat16(), training=True)
