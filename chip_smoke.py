@@ -8,23 +8,34 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
 1. prints the card's name and power limit;
 2. builds the port's CUDA kernels from ``dualdiffusion_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version at the main paths'
-   shapes and times both: the reference-scale UNet's grouped convs forward
-   at batch 2 (K1), their backward at the training batch 8 (K1 on rotated
-   weights for dgrad, K4 for wgrad), one 45 s stereo Griffin-Lim iteration
-   (K2, K3) and a 5-iteration Griffin-Lim run;
-4. holds a tiny model's generate slice and its train steps on the card
-   against the same model on the CPU;
+   shapes and times both, beside the card's least time for the same work
+   (the bound) and, where one PyTorch call computes the same function, that
+   call's time: the reference-scale UNet's grouped convs forward at batch 2
+   (K1), their backward at the training batch 8 (K1 on rotated weights for
+   dgrad, K4 for wgrad), one 45 s stereo Griffin-Lim iteration (K2, K3) and a
+   5-iteration Griffin-Lim run, and the fused 2-D multi-scale spectral loss
+   of the DAE training microbatch, forward (K5) and gradient (K6);
+4. holds a tiny model's generate slice, its UNet train steps and a tiny
+   DAE's train steps on the card against the same models on the CPU;
 5. drives the serving path: builds the reference-scale pipeline (356M-param
    UNet, 64-ch DAE, 256-bin mel format) from a seed, saves it, loads it with
    ``Pipeline.from_pretrained`` and calls ``generate`` twice (45 s, batch 1,
    CFG 1.5, Heun, SPSI + 100 Griffin-Lim iterations), checking the audio and
    that K1, K2 and K3 were launched;
-6. drives the training path: writes a synthetic latent dataset and runs
+6. drives the UNet training path: writes a synthetic latent dataset and runs
    ``python -m dualdiffusion_tpu_torch.train``'s entry in-process on that
    model directory for 4 steps, then ``--resume`` for 1 more (device batch
    8, gradient accumulation 2, AdamW, one EMA), checking the losses, that
    params and EMA moved, that the checkpoint round-trips and that K1 and K4
-   were launched.
+   were launched;
+7. drives the DAE training path the same way: the edm2_default DAE
+   (configs/models/edm2_default) on the MS-MDCT dual format, its trainer
+   config with the fused MSS2D loss, 32 synthetic stereo WAVs, 5.5 s crops,
+   device batch 8 x accumulation 2, 4 steps then 1 after ``--resume``,
+   checking that K5 and K6 were launched.
+
+``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
+one full-width DAE train step (step 7's model, data and config).
 
 Any failure raises, so the exit code is not 0. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -46,7 +57,11 @@ SEEDS = (1, 2)
 TRAIN_BATCH = 8          # device batch of the training path
 TRAIN_ACCUM = 2          # gradient accumulation steps
 TRAIN_STEPS = 4          # then one more after --resume
-TRAIN_SAMPLES = 32       # synthetic latents in the dataset
+TRAIN_SAMPLES = 32       # synthetic latents / WAVs in the datasets
+DAE_RAW_CROP = 176128    # 5.5 s: a (8, 256, 680, 2) mel after crop and alignment
+#: the card's published peaks (H100 SXM data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 
 #: (name, route, source, TPU kernel it replaces)
 KERNEL_INFO = [
@@ -58,6 +73,10 @@ KERNEL_INFO = [
      "dualdiffusion_tpu/ops/pallas/fgla_iter.py:75"),
     ("ola_reframe", "cuda", "dualdiffusion_tpu_torch/csrc/ola_reframe.cu",
      "dualdiffusion_tpu/ops/pallas/ola_reframe.py:68"),
+    ("mss2d_block_loss", "cuda", "dualdiffusion_tpu_torch/csrc/mss2d.cu",
+     "dualdiffusion_tpu/ops/pallas/mss2d.py:66"),
+    ("mss2d_block_loss_grad", "cuda", "dualdiffusion_tpu_torch/csrc/mss2d.cu",
+     "dualdiffusion_tpu/ops/pallas/mss2d.py:222"),
 ]
 
 
@@ -90,6 +109,22 @@ def time_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, kind: str):
+    """(least ms the card could take, "operations" or "bytes"): the larger of
+    the operations over the peak rate of their type and the bytes over the
+    memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def result(err, ms, plain_ms, flops, nbytes, kind, library_ms=None) -> dict:
+    bound_ms, by = bound(flops, nbytes, kind)
+    print(f"  bound {bound_ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP {kind}, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": library_ms}
 
 
 def check_close(name: str, got, want, rel_tol: float) -> float:
@@ -127,7 +162,7 @@ def kernel_phase_conv(unet, groups: int, lat_h: int, lat_w: int, gen):
     print(f"K1 grouped_conv3x3: {len(counts)} distinct shapes, {len(shapes)} convs per "
           f"UNet forward (batch 2, groups {groups}); bf16 in/out, fp32 accumulation",
           flush=True)
-    worst, ms, plain_ms, cudnn_ms = 0.0, 0.0, 0.0, 0.0
+    worst, ms, plain_ms, cudnn_ms, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
     for (b, h, w, cin, cout), n in counts.items():
         x = torch.randn((b, h, w, cin), generator=gen, device="cuda").bfloat16()
         wgt = torch.randn((cout, cin // groups, 3, 3), generator=gen, device="cuda")
@@ -143,9 +178,11 @@ def kernel_phase_conv(unet, groups: int, lat_h: int, lat_w: int, gen):
         xc = x.permute(0, 3, 1, 2)
         wc = (wgt / (9 * cin // groups) ** 0.5).bfloat16()
         cudnn_ms += n * time_ms(lambda: F.conv2d(xc, wc, padding=1, groups=groups))
+        flops += n * 2 * 9 * cin * cout // groups * b * h * w
+        nbytes += n * 2 * (b * h * w * (cin + cout) + 9 * cin // groups * cout)
     print(f"  per UNet forward: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms, "
           f"cuDNN bf16 {cudnn_ms:.3f} ms", flush=True)
-    return worst, ms, plain_ms
+    return result(worst, ms, plain_ms, flops, nbytes, "bf16", cudnn_ms)
 
 
 def kernel_phase_conv_backward(unet, groups: int, lat_h: int, lat_w: int, gen):
@@ -163,6 +200,7 @@ def kernel_phase_conv_backward(unet, groups: int, lat_h: int, lat_w: int, gen):
           f"convs per UNet backward (batch {TRAIN_BATCH}, groups {groups}); bf16 in/out, fp32 "
           f"accumulation", flush=True)
     res = {"dgrad": [0.0, 0.0, 0.0], "wgrad": [0.0, 0.0, 0.0]}
+    cudnn_ms, flops, nbytes = 0.0, 0.0, 0.0
     for (b, h, w, cin, cout), n in counts.items():
         x = torch.randn((b, h, w, cin), generator=gen, device="cuda").bfloat16()
         gy = torch.randn((b, h, w, cout), generator=gen, device="cuda").bfloat16()
@@ -180,10 +218,18 @@ def kernel_phase_conv_backward(unet, groups: int, lat_h: int, lat_w: int, gen):
             r[0] = max(r[0], check_close(f"{key} {tag}", got, plain(), 2 ** -7))
             r[1] += n * time_ms(fn)
             r[2] += n * time_ms(plain)
+        xc, gyc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        cudnn_ms += n * time_ms(lambda: torch.nn.grad.conv2d_weight(
+            xc, (cout, cin // groups, 3, 3), gyc, padding=1, groups=groups))
+        flops += n * 2 * 9 * cin * cout // groups * b * h * w
+        nbytes += n * 2 * (b * h * w * (cin + cout) + 9 * cin // groups * cout)
     for key, (_, ms, plain_ms) in res.items():
         print(f"  {key} per UNet backward: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms",
               flush=True)
-    return {k: tuple(v) for k, v in res.items()}
+    print(f"  cuDNN bf16 wgrad {cudnn_ms:.3f} ms; dgrad and wgrad each do the work below",
+          flush=True)
+    err, ms, plain_ms = res["wgrad"]
+    return result(err, ms, plain_ms, flops, nbytes, "bf16", cudnn_ms)
 
 
 def fgla_inputs(fmt, gen):
@@ -206,6 +252,8 @@ def fgla_inputs(fmt, gen):
 
 
 def kernel_phase_fgla(fmt, gen):
+    import math
+
     import numpy as np
     import torch
     from dualdiffusion_tpu_torch.ops import griffinlim, griffinlim_reference
@@ -239,14 +287,26 @@ def kernel_phase_fgla(fmt, gen):
         e2 = max(check_close(f"K2 spectrum {wd}", r_k, r_p, tol),
                  check_close(f"K2 frames {wd}", y_k, y_p, tol))
         if wd == getattr(torch, cfg.fgla_work_dtype):
-            results["ola_reframe"] = (e3, time_ms(lambda: ola_reframe(y, win, inv_env, hop)),
-                                      time_ms(lambda: ola_reframe_plain(y, win, inv_env, hop)))
-            results["fgla_frame"] = (
-                e2, time_ms(lambda: fgla_frame(frames, r_prev, spec, merged, 0.25, 0.4975, tw)),
-                time_ms(lambda: fgla_frame_plain(frames, r_prev, spec, merged, 0.25, 0.4975)))
-            for k in ("fgla_frame", "ola_reframe"):
-                print(f"  {k} {wd}: kernel {results[k][1]:.3f} ms, plain {results[k][2]:.3f} ms",
-                      flush=True)
+            ms3 = time_ms(lambda: ola_reframe(y, win, inv_env, hop))
+            plain3 = time_ms(lambda: ola_reframe_plain(y, win, inv_env, hop))
+            ms2 = time_ms(lambda: fgla_frame(frames, r_prev, spec, merged, 0.25, 0.4975, tw))
+            plain2 = time_ms(lambda: fgla_frame_plain(frames, r_prev, spec, merged, 0.25, 0.4975))
+            print(f"  fgla_frame {wd}: kernel {ms2:.3f} ms, plain {plain2:.3f} ms; ola_reframe: "
+                  f"kernel {ms3:.3f} ms, plain {plain3:.3f} ms", flush=True)
+            item = y.element_size()
+            frames_n = b * c * f
+            # K2: a real n-point DFT each way per frame (2.5 n log2 n flops as
+            # an FFT) plus ~20 flops per bin; frames, previous spectrum,
+            # magnitudes and merged magnitudes in, spectrum and frames out
+            results["fgla_frame"] = result(
+                e2, ms2, plain2, frames_n * (5 * n * math.log2(n) + 20 * bins),
+                frames_n * item * (2 * n + 6 * bins), "fp32")
+            # K3: per signal sample n/hop multiply-adds of the overlap-add and
+            # one window product per output sample; frames in and out
+            sig_len = (f - 1) * hop + n
+            results["ola_reframe"] = result(
+                e3, ms3, plain3, b * c * (sig_len * 2 * n / hop + f * n),
+                b * c * f * n * 2 * item + 4 * (n + sig_len), "fp32")
 
     kw = dict(n_fft=n, hop_length=hop, n_iter=5, momentum=cfg.fgla_momentum,
               stereo=cfg.stereo, stereo_coherence=cfg.stereo_coherence,
@@ -394,6 +454,163 @@ def train_slice_phase():
         raise AssertionError("train step params on the card disagree with the CPU run")
 
 
+def kernel_phase_mss2d(gen) -> dict:
+    """K5 and K6 at the DAE training microbatch's shapes: the (8, 2, 256, 680)
+    recon and target mel, mid/side-stacked to 16 images, reflect-padded by
+    bw/2 for the block widths 32 and 64 (stride bw/8). Forward per-image sums
+    against the plain version to 1e-4 relative (fp32 sums in another order).
+    Gradient against the plain version's autograd to 1e-4 of max with
+    target = sample / 2, where |S| - |T| = |S| / 2 exactly in both versions;
+    with an independent target a few bins have |S| ~ |T| and the sign of the
+    difference flips between two fp32 evaluations, so there the gradient is
+    held to 1e-3 relative L2. Two K6 calls must agree bit for bit. Times are
+    per microbatch (both widths); K6 as the trainer calls it (no dTarget)."""
+    import math
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dualdiffusion_tpu_torch.models.mp import midside_transform
+    from dualdiffusion_tpu_torch.ops.kernels import (mss2d_block_loss, mss2d_block_loss_grad,
+                                                     mss2d_block_loss_grad_plain,
+                                                     mss2d_block_loss_plain)
+    from dualdiffusion_tpu_torch.training.losses import _window_2d, product_weights
+    b, c, h, w = TRAIN_BATCH, 2, 256, 680
+    print(f"K5 mss2d_block_loss / K6 mss2d_block_loss_grad: recon and target ({b}, {c}, {h}, {w}) "
+          f"fp32, stacked to {b * c} images, widths 32 and 64", flush=True)
+    recon = torch.randn((b, c, h, w), generator=gen, device="cuda")
+    other = torch.randn((b, c, h, w), generator=gen, device="cuda")
+    stack = [(midside_transform(x, 1) * np.sqrt(2.0)).reshape(-1, h, w) for x in (recon, other)]
+    g = torch.rand((b * c,), generator=gen, device="cuda") + 0.5
+    tot = {"fwd": [0.0, 0.0, 0.0, 0.0, 0.0], "bwd": [0.0, 0.0, 0.0, 0.0, 0.0]}
+    for bw in (32, 64):
+        stride, pad = bw // 8, bw // 2
+        s, t = (F.pad(x[:, None], (pad,) * 4, mode="reflect")[:, 0] for x in stack)
+        half = 0.5 * s
+        win, wgt = _window_2d("flat_top", bw), product_weights(bw) / bw
+        bc, hp, wp = s.shape
+        n_cols = (wp - bw) // stride + 1
+        blocks = bc * ((hp - bw) // stride + 1) * n_cols
+        # The least FFT work per tensor pass: the real bw-point transforms
+        # along W depend only on (row, column block), so each is counted
+        # once, not once per covering block position; then bw/2+1 complex
+        # bw-point transforms along H per block. K6 adds one adjoint pass
+        # (d_sample only) to the two forward passes it needs for the signs.
+        log_bw = math.log2(bw)
+        pass_flops = (bc * hp * n_cols * 2.5 * bw * log_bw
+                      + blocks * (bw // 2 + 1) * 5 * bw * log_bw)
+        bins = bw * (bw // 2 + 1)
+        tag = f"bw {bw} ({bc}, {hp}, {wp}), {blocks} blocks"
+        got = mss2d_block_loss(s, t, bw, stride, win, wgt)
+        torch.cuda.synchronize()
+        want = mss2d_block_loss_plain(s, t, bw, stride, win, wgt)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        ok = rel <= 1e-4
+        print(f"  K5 {tag}: per-image rel err {rel:.3g} (tol 1e-4) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError("K5 disagrees with its plain version")
+        ds, dt = mss2d_block_loss_grad(s, half, g, bw, stride, win, wgt)
+        rs, rt = mss2d_block_loss_grad_plain(s, half, g, bw, stride, win, wgt)
+        err = max(check_close(f"K6 d_sample {tag}, target = sample / 2", ds, rs, 1e-4),
+                  check_close(f"K6 d_target {tag}, target = sample / 2", dt, rt, 1e-4))
+        ds, _ = mss2d_block_loss_grad(s, t, g, bw, stride, win, wgt, need_target=False)
+        again, _ = mss2d_block_loss_grad(s, t, g, bw, stride, win, wgt, need_target=False)
+        rs, _ = mss2d_block_loss_grad_plain(s, t, g, bw, stride, win, wgt, need_target=False)
+        l2 = ((ds - rs).norm() / rs.norm()).item()
+        flips = ((ds - rs).abs() > 1e-4 * rs.abs().max()).float().mean().item()
+        ok = l2 <= 1e-3 and torch.equal(ds, again)
+        print(f"  K6 {tag}, independent target: rel L2 {l2:.3g} (tol 1e-3), {flips:.2e} of "
+              f"pixels beyond 1e-4 of max; two calls bit-equal {torch.equal(ds, again)} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("K6 disagrees with its plain version or is not deterministic")
+        in_bytes = 2 * s.numel() * 4
+        for key, res in (
+                ("fwd", (abs((got - want)).max().item(),
+                         time_ms(lambda: mss2d_block_loss(s, t, bw, stride, win, wgt)),
+                         time_ms(lambda: mss2d_block_loss_plain(s, t, bw, stride, win, wgt), 3),
+                         2 * pass_flops + blocks * 6 * bins, in_bytes + 4 * bc)),
+                ("bwd", (err,
+                         time_ms(lambda: mss2d_block_loss_grad(s, t, g, bw, stride, win, wgt,
+                                                               need_target=False)),
+                         time_ms(lambda: mss2d_block_loss_grad_plain(
+                             s, t, g, bw, stride, win, wgt, need_target=False), 3),
+                         3 * pass_flops + blocks * 12 * bins, in_bytes * 3 // 2 + 4 * bc))):
+            acc = tot[key]
+            acc[0] = max(acc[0], res[0])
+            for i in range(1, 5):
+                acc[i] += res[i]
+            print(f"  {'K5' if key == 'fwd' else 'K6'} bw {bw}: kernel {res[1]:.3f} ms, plain "
+                  f"{res[2]:.3f} ms", flush=True)
+    out = {}
+    for key, name in (("fwd", "mss2d_block_loss"), ("bwd", "mss2d_block_loss_grad")):
+        err, ms, plain_ms, flops, nbytes = tot[key]
+        print(f"  {name} per microbatch: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        out[name] = result(err, ms, plain_ms, flops, nbytes, "fp32")
+    return out
+
+
+def dae_train_slice_phase():
+    """Two train steps (gradient accumulation 2, AdamW, one EMA, the fused
+    MSS2D loss, phase invariance) of a tiny DAE on the card (K5, K6) against
+    the same DAE on the CPU (their plain versions), with the same weights,
+    audio and draws. Both run the trunk in bf16 and round at different
+    places: loss and grad norm agree to 2e-2 relative."""
+    import copy
+    import math
+
+    import torch
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.training import (EMABank, EMAConfig, SigmaSamplerConfig,
+                                                  build_optimizer, draw_dae_step,
+                                                  init_train_state, make_dae_train_step)
+    from dualdiffusion_tpu_torch.training.module_trainers import DAETrainConfig
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                     num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=4)
+    fmt = MSMDCTDualFormat(MSMDCTDualFormatConfig(ms_num_filters=64))
+    tc = DAETrainConfig(grad_accum_steps=2, use_fused_mss2d=True, point_loss_warmup_steps=4,
+                        kl_warmup_steps=4, latents_regularization_warmup_steps=4)
+    n, length = 4, 80 * 256                 # a 64 x 72 mel after crop and alignment
+    gen = torch.Generator().manual_seed(5)
+    dae = DAE(dcfg).init_weights(gen)
+    t = torch.arange(length) / 32000
+    batches = []
+    for _ in range(2):
+        f0 = torch.rand((n, 2, 1), generator=gen) * 2000 + 100
+        audio = 0.3 * torch.sin(2 * math.pi * f0 * t) + 0.05 * torch.randn(
+            (n, 2, length), generator=gen)
+        batches.append(audio)
+    draws = [draw_dae_step(gen, tc, n // 2) for _ in batches]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(dae).to(dev)
+        opt = build_optimizer("adamw", model.parameters(), 1e-3)
+        bank = EMABank([EMAConfig(name="std0.05", std=0.05)])
+        step = make_dae_train_step(fmt, opt, bank, tc, n)
+        state = init_train_state(model, opt, bank, SigmaSamplerConfig(),
+                                 torch.Generator(device=dev))
+        before = launch_counts()
+        logs = [step(state, {"audio": a.to(dev)}, [d.to(dev) for d in dr])
+                for a, dr in zip(batches, draws)]
+        after = launch_counts()
+        if dev == "cuda" and not all(after[k] > before[k]
+                                     for k in ("mss2d_block_loss", "mss2d_block_loss_grad")):
+            raise AssertionError(f"the DAE train steps on the card skipped a kernel: "
+                                 f"{before} {after}")
+        out[dev] = ([float(g["loss"]) for g in logs], [float(g["grad_norm"]) for g in logs])
+    print("2 train steps of a tiny DAE, CUDA (kernels) vs CPU (plain versions):", flush=True)
+    for i, name in enumerate(("loss", "grad norm")):
+        a, b = out["cuda"][i], out["cpu"][i]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        ok = rel <= 2e-2
+        print(f"  {name} {a} vs {b}: rel {rel:.3g} (tol 2e-2) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"DAE train step {name} on the card disagrees with the CPU run")
+
+
 def serving_path(model_dir, fmt, prompt) -> None:
     """``Pipeline.from_pretrained`` then ``generate`` once per seed, checking
     the audio's shape, finiteness and loudness."""
@@ -439,7 +656,7 @@ def _train_snapshot(trainer) -> dict:
     def host(d):
         return {k: v.detach().cpu().clone() for k, v in d.items()}
     return {"counters": (st.global_step, st.total_samples_processed),
-            "params": host(dict(st.module.named_parameters())),
+            "params": host(st.module.state_dict()),
             "ema": {name: host(p) for name, p in st.ema_state.items()},
             "adamw": [host(opt.adamw.state[p]) for p in opt.params],
             "clip": host(opt.clip.state_dict()),
@@ -456,30 +673,24 @@ def _same(a, b) -> bool:
     return a == b
 
 
-def training_path(model_dir: Path, data_dir: Path, latent_chw, emb_dim: int,
-                  device: str, batch: int = TRAIN_BATCH, accum: int = TRAIN_ACCUM,
-                  steps: int = TRAIN_STEPS) -> dict:
+def run_training(model_dir: Path, data_dir: Path, config: dict, device: str,
+                 steps: int = TRAIN_STEPS) -> dict:
     """The port's training entry on ``model_dir`` (a pipeline model
-    directory with a ``unet``): a synthetic latent dataset, ``steps`` steps,
-    then ``--resume`` for one more. Checks finite losses, that params and
-    the EMA moved, and that the resumed state is the saved one exactly.
-    Returns step seconds (after the first), samples/s and peak memory."""
+    directory) with the TrainerConfig ``config``: ``steps`` steps, then
+    ``--resume`` for one more. Checks finite losses, that params and the
+    EMA moved, and that the resumed state is the saved one exactly. Returns
+    step seconds (after the first), samples/s and peak memory."""
     import gc
     import numpy as np
     import torch
     from dualdiffusion_tpu_torch import train
-    from dualdiffusion_tpu_torch.dataset import write_latent_dataset
-    write_latent_dataset(data_dir, TRAIN_SAMPLES, latent_chw, emb_dim, seed=5)
-    config = model_dir / "train_config.json"
-    config.write_text(json.dumps({
-        "device_batch_size": batch, "gradient_accumulation_steps": accum,
-        "lr_schedule": {"lr_warmup_steps": 0}, "emas": {"std0.05": {"std": 0.05}},
-        "dataloader": {"latents_crop_width": latent_chw[-1]}}))
-    argv = ["--model_path", str(model_dir), "--train_config_path", str(config),
+    path = model_dir / f"{config['module_name']}_train_config.json"
+    path.write_text(json.dumps(config))
+    argv = ["--model_path", str(model_dir), "--train_config_path", str(path),
             "--dataset_path", str(data_dir), "--device", device]
+    ema_name = next(iter(config["emas"]))
+    batch = config["device_batch_size"] * config["gradient_accumulation_steps"]
     cuda = device == "cuda"
-    print(f"training: latents {tuple(latent_chw)}, device batch {batch} x accumulation {accum}, "
-          f"{TRAIN_SAMPLES} samples, {steps} steps then --resume for 1", flush=True)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -497,8 +708,8 @@ def training_path(model_dir: Path, data_dir: Path, latent_chw, emb_dim: int,
                                                            "--max_steps", str(steps + 1)]))
     if not _same(_train_snapshot(resumed), saved):
         raise AssertionError("the resumed train state differs from the saved one")
-    print(f"  checkpoint round-trip: step {resumed.state.global_step}, params, EMA, AdamW "
-          f"moments, clip, sigma pdf and generator restored exactly", flush=True)
+    print(f"  checkpoint round-trip: step {resumed.state.global_step}, params and buffers, EMA, "
+          f"AdamW moments, clip, sigma pdf and generator restored exactly", flush=True)
     resumed.train(max_steps=steps + 1)
     history += resumed.history
     final = resumed.state
@@ -507,22 +718,150 @@ def training_path(model_dir: Path, data_dir: Path, latent_chw, emb_dim: int,
         raise AssertionError(f"losses {losses}")
     if final.global_step != steps + 1:
         raise AssertionError(f"ended at step {final.global_step}")
+
     def moved(now, before) -> float:
         return max(float((now[k].detach().float().cpu() - before[k].float()).abs().max())
                    for k in before)
-    params_moved = moved(dict(final.module.named_parameters()), saved["params"])
-    ema_moved = moved(final.ema_state["std0.05"], saved["ema"]["std0.05"])
+    params_moved = moved(final.module.state_dict(), saved["params"])
+    ema_moved = moved(final.ema_state[ema_name], saved["ema"][ema_name])
     print(f"  losses {[round(x, 5) for x in losses]}; in the resumed step params moved by up to "
           f"{params_moved:.4g} and the EMA by up to {ema_moved:.4g}", flush=True)
     if not (params_moved > 0 and ema_moved > 0):
         raise AssertionError("params or EMA did not move")
     step_s = [h["seconds"] for h in history[1:steps]]
-    stats = {"step_s": float(np.mean(step_s)), "samples_per_s": batch * accum / np.mean(step_s),
+    stats = {"step_s": float(np.mean(step_s)), "samples_per_s": batch / np.mean(step_s),
              "peak_gib": peak, "wall_s": wall}
     print(f"  step seconds after the first {[round(x, 4) for x in step_s]} (mean "
           f"{stats['step_s']:.4f}); {stats['samples_per_s']:.2f} samples/s; peak memory "
           f"{peak:.2f} GiB; {steps} steps with checkpoint in {wall:.1f} s", flush=True)
     return stats
+
+
+def unet_training_path(model_dir: Path, latent_chw, emb_dim: int, device: str) -> dict:
+    """UNet training on a synthetic latent dataset (the JAX trainer's
+    default crop), device batch 8 x accumulation 2, one EMA, no warm-up."""
+    from dualdiffusion_tpu_torch.dataset import write_latent_dataset
+    data_dir = model_dir / "latents"
+    write_latent_dataset(data_dir, TRAIN_SAMPLES, latent_chw, emb_dim, seed=5)
+    print(f"UNet training: latents {tuple(latent_chw)}, device batch {TRAIN_BATCH} x accumulation "
+          f"{TRAIN_ACCUM}, {TRAIN_SAMPLES} samples, {TRAIN_STEPS} steps then --resume for 1",
+          flush=True)
+    return run_training(model_dir, data_dir, {
+        "device_batch_size": TRAIN_BATCH, "gradient_accumulation_steps": TRAIN_ACCUM,
+        "module_name": "unet", "lr_schedule": {"lr_warmup_steps": 0},
+        "emas": {"std0.05": {"std": 0.05}},
+        "dataloader": {"latents_crop_width": latent_chw[-1]}}, device)
+
+
+def dae_training_path(model_dir: Path, device: str = "cuda", steps: int = TRAIN_STEPS):
+    """The edm2_default DAE (configs/models/edm2_default/dae.json) on its
+    MS-MDCT dual format, trained with its dae_train.json (KL, phase
+    invariance, point loss, crop 4, edm2 lr, std-0.05 EMA) plus the fused
+    MSS2D loss, from seeded random weights on 32 synthetic stereo WAVs.
+    Cut: accumulation 2 (the config's 8) and 5.5 s crops (the dataloader's
+    45 s default). ``steps=0`` writes the model directory, data and
+    config only."""
+    import torch
+    from dualdiffusion_tpu_torch.dataset import write_audio_dataset
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    from dualdiffusion_tpu_torch.utils import config_from_dict, load_json
+    cfg_dir = REPO / "configs" / "models" / "edm2_default"
+    dcfg = config_from_dict(DAEConfig, load_json(cfg_dir / "dae.json"))
+    fcfg = config_from_dict(MSMDCTDualFormatConfig, load_json(cfg_dir / "format.json") or {})
+    tjson = load_json(cfg_dir / "dae_train.json")
+    fmt = MSMDCTDualFormat(fcfg)
+    dae = DAE(dcfg, device=device).init_weights(torch.Generator(device=device).manual_seed(7))
+    n_params = sum(p.numel() for p in dae.parameters())
+    Pipeline({"dae": ModuleHandle("dae", "dae", dcfg, dae),
+              "format": ModuleHandle("format", "format:ms_mdct_dual", fcfg, fmt)}
+             ).save_pretrained(model_dir)
+    del dae
+    data_dir = model_dir / "audio"
+    t0 = time.perf_counter()
+    write_audio_dataset(data_dir, TRAIN_SAMPLES, 2, DAE_RAW_CROP + 8192, fcfg.sample_rate, seed=6)
+    frames = DAE_RAW_CROP // fcfg.ms_hop_length + 1
+    crop = tjson["module_trainer_config"]["crop_edges"]
+    ds = 2 ** (len(dcfg.channel_mult_dec) - 1)
+    width = (frames - 2 * crop) // ds * ds
+    mel = (TRAIN_BATCH, fcfg.ms_num_filters, width, fcfg.num_raw_channels)
+    lat = (TRAIN_BATCH, fcfg.ms_num_filters // ds, width // ds, dcfg.latent_channels)
+    config = {
+        "module_name": "dae", "module_trainer": "dae",
+        "module_trainer_config": {**tjson["module_trainer_config"], "use_fused_mss2d": True},
+        "device_batch_size": TRAIN_BATCH, "gradient_accumulation_steps": TRAIN_ACCUM,
+        "lr_schedule": tjson["lr_schedule"], "emas": tjson["emas"],
+        "dataloader": {"use_pre_encoded_latents": False, "load_datatypes": ["audio"],
+                       "raw_crop_width": DAE_RAW_CROP}}
+    print(f"DAE training: edm2_default DAE {n_params / 1e6:.2f}M params "
+          f"({dcfg.model_channels} ch x {dcfg.channel_mult_enc}, "
+          f"{dcfg.num_enc_layers_per_block} + {dcfg.num_dec_layers_per_block} layers per block, "
+          f"latent {dcfg.latent_channels}), format ms_mdct_dual; trainer config "
+          f"{config['module_trainer_config']}; {TRAIN_SAMPLES} synthetic stereo WAVs written in "
+          f"{time.perf_counter() - t0:.1f} s; raw crop {DAE_RAW_CROP} samples -> {frames} mel "
+          f"frames, {mel} after the trainer's crop and alignment, latents {lat}; "
+          f"cut: device batch {TRAIN_BATCH} x accumulation "
+          f"{TRAIN_ACCUM} (the config's 8), crop 5.5 s (the dataloader's 45 s), "
+          f"{TRAIN_STEPS} steps then --resume for 1", flush=True)
+    if steps == 0:        # model directory, data and config only
+        (model_dir / "dae_train_config.json").write_text(json.dumps(config))
+        return None
+    return run_training(model_dir, data_dir, config, device, steps)
+
+
+#: kernel groups of the profile, by substrings of the kernel's name (first match)
+PROFILE_GROUPS = [
+    ("K5/K6 (port)", ("mss2d", "sum_partials")),
+    ("cuDNN convolutions", ("cudnn", "xmma_fprop", "xmma_dgrad", "xmma_wgrad", "implicit_gemm",
+                            "conv")),
+    ("cuFFT", ("fft",)),
+    ("GEMM", ("gemm", "cutlass")),
+    ("reductions", ("reduce",)),
+    ("copies", ("copy", "memcpy", "memset", "fill", "cat")),
+    ("elementwise", ("elementwise",)),
+]
+
+
+def profile_dae_step(model_dir: Path) -> None:
+    """``--profile``: one full-width DAE train step (the DAE training path's
+    model, data and config) under ``torch.profiler`` after two warm-up
+    steps: the step's wall seconds, the device time its kernels took, and
+    the kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from dualdiffusion_tpu_torch import train
+    dae_training_path(model_dir, steps=0)
+    config = model_dir / "dae_train_config.json"
+    argv = ["--model_path", str(model_dir), "--train_config_path", str(config),
+            "--dataset_path", str(model_dir / "audio"), "--device", "cuda"]
+    trainer = train.build_trainer(train.parse_args(argv))
+    trainer.config.model_path = ""               # no checkpoint inside the window
+    trainer.train(max_steps=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train(max_steps=3)
+        torch.cuda.synchronize()
+    step_s = trainer.history[-1]["seconds"]
+    # the kernels themselves (the operator rows above them repeat their time)
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    print(f"profiled DAE step: {step_s:.4f} s on the trainer's clock; kernels {device_ms:.1f} ms "
+          f"of device time in {launches} launches ({device_ms / 1e3 / step_s:.1%} of the step)",
+          flush=True)
+    groups = {}
+    for e in rows:
+        name = e.key.lower()
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)), "other")
+        ms, n = groups.get(group, (0.0, 0))
+        groups[group] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {group}: {ms:.1f} ms in {n} launches ({ms / device_ms:.1%})", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}",
+              flush=True)
 
 
 def main() -> int:
@@ -550,6 +889,11 @@ def main() -> int:
     lib = library()
     print(f"kernel build: {lib.build_seconds:.2f} s nvcc ({time.perf_counter() - t0:.2f} s "
           f"with load) -> {lib.path.name}", flush=True)
+    if sys.argv[1:] == ["--profile"]:
+        with tempfile.TemporaryDirectory(prefix="dd_profile_") as tmp:
+            profile_dae_step(Path(tmp))
+        print(smi)
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     ucfg, dcfg, fcfg = ref_scale_configs()
@@ -564,24 +908,32 @@ def main() -> int:
     print(f"ref-scale UNet {n_params / 1e6:.1f}M params; mel {mel_shape}; latents {lat_shape}",
           flush=True)
 
-    # ---- kernel phases ----------------------------------------------------
-    conv_err, conv_ms, conv_plain_ms = kernel_phase_conv(unet, ucfg.mlp_groups, lat_shape[1],
-                                                         lat_shape[2], gen)
-    measured = {"grouped_conv3x3": (conv_err, conv_ms, conv_plain_ms)}
+    # ---- kernel phases and tiny slices, each once -------------------------
+    measured = {"grouped_conv3x3": kernel_phase_conv(unet, ucfg.mlp_groups, lat_shape[1],
+                                                     lat_shape[2], gen)}
     measured.update(kernel_phase_fgla(fmt, gen))
     slice_phase()
-
-    conv_back = kernel_phase_conv_backward(unet, ucfg.mlp_groups, lat_shape[1], lat_shape[2], gen)
-    measured["grouped_conv3x3_wgrad"] = conv_back["wgrad"]
-    measured.update(kernel_phase_fgla(fmt, gen))
-    slice_phase()
+    measured["grouped_conv3x3_wgrad"] = kernel_phase_conv_backward(
+        unet, ucfg.mlp_groups, lat_shape[1], lat_shape[2], gen)
     train_slice_phase()
+    measured.update(kernel_phase_mss2d(gen))
+    dae_train_slice_phase()
 
     src = Pipeline({"unet": ModuleHandle("unet", "unet", ucfg, unet),
                     "dae": ModuleHandle("dae", "dae", dcfg, dae),
                     "format": ModuleHandle("format", "format:spectrogram", fcfg, fmt)})
     prompt = torch.randn((1, 1024), generator=gen, device="cuda")
     prompt = prompt / prompt.norm(dim=-1, keepdim=True)
+    counts = {}
+
+    def path_counts(name: str, kernels) -> dict:
+        counts[name] = launch_counts()
+        print(f"kernel launches on the {name} path: {counts[name]}", flush=True)
+        for k in kernels:
+            if counts[name][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the {name} path")
+        return counts[name]
+
     with tempfile.TemporaryDirectory(prefix="dd_smoke_") as tmp:
         t0 = time.perf_counter()
         src.save_pretrained(tmp)
@@ -593,27 +945,28 @@ def main() -> int:
         # ---- serving path: from_pretrained -> generate x2 ------------------
         reset_launch_counts()
         serving_path(tmp, fmt, prompt)
-        counts = {"generate": launch_counts()}
-        print(f"kernel launches on the serving path: {counts['generate']}", flush=True)
-        for name in ("grouped_conv3x3", "fgla_frame", "ola_reframe"):
-            if counts["generate"][name] <= 0:
-                raise AssertionError(f"kernel {name} was not launched on the serving path")
+        path_counts("serving", ("grouped_conv3x3", "fgla_frame", "ola_reframe"))
 
-        # ---- training path: train 4 steps, --resume 1 more ------------------
+        # ---- UNet training path: train 4 steps, --resume 1 more -------------
         torch.cuda.empty_cache()
         reset_launch_counts()
-        training_path(Path(tmp), Path(tmp) / "latents", (ucfg.in_channels,) + lat_shape[1:3],
-                      ucfg.in_channels_emb, "cuda")
-        counts["train"] = launch_counts()
-        print(f"kernel launches on the training path: {counts['train']}", flush=True)
-        for name in ("grouped_conv3x3", "grouped_conv3x3_wgrad"):
-            if counts["train"][name] <= 0:
-                raise AssertionError(f"kernel {name} was not launched on the training path")
+        unet_training_path(Path(tmp), (ucfg.in_channels,) + lat_shape[1:3],
+                           ucfg.in_channels_emb, "cuda")
+        path_counts("UNet training", ("grouped_conv3x3", "grouped_conv3x3_wgrad"))
+
+    # ---- DAE training path: train 4 steps, --resume 1 more ------------------
+    with tempfile.TemporaryDirectory(prefix="dd_smoke_dae_") as tmp:
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        dae_training_path(Path(tmp))
+        per_step = {k: v / (TRAIN_STEPS + 1) for k, v in
+                    path_counts("DAE training", ("mss2d_block_loss",
+                                                 "mss2d_block_loss_grad")).items()}
+        print(f"  launches per DAE train step: K5 {per_step['mss2d_block_loss']:g}, "
+              f"K6 {per_step['mss2d_block_loss_grad']:g}", flush=True)
 
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": sum(c[name] for c in counts.values()),
-                "max_abs_err": measured[name][0], "ms": measured[name][1],
-                "plain_ms": measured[name][2]}
+                "launches": sum(c[name] for c in counts.values()), **measured[name]}
                for name, route, source, replaces in KERNEL_INFO]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,2 +1,2 @@
 from .dataloader import DatasetConfig, DualDiffusionDataset
-from .synthetic import write_latent_dataset
+from .synthetic import write_audio_dataset, write_latent_dataset

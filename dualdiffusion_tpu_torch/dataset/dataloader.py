@@ -1,4 +1,4 @@
-# Copied from dualdiffusion_tpu/dataset/dataloader.py without the raw-audio datatype (it needs the JAX package's load_audio), its latent slice spelled without an Ellipsis.
+# Copied from dualdiffusion_tpu/dataset/dataloader.py, its latent slice spelled without an Ellipsis.
 """Training dataloader: jsonl splits + safetensors slices.
 
 Capability parity with the reference's DualDiffusionDataset
@@ -8,7 +8,8 @@ dependency on the hot path:
   * per-split ``<split>.jsonl`` sample records with validity filtering
     (post-norm LUFS, latents length/variations, embeddings present;
     reference :126-155).
-  * on-the-fly transform: random latent variation + random time crop read as
+  * on-the-fly transform: a random ``raw_crop_width`` crop of the audio
+    (WAV); random latent variation + random time crop read as
     a safetensors SLICE (no full-file load); CLAP audio-embedding window
     average with spherical (mp_sum+normalize) endpoint interpolation
     (reference :192-236); text-embedding mean.
@@ -30,6 +31,8 @@ from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from ..utils.utils import load_audio
 
 logger = logging.getLogger(__name__)
 
@@ -57,8 +60,6 @@ class DualDiffusionDataset:
 
     def __init__(self, config: DatasetConfig, rng: Optional[np.random.Generator] = None,
                  process_index: int = 0, process_count: int = 1) -> None:
-        if "audio" in config.load_datatypes:
-            raise NotImplementedError("the raw-audio datatype is not ported")
         self.config = config
         self.rng = rng or np.random.default_rng()
         self.splits: Dict[str, List[dict]] = {}
@@ -105,6 +106,13 @@ class DualDiffusionDataset:
                 return False
             if not s.get("latents_file_name") or not s.get("latents_num_variations"):
                 return False
+        if "audio" in dt:
+            if not s.get("file_name"):
+                return False
+            if (s.get("sample_length") or 0) < cfg.raw_crop_width:
+                return False
+            if s.get("sample_rate") != cfg.sample_rate:
+                return False
         return True
 
     def __len__(self) -> int:
@@ -116,6 +124,17 @@ class DualDiffusionDataset:
         out: Dict[str, Any] = {"path": record.get("file_name") or
                                record.get("latents_file_name")}
         latents_t_offset = None
+
+        if "audio" in cfg.load_datatypes:
+            total = record["sample_length"]
+            start = int(self.rng.integers(0, max(total - cfg.raw_crop_width, 0) + 1))
+            audio = load_audio(self._abs(record["file_name"]), start=start,
+                               count=cfg.raw_crop_width)
+            if audio.shape[0] < cfg.num_raw_channels:
+                audio = np.tile(audio, (cfg.num_raw_channels // audio.shape[0], 1))
+            elif audio.shape[0] > cfg.num_raw_channels:
+                audio = audio.mean(axis=0, keepdims=True)
+            out["audio"] = audio.astype(np.float32)
 
         lat_file = self._abs(record.get("latents_file_name"))
         if "latents" in cfg.load_datatypes:

@@ -1,7 +1,8 @@
-"""A synthetic pre-encoded latent dataset, in the format ``dataloader.py``
-reads, for driving the trainer without real data: ``train.jsonl`` plus one
-safetensors file per sample holding ``latents`` (variations, C, H, W) and
-``clap_audio_embeddings`` (chunks, E), all drawn from a seed."""
+"""Synthetic datasets, in the format ``dataloader.py`` reads, for driving the
+trainers without real data, all drawn from a seed: pre-encoded latents
+(``train.jsonl`` plus one safetensors file per sample holding ``latents``
+(variations, C, H, W) and ``clap_audio_embeddings`` (chunks, E)), and audio
+(``train.jsonl`` plus one WAV file per sample)."""
 
 from __future__ import annotations
 
@@ -32,5 +33,33 @@ def write_latent_dataset(path: Union[str, Path], num_samples: int,
                         "latents_length": int(latent_shape[-1]),
                         "latents_num_variations": num_variations,
                         "latents_has_audio_embeddings": True})
+    (path / "train.jsonl").write_text("".join(json.dumps(r) + "\n" for r in records))
+    return path
+
+
+def write_audio_dataset(path: Union[str, Path], num_samples: int, channels: int, length: int,
+                        sample_rate: int = 32000, seed: int = 0) -> Path:
+    """Write ``num_samples`` WAV files of ``length`` samples: per sample a few
+    random sinusoids with a slow vibrato plus a little noise, the channels
+    at different gains, peak 0.5."""
+    from ..utils.utils import save_audio
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    t = np.arange(length) / sample_rate
+    records = []
+    for i in range(num_samples):
+        sig = np.zeros(length)
+        for _ in range(4):
+            f0 = rng.uniform(60.0, 4000.0)
+            vibrato = rng.uniform(0.3, 3.0) * np.sin(2 * np.pi * rng.uniform(0.2, 4.0) * t)
+            sig += rng.uniform(0.2, 1.0) * np.sin(2 * np.pi * f0 * t + vibrato
+                                                  + rng.uniform(0, 2 * np.pi))
+        sig += 0.05 * rng.standard_normal(length)
+        audio = np.stack([sig * rng.uniform(0.5, 1.0) for _ in range(channels)])
+        audio = 0.5 * audio / np.abs(audio).max()
+        name = f"sample_{i:05d}.wav"
+        save_audio(audio, sample_rate, path / name)
+        records.append({"file_name": name, "sample_length": length, "sample_rate": sample_rate})
     (path / "train.jsonl").write_text("".join(json.dumps(r) + "\n" for r in records))
     return path

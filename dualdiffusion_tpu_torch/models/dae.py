@@ -1,9 +1,12 @@
-"""DAE, the stage-1 autoencoder, channel last: the decode path
-(JAX: dualdiffusion_tpu/models/dae.py:140-319; reference:
+"""DAE, the stage-1 autoencoder, channel last: encode, decode and the
+training forward (JAX: dualdiffusion_tpu/models/dae.py:140-333; reference:
 src/modules/daes/dae_edm2_q4.py:91-405).
 
-The encoder's modules are built so that model directories round-trip, but
-``encode`` is not ported yet.
+The latent stats tracker (the flax "stats" collection) is four buffers,
+moved in place by a training-mode ``encode``. ``training`` re-normalizes
+every MP weight in the forward, as the JAX package does. Supersampled and
+label-conditioned DAEs, latent noise injection and ``tiled_encode`` are not
+ported.
 """
 
 from __future__ import annotations
@@ -69,22 +72,23 @@ class DAEBlock(nn.Module):
             self.emb_linear = MPConv(emb_channels, c_mid, (), groups=cfg.emb_linear_groups,
                                      device=device)
 
-    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None,
+                training: bool = False) -> torch.Tensor:
         cfg = self.cfg
         x = resample_2d(x, self.resample_mode)
         if self.flavor == "enc":
             if self.conv_skip is not None:
-                x = self.conv_skip(x)
+                x = self.conv_skip(x, training=training)
             if cfg.add_pixel_norm:
                 x = normalize(x, dim=-1)
         # no activation before conv_res0 (dae_edm2_q4.py:180)
-        y = self.conv_res0(x)
+        y = self.conv_res0(x, training=training)
         if self.emb_channels > 0 and emb is not None:
-            c = self.emb_linear(emb, gain=self.emb_gain) + 1.0
+            c = self.emb_linear(emb, gain=self.emb_gain, training=training) + 1.0
             y = y * c[:, None, None, :].to(y.dtype)
-        y = self.conv_res1(mp_silu(normalize_groups(y, cfg.mlp_groups)))
+        y = self.conv_res1(mp_silu(normalize_groups(y, cfg.mlp_groups)), training=training)
         if self.flavor == "dec" and self.conv_skip is not None:
-            x = self.conv_skip(x)
+            x = self.conv_skip(x, training=training)
         x = mp_sum(x, y, t=cfg.res_balance)
         if cfg.clip_act is not None:
             x = x.clamp(-cfg.clip_act, cfg.clip_act)
@@ -159,14 +163,56 @@ class DAE(nn.Module):
         ds = self.downsample_ratio
         return (b, h // ds, w // ds, self.cfg.latent_channels)
 
+    def get_recon_loss_logvar(self) -> torch.Tensor:
+        return self.recon_loss_logvar
+
+    def normalize_latents(self, latents: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        """(x - tracked mean) / tracked std."""
+        std = torch.sqrt(self.latents_var + eps)
+        return ((latents - self.latents_mean) / std).to(latents.dtype)
+
     def unnormalize_latents(self, latents: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
         std = torch.sqrt(self.latents_var + eps)
         return (latents * std + self.latents_mean).to(latents.dtype)
 
-    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        """(B, H, W, in_channels) -> (B, H/ds, W/ds, latent_channels) fp32.
+        ``training`` also moves the latent stats buffers."""
+        x = x.to(getattr(torch, self.cfg.compute_dtype))
+        x = self.conv_in(x, training=training)
+        for block in self.enc:
+            x = block(x, training=training)
+        latents = self.conv_latents_out(x, training=training).float()
+        if training:
+            self._track_stats(latents)
+        return latents
+
+    @torch.no_grad()
+    def _track_stats(self, latents: torch.Tensor) -> None:
+        """EMA (momentum ``latent_stats_momentum``) of the per-channel and
+        global mean and unbiased variance, in place."""
+        m = self.cfg.latent_stats_momentum
+        lx = latents.detach().float()
+        dims = (0, 1, 2)
+        for buf, new in ((self.latents_mean, lx.mean(dim=dims)),
+                         (self.latents_var, lx.var(dim=dims, correction=1)),
+                         (self.latents_global_mean, lx.mean()),
+                         (self.latents_global_var, lx.var(correction=1))):
+            buf.copy_(buf * m + new * (1 - m))
+
+    def decode(self, latents: torch.Tensor, training: bool = False) -> torch.Tensor:
         """(B, h, w, latent_channels) -> (B, h*ds, w*ds, out_channels) fp32."""
         x = latents.to(getattr(torch, self.cfg.compute_dtype))
-        x = self.conv_latents_in(x)
+        x = self.conv_latents_in(x, training=training)
         for block in self.dec:
-            x = block(x)
-        return self.conv_out(x, gain=self.out_gain).float()
+            x = block(x, training=training)
+        return self.conv_out(x, gain=self.out_gain, training=training).float()
+
+    def forward(self, samples: torch.Tensor, latents_sigma: Optional[torch.Tensor] = None,
+                training: bool = True):
+        """Training forward: (latents, reconstruction, pre-norm latents)."""
+        if latents_sigma is not None:
+            raise NotImplementedError("latent noise injection is not ported")
+        pre_norm = self.encode(samples, training=training)
+        recon = self.decode(pre_norm, training=training)
+        return pre_norm, recon, pre_norm

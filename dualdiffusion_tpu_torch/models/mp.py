@@ -1,5 +1,6 @@
 """Magnitude-preserving primitive functions (the EDM2 MP toolkit), channel
-last (JAX: dualdiffusion_tpu/models/mp.py:30-135; reference:
+last, and the stereo mid/side transform (JAX: dualdiffusion_tpu/models/
+mp.py:30-135, 180-184; reference:
 src/modules/mp_tools.py:42-311). 2D activations are (B, H, W, C).
 """
 
@@ -70,3 +71,9 @@ def resample_2d(x: torch.Tensor, mode: str = "keep", ratio: int = 2) -> torch.Te
     if mode == "up":
         return x.repeat_interleave(ratio, dim=-3).repeat_interleave(ratio, dim=-2)
     raise ValueError(mode)
+
+
+def midside_transform(x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
+    """Stereo mid/side: ((L+R), (L-R)) / sqrt(2) along ``channel_dim``."""
+    l, r = x.select(channel_dim, 0), x.select(channel_dim, 1)
+    return torch.stack([l + r, l - r], dim=channel_dim) * 0.5 ** 0.5

@@ -1,4 +1,5 @@
 from .fgla import griffinlim, griffinlim_reference, spsi_phase
-from .mel import FrequencyScale
+from .mdct import imdct, mdct
+from .mel import FrequencyScale, mel_density
 from .stft import istft, stft
 from .windows import get_window

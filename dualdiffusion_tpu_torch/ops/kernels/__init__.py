@@ -10,6 +10,8 @@ from .fgla_frame import dft_twiddles, fgla_frame, fgla_frame_plain
 from .grouped_conv import (GroupedConv3x3Fn, dgrad_weights, grouped_conv3x3,
                            grouped_conv3x3_plain, grouped_conv3x3_wgrad,
                            grouped_conv3x3_wgrad_plain, prepare_weights)
+from .mss2d import (Mss2dBlockLossFn, mss2d_block_loss, mss2d_block_loss_grad,
+                    mss2d_block_loss_grad_plain, mss2d_block_loss_plain, mss2d_loss_fused)
 from .ola_reframe import ola_reframe, ola_reframe_plain
 
 #: every kernel wrapper of the serving and training paths
@@ -18,6 +20,8 @@ KERNELS = {
     "grouped_conv3x3_wgrad": grouped_conv3x3_wgrad,
     "fgla_frame": fgla_frame,
     "ola_reframe": ola_reframe,
+    "mss2d_block_loss": mss2d_block_loss,
+    "mss2d_block_loss_grad": mss2d_block_loss_grad,
 }
 
 

@@ -1,4 +1,4 @@
-# Filterbank construction copied from dualdiffusion_tpu/ops/mel.py; scale/unscale on torch.
+# Filterbank construction and mel_density copied from dualdiffusion_tpu/ops/mel.py; scale/unscale on torch.
 """Mel / log frequency-scale filterbanks with matmul scale and
 precomputed-pseudoinverse unscale (reference: src/modules/formats/
 frequency_scale.py:85-169). The filterbank and its Moore-Penrose
@@ -21,6 +21,11 @@ def hz_to_mel(freq):
 
 def mel_to_hz(mels):
     return 700.0 * (10.0 ** (np.asarray(mels) / 2595.0) - 1.0)
+
+
+def mel_density(hz):
+    """d(mel)/d(hz) (reference: frequency_scale.py:36-37). Works on numpy and torch."""
+    return 1127.0 / (700.0 + hz)
 
 
 def _triangular_filterbank(all_freqs: np.ndarray, f_pts: np.ndarray) -> np.ndarray:

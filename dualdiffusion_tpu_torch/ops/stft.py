@@ -65,10 +65,13 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def stft(x: torch.Tensor, window: np.ndarray, n_fft: int, hop_length: int,
-         center: bool = True) -> torch.Tensor:
-    """(..., T) real -> complex (..., frames, bins)."""
-    win = torch.as_tensor(pad_center(np.asarray(window, np.float64), n_fft),
-                          dtype=torch.float32, device=x.device)
+         center: bool = True, normalized: bool = False) -> torch.Tensor:
+    """(..., T) real -> complex (..., frames, bins). ``normalized`` scales by
+    n_fft**-0.5 (torch.stft's semantics)."""
+    win = pad_center(np.asarray(window, np.float64), n_fft)
+    if normalized:
+        win = win / np.sqrt(n_fft)
+    win = torch.as_tensor(win, dtype=torch.float32, device=x.device)
     if center:
         x = reflect_pad(x, n_fft // 2)
     return torch.fft.rfft(frame_signal(x, n_fft, hop_length) * win, n=n_fft)

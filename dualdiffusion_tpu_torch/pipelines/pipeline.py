@@ -117,16 +117,19 @@ class Pipeline:
                         last_global_step)
 
     @classmethod
-    def from_pretrained(cls, model_path: Union[str, Path], device="cpu",
+    def from_pretrained(cls, model_path: Union[str, Path], device="cuda",
                         load_checkpoints: Union[bool, Dict[str, str]] = False,
                         load_emas: Optional[Dict[str, str]] = None) -> "Pipeline":
-        """Load a model directory onto ``device``.
+        """Load a model directory onto ``device``: the card unless the caller
+        asks for the CPU (``device="cpu"``); without a card the default raises.
 
         ``load_checkpoints``: False loads the model root; True each module's
         latest ``<module>_checkpoint-<step>/``; a dict maps module name to
         "latest", "root", a step number or a checkpoint directory name.
         ``load_emas`` maps module name -> EMA name (``ema_<name>.safetensors``).
         """
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass device='cpu' to load onto the CPU")
         model_path = Path(model_path)
         index = load_json(model_path / "model_index.json")
         load_emas = load_emas or {}

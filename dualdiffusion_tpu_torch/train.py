@@ -5,9 +5,11 @@
         [--max_steps N] [--device cuda|cpu]
 
 The train config is a TrainerConfig JSON; the model directory is a pipeline
-model directory (``Pipeline.save_pretrained``); the dataset is a directory of
-pre-encoded latents (``train.jsonl`` + safetensors, see
-``dataset/dataloader.py``). ``--device`` defaults to ``cuda`` and never falls
+model directory (``Pipeline.save_pretrained``); the dataset is a directory
+with ``train.jsonl`` and the files it names: pre-encoded latents
+(safetensors) for the UNet trainer, WAV audio for the DAE trainer (the
+dataloader's ``load_datatypes``, see ``dataset/dataloader.py``).
+``--device`` defaults to ``cuda`` and never falls
 back: without a GPU, training on the CPU takes ``--device cpu``. The JAX
 entry's mesh flags (``--model_axis``, ``--num_dcn_slices``) have no
 counterpart: the port trains on one device.
@@ -28,7 +30,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--model_path", required=True)
     ap.add_argument("--train_config_path", required=True)
     ap.add_argument("--dataset_path", default=None,
-                    help="pre-encoded latent dataset (default: $DATASET_PATH)")
+                    help="dataset directory (default: $DATASET_PATH)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--device", default="cuda")
@@ -54,8 +56,6 @@ def build_trainer(args: argparse.Namespace):
     tconf.model_path = args.model_path
     if tconf.parallel.model_axis != 1 or tconf.parallel.fsdp or tconf.parallel.num_dcn_slices != 1:
         raise NotImplementedError("model-parallel, FSDP and multi-slice training are not ported")
-    if not tconf.dataloader.use_pre_encoded_latents:
-        raise NotImplementedError("training from raw audio is not ported")
 
     pipeline = Pipeline.from_pretrained(args.model_path, device=device, load_checkpoints=False)
     generator = torch.Generator(device=device).manual_seed(tconf.seed)

@@ -1,7 +1,9 @@
-"""UNet diffusion training (JAX: dualdiffusion_tpu/training): the train step,
-sigma sampler, optimizer chain, EMA bank and the trainer loop. Importing
-``builders`` registers the module trainers."""
+"""UNet and DAE training (JAX: dualdiffusion_tpu/training): the train steps,
+losses, sigma sampler, optimizer chain, EMA bank and the trainer loop.
+Importing ``builders`` registers the module trainers."""
 from .ema import EMABank, EMAConfig
+from .module_trainers import (DAEMicroDraws, DAETrainConfig, draw_dae_step,
+                              make_dae_train_step)
 from .optim import build_optimizer, lr_schedule, normalize_mp_weights
 from .sigma_sampler import SigmaSampler, SigmaSamplerConfig
 from .train_state import (MicroDraws, StepDraws, TrainState, UNetTrainConfig,

@@ -1,6 +1,6 @@
 """Wiring: TrainerConfig + Pipeline -> (train step, TrainState, export fn,
 EMA bank, batch adapter), selected by the module-trainer registry
-(JAX: dualdiffusion_tpu/training/builders.py:29-104)."""
+(JAX: dualdiffusion_tpu/training/builders.py:29-125)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,9 @@ import torch
 
 from ..utils import config_from_dict
 from .ema import EMABank, EMAConfig
+from .module_trainers import DAETrainConfig, make_dae_train_step
 from .optim import Optimizer, build_optimizer, lr_schedule
+from .sigma_sampler import SigmaSamplerConfig
 from .train_state import UNetTrainConfig, init_train_state, make_unet_train_step
 from .trainer import TrainerConfig, register_module_trainer
 
@@ -67,11 +69,30 @@ def build_unet_trainer(pipeline, tconf: TrainerConfig, generator: torch.Generato
     return step, state, export_fn(pipeline, tconf.module_name), bank, batch_adapter
 
 
+@register_module_trainer("dae")
+def build_dae_trainer(pipeline, tconf: TrainerConfig, generator: torch.Generator):
+    """DAE training on raw audio through the pipeline's format."""
+    model = pipeline.modules[tconf.module_name].module
+    cfg = config_from_dict(DAETrainConfig, dict(tconf.module_trainer_config))
+    cfg.grad_accum_steps = tconf.gradient_accumulation_steps
+    opt = make_optimizer(tconf, model.parameters())
+    bank = make_ema_bank(tconf)
+    step = make_dae_train_step(pipeline.format, opt, bank, cfg,
+                               tconf.device_batch_size * tconf.gradient_accumulation_steps)
+    state = init_train_state(model, opt, bank, SigmaSamplerConfig(), generator)
+    device = next(model.parameters()).device
+
+    def batch_adapter(batch):
+        return {"audio": torch.as_tensor(batch["audio"], dtype=torch.float32).to(device)}
+
+    return step, state, export_fn(pipeline, tconf.module_name), bank, batch_adapter
+
+
 def _not_ported(name: str):
     def build(pipeline, tconf, generator):
         raise NotImplementedError(f"module trainer '{name}' is not ported")
     return build
 
 
-for _name in ("dae", "ddec", "dae_ddec"):
+for _name in ("ddec", "dae_ddec"):
     register_module_trainer(_name)(_not_ported(_name))

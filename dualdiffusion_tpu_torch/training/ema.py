@@ -2,8 +2,10 @@
 EMA, and bf16 archive snapshots (JAX: dualdiffusion_tpu/training/ema.py:38-270,
 418-429; reference: src/training/ema.py).
 
-A profile is a dict parameter name -> tensor beside the model's parameters,
-updated in place after each optimizer step (``torch._foreach`` lerp in the
+A profile is a dict name -> tensor beside the model's parameters and
+persistent buffers (the DAE's latent stats: the JAX bank averages every
+variable collection it is given, "stats" with "params"), updated in place
+after each optimizer step (``torch._foreach`` lerp in the
 accumulation dtype, stored in the profile's dtype). Profiles kept in host
 memory (``cpu_offload``, JAX ``AsyncHostEMA``) are not ported yet.
 """
@@ -78,6 +80,12 @@ class EMAConfig:
             raise NotImplementedError(f"ema '{self.name}': cpu_offload is not ported")
 
 
+def trained_tensors(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The parameters and persistent buffers of a trained module: what an EMA
+    profile tracks and a checkpoint restores."""
+    return module.state_dict(keep_vars=True)
+
+
 class EMABank:
     """Named EMA profiles of one module's parameters."""
 
@@ -108,9 +116,9 @@ class EMABank:
         return beta
 
     def init(self, module: nn.Module) -> Dict[str, Profile]:
-        """Every profile starts as a copy of the module's parameters."""
+        """Every profile starts as a copy of the module's tracked tensors."""
         return {name: {k: p.detach().to(self.storage_dtype(cfg), copy=True)
-                       for k, p in module.named_parameters()}
+                       for k, p in trained_tensors(module).items()}
                 for name, cfg in self.configs.items()}
 
     @torch.no_grad()
@@ -119,7 +127,7 @@ class EMABank:
         """One EMA step of every profile, in place, with the counters from
         before the step; a feedback profile then lerps the parameters toward
         itself."""
-        params = dict(module.named_parameters())
+        params = trained_tensors(module)
         for name, cfg in self.configs.items():
             b = self.beta(cfg, total_samples_processed, batch_size, global_step)
             store = self.storage_dtype(cfg)
@@ -160,7 +168,7 @@ class EMABank:
             return None
         if epoch % cfg.num_switch_ema_epochs != 0:
             return None
-        for k, p in module.named_parameters():
+        for k, p in trained_tensors(module).items():
             p.copy_(ema_state[name][k])
         if normalize_fn is not None:
             normalize_fn(module)

@@ -34,7 +34,7 @@ import torch
 
 from ..utils import load_json, load_safetensors, save_json, save_safetensors
 from ..weights import flat_to_state, state_to_flat
-from .ema import EMABank, power_function_beta, save_ema_archive
+from .ema import EMABank, power_function_beta, save_ema_archive, trained_tensors
 from .optim import lr_schedule, normalize_mp_weights
 from .train_state import TrainState
 
@@ -245,7 +245,7 @@ class Trainer:
 
     @torch.no_grad()
     def load_checkpoint(self) -> bool:
-        """Restore the latest checkpoint, if any: weights, EMA profiles,
+        """Restore the latest checkpoint, if any: weights and buffers, EMA profiles,
         optimizer/clip/sigma-pdf/counter/generator state, epoch position."""
         from ..pipelines.pipeline import Pipeline
         ckpt = Pipeline.get_latest_checkpoint(self.config.model_path, self.config.module_name)
@@ -254,7 +254,7 @@ class Trainer:
         st = self.state
         name = self.config.module_name
         module_dir = ckpt / name
-        params = dict(st.module.named_parameters())
+        params = trained_tensors(st.module)
         for k, v in flat_to_state(params, load_safetensors(module_dir / f"{name}.safetensors")
                                   ).items():
             params[k].copy_(v)
@@ -314,10 +314,12 @@ class Trainer:
                 if step % 25 == 0 and self.device.type == "cuda":
                     scalars["device_stats/mem_used_mb"] = \
                         torch.cuda.memory_allocated(self.device) / 1e6
-                sums, counts = logs["bucket_sums"].cpu().numpy(), logs["bucket_counts"].cpu().numpy()
-                for i in range(len(sums)):
-                    if counts[i] > 0:
-                        scalars[f"loss_buckets/{name}_{i}"] = float(sums[i] / counts[i])
+                if "bucket_sums" in logs:
+                    sums = logs["bucket_sums"].cpu().numpy()
+                    counts = logs["bucket_counts"].cpu().numpy()
+                    for i in range(len(sums)):
+                        if counts[i] > 0:
+                            scalars[f"loss_buckets/{name}_{i}"] = float(sums[i] / counts[i])
                 self.train_logger.add_logs(scalars)
                 self.history.append({"step": step, "loss": loss, "grad_norm": grad_norm,
                                      "seconds": seconds})
@@ -395,7 +397,7 @@ class Trainer:
         if profile is None:
             yield self.state.module
             return
-        params = dict(self.state.module.named_parameters())
+        params = trained_tensors(self.state.module)
         saved = {k: p.detach().clone() for k, p in params.items()}
         with torch.no_grad():
             for k, p in params.items():

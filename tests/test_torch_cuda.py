@@ -16,8 +16,12 @@ import torch
 from dualdiffusion_tpu_torch.ops.kernels import (GroupedConv3x3Fn, dft_twiddles, dgrad_weights,
                                                  fgla_frame, fgla_frame_plain, grouped_conv3x3,
                                                  grouped_conv3x3_plain, grouped_conv3x3_wgrad,
-                                                 grouped_conv3x3_wgrad_plain, ola_reframe,
-                                                 ola_reframe_plain, prepare_weights)
+                                                 grouped_conv3x3_wgrad_plain, mss2d_block_loss,
+                                                 mss2d_block_loss_grad,
+                                                 mss2d_block_loss_grad_plain,
+                                                 mss2d_block_loss_plain, mss2d_loss_fused,
+                                                 ola_reframe, ola_reframe_plain, prepare_weights)
+from dualdiffusion_tpu_torch.training.losses import _window_2d, product_weights
 
 
 @pytest.fixture
@@ -126,6 +130,63 @@ def test_fgla_kernels_match_plain(cuda, n, hop, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bw,stride,bc,h,w", [(32, 4, 2, 32 + 21, 32 + 13),
+                                              (64, 8, 2, 64 + 19, 64 + 9),
+                                              (32, 4, 16, 256 + 32, 680 + 32),
+                                              (64, 8, 16, 256 + 64, 680 + 64)])
+def test_mss2d_kernels_match_plain(cuda, bw, stride, bc, h, w):
+    """K5 per-image sums to 1e-4 relative (fp32 sums in another order;
+    measured 4e-7). K6 to 1e-4 of max with target = sample / 2, where
+    |S| - |T| = |S| / 2 exactly in both versions; with an independent target
+    some bins have |S| ~ |T| and the sign of their difference flips between
+    two fp32 evaluations, so there the gradients agree to 1e-3 relative L2
+    (measured 1.6e-4 at the chip path's shapes). Two K6 calls agree bit for
+    bit; the small shapes leave ragged edges."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    s = torch.randn((bc, h, w), generator=g, device=cuda)
+    gg = torch.randn((bc,), generator=g, device=cuda)
+    win, wgt = _window_2d("flat_top", bw), product_weights(bw) / bw
+    t = torch.randn((bc, h, w), generator=g, device=cuda)
+    before = mss2d_block_loss.launches, mss2d_block_loss_grad.launches
+    got = mss2d_block_loss(s, t, bw, stride, win, wgt)
+    torch.cuda.synchronize()
+    want = mss2d_block_loss_plain(s, t, bw, stride, win, wgt)
+    assert ((got - want).abs() <= 1e-4 * want.abs()).all()
+    ds, dt = mss2d_block_loss_grad(s, t, gg, bw, stride, win, wgt)
+    again, _ = mss2d_block_loss_grad(s, t, gg, bw, stride, win, wgt)
+    torch.cuda.synchronize()
+    assert torch.equal(ds, again)
+    for a, b in zip((ds, dt), mss2d_block_loss_grad_plain(s, t, gg, bw, stride, win, wgt)):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-3
+    half = 0.5 * s
+    ds, dt = mss2d_block_loss_grad(s, half, gg, bw, stride, win, wgt)
+    for a, b in zip((ds, dt), mss2d_block_loss_grad_plain(s, half, gg, bw, stride, win, wgt)):
+        assert _rel_err(a.cpu(), b.cpu()) <= 1e-4
+    only_s, none = mss2d_block_loss_grad(s, half, gg, bw, stride, win, wgt, need_target=False)
+    assert none is None and torch.equal(only_s, ds)
+    assert (mss2d_block_loss.launches, mss2d_block_loss_grad.launches) == \
+        (before[0] + 1, before[1] + 4)
+
+
+@pytest.mark.cuda
+def test_mss2d_fused_loss_on_card_matches_cpu(cuda):
+    """The multi-scale loss with the "stack" mid/side (widths 8/16 unfold,
+    32/64 through K5/K6) on the card against the CPU's plain versions:
+    per-sample losses to 1e-4 relative, the sample's gradient to 1e-4 of max
+    (target = sample / 2, see test_mss2d_kernels_match_plain)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    s = torch.randn((2, 2, 80, 100), generator=g, device=cuda)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        x = s.detach().to(dev).requires_grad_()
+        loss = mss2d_loss_fused(x, 0.5 * s.to(dev), use_midside=True)
+        (loss * torch.tensor([1.0, 2.0], device=dev)).sum().backward()
+        out[dev.type] = (loss.detach().cpu(), x.grad.cpu())
+    assert ((out["cuda"][0] - out["cpu"][0]).abs() <= 1e-4 * out["cpu"][0].abs()).all()
+    assert _rel_err(out["cuda"][1], out["cpu"][1]) <= 1e-4
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     x = torch.randn((1, 4, 8, 16), device=cuda)            # fp32: K1 takes bf16 only
     wt = prepare_weights(torch.randn((16, 8, 3, 3), device=cuda), 2)
@@ -133,6 +194,11 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         grouped_conv3x3(x, wt, 2)
     with pytest.raises(ValueError):
         grouped_conv3x3(x.bfloat16(), wt.cpu(), 2)          # mixed devices
+    s = torch.randn((2, 40, 40), device=cuda)
+    with pytest.raises(ValueError):                          # the kernels take bw 32 and 64
+        mss2d_block_loss(s, s, 16, 2, _window_2d("flat_top", 16), product_weights(16))
+    with pytest.raises(ValueError):                          # a window that is not separable
+        mss2d_block_loss(s, s, 32, 4, _window_2d("flat_top_circular", 32), product_weights(32))
 
 
 @pytest.mark.cuda

@@ -92,7 +92,7 @@ def test_generate_matches_jax_on_a_jax_written_model(tmp_path):
         step_noise.append(torch.from_numpy(np.array(
             jax.random.normal(jax.random.split(k_noise)[0], lat_shape, jnp.float32))))
 
-    pipe = Pipeline.from_pretrained(tmp_path / "model")
+    pipe = Pipeline.from_pretrained(tmp_path / "model", device="cpu")
     got = pipe.generate(SampleParams(steps=STEPS, num_fgla_iters=FGLA_ITERS),
                         prompt_embedding=torch.from_numpy(prompt), decode_mode="fgla",
                         init_noise=torch.from_numpy(np.array(init)), step_noise=step_noise)
@@ -128,7 +128,7 @@ def test_port_written_model_loads_in_jax(tmp_path):
     configs and bit-identical weights."""
     jpipe = _jax_pipeline()
     jpipe.save_pretrained(tmp_path / "jax")
-    Pipeline.from_pretrained(tmp_path / "jax").save_pretrained(tmp_path / "port")
+    Pipeline.from_pretrained(tmp_path / "jax", device="cpu").save_pretrained(tmp_path / "port")
     back = JaxPipeline.from_pretrained(tmp_path / "port")
     assert sorted(back.modules) == sorted(jpipe.modules)
     for name, h in jpipe.modules.items():
@@ -143,7 +143,7 @@ def test_port_written_model_loads_in_jax(tmp_path):
 def test_unported_generate_inputs_raise(tmp_path):
     """img2img / inpainting inputs and the DDEC decode are not ported yet."""
     _jax_pipeline().save_pretrained(tmp_path / "model")
-    pipe = Pipeline.from_pretrained(tmp_path / "model")
+    pipe = Pipeline.from_pretrained(tmp_path / "model", device="cpu")
     params = SampleParams(steps=1, num_fgla_iters=1)
     for kw in (dict(input_audio=torch.zeros((2, 63 * 256))),
                dict(input_latents=torch.zeros((1, 16, 16, 8))),
@@ -151,3 +151,14 @@ def test_unported_generate_inputs_raise(tmp_path):
                dict(decode_mode="ddec")):
         with pytest.raises(NotImplementedError):
             pipe.generate(params, **kw)
+
+
+def test_from_pretrained_defaults_to_the_card(tmp_path, monkeypatch):
+    """``from_pretrained`` loads onto the card unless the caller asks for
+    the CPU: with no card, a call without ``device`` raises instead of
+    loading onto the CPU."""
+    _jax_pipeline().save_pretrained(tmp_path / "model")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Pipeline.from_pretrained(tmp_path / "model")
+    assert Pipeline.from_pretrained(tmp_path / "model", device="cpu").modules
