@@ -176,7 +176,8 @@ class UNetBlock(nn.Module):
         k = normalize(qk_h[..., 1, :], dim=-1)
         vh = normalize(v_s.reshape(bs, seq, num_heads, hd), dim=-1)
         y = scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                         vh.transpose(1, 2), scale=1.0 / np.sqrt(hd))
+                                         vh.transpose(1, 2), scale=1.0 / np.sqrt(hd),
+                                         training=training)
         y = y.transpose(1, 2).to(x.dtype).reshape(bs, seq, ch)
         if cfg.attn_axis == "freq":
             y = y.reshape(b, w, h, ch).permute(0, 2, 1, 3)

@@ -7,6 +7,7 @@ CUDA tensors it launches the kernel or raises (never a silent fallback).
 """
 
 from .fgla_frame import dft_twiddles, fgla_frame, fgla_frame_plain
+from .flash_attention import flash_attention, flash_attention_plain
 from .grouped_conv import (GroupedConv3x3Fn, dgrad_weights, grouped_conv3x3,
                            grouped_conv3x3_plain, grouped_conv3x3_wgrad,
                            grouped_conv3x3_wgrad_plain, prepare_weights)
@@ -22,6 +23,7 @@ KERNELS = {
     "ola_reframe": ola_reframe,
     "mss2d_block_loss": mss2d_block_loss,
     "mss2d_block_loss_grad": mss2d_block_loss_grad,
+    "flash_attention": flash_attention,
 }
 
 

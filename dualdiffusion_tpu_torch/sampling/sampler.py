@@ -96,6 +96,25 @@ def draw_noise(shape: Tuple[int, ...], stereo_fix: float, generator: torch.Gener
     return noise
 
 
+def _noise_device(device, generator: Optional[torch.Generator],
+                  init_noise: Optional[torch.Tensor],
+                  init_sample: Optional[torch.Tensor]) -> torch.device:
+    """Where the sampler draws its noise: ``device`` when given, else the
+    device of ``generator``, ``init_noise`` or ``init_sample``, else the
+    card (which must exist)."""
+    if device is not None:
+        return torch.device(device)
+    if generator is not None:
+        return generator.device
+    for t in (init_noise, init_sample):
+        if t is not None:
+            return t.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass a device, a generator or init_noise on the CPU "
+                           "to sample there")
+    return torch.device("cuda")
+
+
 def edm_sample(denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
                sample_shape: Tuple[int, ...], params: SampleParams,
                sigma_max: float, sigma_min: float, sigma_data: float,
@@ -109,7 +128,8 @@ def edm_sample(denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     denoise_fn(x, sigma) -> D(x): with ``use_cfg`` it receives the doubled
     batch (cond first half, uncond second half). ``init_noise`` is the x_T
     noise and ``step_noise[i]`` the noise re-added after step i; each is
-    drawn from ``generator`` when not given.
+    drawn from ``generator`` when not given, on ``device``: by default the
+    device of ``generator``, ``init_noise`` or ``init_sample``, else the card.
     """
     if params.seamless_loop:
         raise NotImplementedError("seamless-loop sampling is not ported")
@@ -117,6 +137,7 @@ def edm_sample(denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
         raise NotImplementedError("img2img (init_sample) is not ported")
     if step_noise is not None and len(step_noise) != params.steps:
         raise ValueError(f"step_noise holds {len(step_noise)} draws for {params.steps} steps")
+    device = _noise_device(device, generator, init_noise, init_sample)
     consts, sched = per_step_constants(params, sigma_max, sigma_min, sigma_data)
     b = sample_shape[0]
     noise = (init_noise.float() if init_noise is not None

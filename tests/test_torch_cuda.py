@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from dualdiffusion_tpu_torch.ops.kernels import (GroupedConv3x3Fn, dft_twiddles, dgrad_weights,
-                                                 fgla_frame, fgla_frame_plain, grouped_conv3x3,
+                                                 fgla_frame, fgla_frame_plain, flash_attention,
+                                                 flash_attention_plain, grouped_conv3x3,
                                                  grouped_conv3x3_plain, grouped_conv3x3_wgrad,
                                                  grouped_conv3x3_wgrad_plain, mss2d_block_loss,
                                                  mss2d_block_loss_grad,
@@ -187,6 +188,49 @@ def test_mss2d_fused_loss_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l,d,window,causal", [
+    (300, 64, None, False),      # dense, ragged last tile
+    (256, 64, None, True),       # causal
+    (1000, 32, 100, False),      # banded: tiles skipped on both sides
+    (517, 128, None, False),     # D = 128, ragged
+    (130, 64, 40, True),         # banded + causal
+    (77, 32, 0, False),          # one key per row
+    (2100, 64, None, False),     # past FLASH_MIN_SEQ
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
+def test_flash_attention_kernel_matches_plain(cuda, l, d, window, causal, dtype, tol):
+    """K7 against the fp32 plain version. bf16: P is rounded to bf16 for the
+    P V products (as the JAX einsum route rounds its probabilities) and o is
+    stored in bf16, so 2e-2 of max |o|; fp32 (fp32 FMA): summation order,
+    2e-5. Inputs are the UNet's transposed (B, L, H, D) views; the output
+    keeps q's strides."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((2, l, 3, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
+               for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.stride() == q.stride()
+    want = flash_attention_plain(q, k, v, window=window, causal=causal)
+    assert _rel_err(got.float().cpu(), want.float().cpu()) <= tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_any_layout(cuda):
+    """Strided views the kernel reads in place (16-byte aligned rows and
+    start) and views it copies first (a 2-byte offset) give the output of
+    contiguous inputs, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    base = torch.randn((1, 2, 200, 72), generator=g, device=cuda).bfloat16()
+    for q in (base[..., 8:], base[..., 1:65]):
+        want = flash_attention(q.contiguous(), q.contiguous(), q.contiguous())
+        got = flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     x = torch.randn((1, 4, 8, 16), device=cuda)            # fp32: K1 takes bf16 only
     wt = prepare_weights(torch.randn((16, 8, 3, 3), device=cuda), 2)
@@ -199,6 +243,15 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         mss2d_block_loss(s, s, 16, 2, _window_2d("flat_top", 16), product_weights(16))
     with pytest.raises(ValueError):                          # a window that is not separable
         mss2d_block_loss(s, s, 32, 4, _window_2d("flat_top_circular", 32), product_weights(32))
+    a = torch.randn((1, 2, 64, 40), device=cuda).bfloat16()  # K7 takes D = 16, 32, .., 128
+    with pytest.raises(ValueError):
+        flash_attention(a, a, a)
+    a = torch.randn((1, 2, 64, 144), device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        flash_attention(a, a, a)
+    a = torch.randn((1, 2, 64, 64), device=cuda).half()      # bf16 and fp32 only
+    with pytest.raises(TypeError):
+        flash_attention(a, a, a)
 
 
 @pytest.mark.cuda

@@ -83,3 +83,23 @@ def test_unported_sampler_options_raise():
     with pytest.raises(NotImplementedError):
         edm_sample(lambda x, s: x, SHAPE, SampleParams(steps=1), 200.0, 0.03, 1.0,
                    generator=torch.Generator(), init_sample=torch.zeros(SHAPE))
+
+
+def test_edm_sample_draws_on_the_device_of_its_inputs(monkeypatch):
+    """The noise lies where the generator or ``init_noise`` lies; with
+    neither (and no ``device``) the sampler draws on the card, and raises
+    without one, instead of drawing on the CPU."""
+    params = SampleParams(steps=1)
+
+    def denoise(x, s):
+        return _denoise(torch, x, s)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        edm_sample(denoise, SHAPE, params, 200.0, 0.03, 1.0)
+    init = torch.from_numpy(np.random.default_rng(0).standard_normal(SHAPE).astype(np.float32))
+    assert edm_sample(denoise, SHAPE, params, 200.0, 0.03, 1.0, init_noise=init).device.type \
+        == "cpu"
+    assert edm_sample(denoise, SHAPE, params, 200.0, 0.03, 1.0,
+                      generator=torch.Generator()).device.type == "cpu"
+    assert edm_sample(denoise, SHAPE, params, 200.0, 0.03, 1.0, device="cpu").device.type \
+        == "cpu"
