@@ -16,12 +16,14 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    5-iteration Griffin-Lim run, the fused 2-D multi-scale spectral loss
    of the DAE training microbatch, forward (K5) and gradient (K6), and the
    flash attention (K7) at the full-attention model's level-1 shapes (B 2,
-   L 5504, D 64, 4/8/12 heads, plus a band, a causal and a ragged case),
-   with K7 against the einsum route from L 344 to 5504 (the crossover);
-4. holds a tiny model's generate slice, its UNet train steps, a tiny
-   DAE's train steps and a tiny full-attention model's generate slice
-   (level-1 L 2048, through K7) on the card against the same models on the
-   CPU;
+   L 5504, D 64, 4/8/12 heads, plus a band, a causal and a ragged case, and
+   head widths 8, 24 and 192), with K7 against the einsum route from L 86
+   to 5504 (the crossover);
+4. holds a tiny model's generate slice, the same on the MS-MDCT dual
+   format (its FGLA decode: K2/K3 at n_fft 4096, hop 256), its UNet train
+   steps, a tiny DAE's train steps and a tiny full-attention model's
+   generate slice (level-1 L 2048, through K7) on the card against the same
+   models on the CPU;
 5. drives the serving path: builds the reference-scale pipeline (356M-param
    UNet, 64-ch DAE, 256-bin mel format) from a seed, saves it, loads it with
    ``Pipeline.from_pretrained`` and calls ``generate`` twice (45 s, batch 1,
@@ -355,28 +357,32 @@ def kernel_phase_fgla(fmt, gen):
     return results
 
 
-def slice_phase(full_attention: bool = False):
+def slice_phase(kind: str = "freq"):
     """The whole slice on a tiny model (grouped MLP convs, attention at level
     1): the CUDA run (through the kernels) against the CPU run (their plain
-    versions and the einsum attention), same weights and noise. By default
-    "freq" attention on a 64-bin mel; with ``full_attention`` "full"
-    attention with D = 64 on a 128-bin, 1024-frame mel, whose (32, 256)
-    latents give level 1 L = 16 x 128 = 2048, so the card takes K7 there.
-    Both runs take the UNet and DAE in bf16 and round at different places
-    (the einsum route also rounds its logits to bf16), so latents and mel
-    agree to 5e-2 of max; the audio, whose SPSI phases follow mel peaks, is
-    compared through its own mel spectrogram: 0.2 relative L2 (measured
-    0.09), and 0.3 for the full-attention slice, whose 1024-frame mel
-    carries the logits' rounding into more phases (measured 0.18 with the
-    mel at 1.4e-2 of max)."""
+    versions and the einsum attention), same weights and noise. ``kind``:
+    "freq" attention on a 64-bin spectrogram mel; "full" attention with D =
+    64 on a 128-bin, 1024-frame mel, whose (32, 256) latents give level 1 L
+    = 16 x 128 = 2048, so the card takes K7 there; "ms_mdct_dual", "freq"
+    attention on the MS-MDCT dual format's 64-filter mel (128 frames),
+    decoded by its FGLA fallback, so K2 and K3 run at its n_fft 4096 and hop
+    256. Both runs take the UNet and DAE in bf16 and round at different
+    places (the einsum route also rounds its logits to bf16), so latents and
+    mel agree to 5e-2 of max; the audio, whose SPSI phases follow mel peaks,
+    is compared through its own mel spectrogram: 0.2 relative L2 (measured
+    0.09 on both formats), and 0.3 for the full-attention slice, whose
+    1024-frame mel carries the logits' rounding into more phases (measured
+    0.18 with the mel at 1.4e-2 of max)."""
     import copy
     import torch
     from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
-    from dualdiffusion_tpu_torch.models.formats import (SpectrogramFormat,
+    from dualdiffusion_tpu_torch.models.formats import (MSMDCTDualFormat, MSMDCTDualFormatConfig,
+                                                        SpectrogramFormat,
                                                         SpectrogramFormatConfig)
     from dualdiffusion_tpu_torch.ops.kernels import launch_counts
     from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
     from dualdiffusion_tpu_torch.sampling import SampleParams
+    full_attention = kind == "full"
     ucfg = UNetConfig(in_channels=8, out_channels=8, in_channels_emb=1024, model_channels=32,
                       channel_mult=(1, 2), num_layers_per_block=1,
                       channels_per_head=64 if full_attention else 32, mlp_multiplier=2,
@@ -384,15 +390,21 @@ def slice_phase(full_attention: bool = False):
                       attn_axis="full" if full_attention else "freq")
     dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
                      num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=8)
-    freqs, frames = (128, 1024) if full_attention else (64, 64)
-    fcfg = SpectrogramFormatConfig(window_duration_ms=40, padded_duration_ms=40,
-                                   num_frequencies=freqs, default_raw_length=(frames - 1) * 256)
+    if kind == "ms_mdct_dual":
+        # 128 mel frames (the format aligns them to 128), hop 256
+        fcfg = MSMDCTDualFormatConfig(ms_num_filters=64, default_raw_length=127 * 256)
+        fmt, fmt_type = MSMDCTDualFormat(fcfg), "format:ms_mdct_dual"
+    else:
+        freqs, frames = (128, 1024) if full_attention else (64, 64)
+        fcfg = SpectrogramFormatConfig(window_duration_ms=40, padded_duration_ms=40,
+                                       num_frequencies=freqs,
+                                       default_raw_length=(frames - 1) * 256)
+        fmt, fmt_type = SpectrogramFormat(fcfg), "format:spectrogram"
     gen = torch.Generator().manual_seed(1)
     unet = UNet(ucfg).init_weights(gen)
     dae = DAE(dcfg).init_weights(gen)
     with torch.no_grad():
         unet.core.out_gain.fill_(1.0)
-    fmt = SpectrogramFormat(fcfg)
     params = SampleParams(steps=2, num_fgla_iters=3)
     lat_shape = dae.get_latent_shape(fmt.get_sample_shape(1))
     prompt = torch.randn((1, 1024), generator=gen)
@@ -403,7 +415,7 @@ def slice_phase(full_attention: bool = False):
         pipe = Pipeline({
             "unet": ModuleHandle("unet", "unet", ucfg, copy.deepcopy(unet).to(dev)),
             "dae": ModuleHandle("dae", "dae", dcfg, copy.deepcopy(dae).to(dev)),
-            "format": ModuleHandle("format", "format:spectrogram", fcfg, fmt)})
+            "format": ModuleHandle("format", fmt_type, fcfg, fmt)})
         before = launch_counts()
         out = pipe.generate(params, prompt_embedding=prompt.to(dev), init_noise=init.to(dev),
                             step_noise=[n.to(dev) for n in noise])
@@ -411,10 +423,16 @@ def slice_phase(full_attention: bool = False):
         outs[dev] = {k: v.float().cpu() for k, v in out.items()}
         outs[dev]["audio_mel"] = fmt.raw_to_sample(outs[dev]["raw"])
         launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
-        if dev == "cuda" and full_attention and not launched.get("flash_attention"):
-            raise AssertionError(f"the full-attention slice on the card skipped K7: {launched}")
-    print(f"slice on a tiny model ({ucfg.attn_axis} attention, latents {tuple(lat_shape)}), "
-          f"CUDA (kernels: {launched}) vs CPU (plain versions):", flush=True)
+        needed = ("flash_attention",) if full_attention else ("fgla_frame", "ola_reframe")
+        if dev == "cuda" and not all(launched.get(k) for k in needed):
+            raise AssertionError(f"the {kind} slice on the card skipped a kernel of {needed}: "
+                                 f"{launched}")
+    raw_shape = (1, fcfg.num_raw_channels, fmt.get_raw_crop_width())
+    if tuple(outs["cuda"]["raw"].shape) != raw_shape:
+        raise AssertionError(f"audio shape {tuple(outs['cuda']['raw'].shape)}, not {raw_shape}")
+    print(f"slice on a tiny model ({kind}: {ucfg.attn_axis} attention, {fmt_type}, latents "
+          f"{tuple(lat_shape)}, audio {raw_shape}), CUDA (kernels: {launched}) vs CPU (plain "
+          f"versions):", flush=True)
     for key, tol in (("latents", 5e-2), ("sample", 5e-2)):
         check_close(key, outs["cuda"][key], outs["cpu"][key], tol)
     a, b = outs["cuda"]["audio_mel"], outs["cpu"]["audio_mel"]
@@ -682,21 +700,24 @@ def kernel_phase_flash(gen) -> dict:
     P V products, as the JAX einsum route rounds its probabilities, and o is
     stored in bf16: 2e-2 of max |o|. The line's numbers are per UNet
     forward (the 7 level-1 blocks: 4, 5 x 8 and 12 heads); the band, causal
-    and ragged cases are checked and timed beside them."""
+    and ragged cases and the head widths 8, 24 and 192 (zero-padded in the
+    kernel's loads) are checked and timed beside them."""
     import torch
     import torch.nn.functional as F
     from dualdiffusion_tpu_torch.ops.kernels import flash_attention, flash_attention_plain
-    b, l, d = FLASH_B, FLASH_L, FLASH_D
-    print(f"K7 flash_attention: B={b} L={l} D={d} bf16, (B, L, H, D) views", flush=True)
-    cases = [(h, l, None, False, n) for h, n in FLASH_HEADS]
-    cases += [(8, l, 256, False, 0), (8, l, None, True, 0), (8, 5000, None, False, 0)]
+    b, l, d0 = FLASH_B, FLASH_L, FLASH_D
+    print(f"K7 flash_attention: B={b} L={l} D={d0} bf16, (B, L, H, D) views", flush=True)
+    cases = [(h, l, d0, None, False, n) for h, n in FLASH_HEADS]
+    cases += [(8, l, d0, 256, False, 0), (8, l, d0, None, True, 0), (8, 5000, d0, None, False, 0)]
+    # head widths that the kernel zero-pads in its loads (to 32, 32 and 256)
+    cases += [(8, l, d, None, False, 0) for d in (8, 24, 192)]
     worst, tot = 0.0, [0.0] * 5       # kernel, plain, library ms, flops, bytes
-    for h, seq, window, causal, n in cases:
+    for h, seq, d, window, causal, n in cases:
         q, k, v = attention_inputs(gen, b, seq, h, d)
         kw = dict(window=window, causal=causal)
         got = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        tag = f"H {h} L {seq} window {window} causal {causal}"
+        tag = f"H {h} L {seq} D {d} window {window} causal {causal}"
         err = check_close(tag, got, flash_attention_plain(q, k, v, **kw), 2e-2)
         worst = max(worst, err)
         mask = None
@@ -722,12 +743,12 @@ def kernel_phase_flash(gen) -> dict:
 
 def flash_crossover(gen) -> None:
     """K7 against the port's einsum route (the route below FLASH_MIN_SEQ) at
-    B 2, H 8, D 64, bf16, from level 3's L 344 of the full-attention model
-    to level 1's 5504, for the dispatch threshold."""
+    B 2, H 8, D 64, bf16, from level 4's L 86 of the full-attention model
+    (level 3: 344) to level 1's 5504, for the dispatch threshold."""
     from dualdiffusion_tpu_torch.models.attention import FLASH_MIN_SEQ, einsum_attention
     from dualdiffusion_tpu_torch.ops.kernels import flash_attention
     line = {}
-    for seq in (344, 1376, 2048, 2752, 5504):
+    for seq in (86, 172, 344, 1376, 2048, 2752, 5504):
         q, k, v = attention_inputs(gen, FLASH_B, seq, 8, FLASH_D)
         line[seq] = {"k7_ms": time_ms(lambda: flash_attention(q, k, v)),
                      "einsum_ms": time_ms(lambda: einsum_attention(q, k, v, FLASH_D ** -0.5))}
@@ -1037,6 +1058,7 @@ def main() -> int:
                                                      lat_shape[2], gen)}
     measured.update(kernel_phase_fgla(fmt, gen))
     slice_phase()
+    slice_phase("ms_mdct_dual")
     measured["grouped_conv3x3_wgrad"] = kernel_phase_conv_backward(
         unet, ucfg.mlp_groups, lat_shape[1], lat_shape[2], gen)
     train_slice_phase()
@@ -1044,7 +1066,7 @@ def main() -> int:
     dae_train_slice_phase()
     measured["flash_attention"] = kernel_phase_flash(gen)
     flash_crossover(gen)
-    slice_phase(full_attention=True)
+    slice_phase("full")
 
     src = Pipeline({"unet": ModuleHandle("unet", "unet", ucfg, unet),
                     "dae": ModuleHandle("dae", "dae", dcfg, dae),

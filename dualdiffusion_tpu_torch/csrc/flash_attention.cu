@@ -17,34 +17,55 @@
 // bytes, 4 x 11.3 MB, take ~0.013 ms. So the tensor cores and the softmax
 // together bound it, not the memory.
 //
-// Design (right and simple first; wgmma, TMA and warp-specialised softmax
-// overlap are later work): one block of 4 warps per (b*h, 64-row q tile);
-// each warp owns 16 q rows and keeps them in registers as mma.sync A
-// fragments. The block walks only the 64-key tiles that meet its rows' band,
-// from max(q_lo - w, 0) to min(q_hi + w, L - 1), ending at q_hi when causal:
-// O(L w) work for bands. K and V tiles are staged in shared memory with
-// 16-byte cp.async, two stages deep, so the next tile's copy overlaps this
-// tile's products. S = Q K^T runs on the bf16 tensor cores (mma.sync
-// m16n8k16, fp32 accumulators); bf16 x bf16 products are exact in fp32, so
-// this matches the TPU kernel's fp32 dot of bf16 inputs up to summation
-// order. The online softmax stays in registers: the row max by quad
-// shuffles, exp2f of scores pre-multiplied by scale * log2(e), the row sum
-// kept per thread and reduced once at the end. P is rounded to bf16 for
-// P V on the tensor cores, as the JAX einsum route rounds its
-// probabilities to bf16 (models/attention.py:113); that is the kernel's
-// tolerance against the fp32 plain version (2e-2 of max |o|). O stays in
-// fp32 registers and is divided once, with the l == 0 guard. The tail of L
-// is masked in the kernel (zero-filled copies, -inf scores), not padded on
-// the host. Tiles that lie wholly inside the band take no mask at all.
-// Any (b, h, l) strides are taken, with unit stride along D, so the
-// UNet's transposed (B, L, H, D) views need no copies.
+// bf16 design (Hopper: wgmma, TMA, mbarriers, one producer warpgroup). One
+// block of 3 warpgroups per (b*h, 128-row q tile):
+// - warpgroup 0 is the producer: setmaxnreg lowers it to 24 registers and
+//   one thread issues every load as a TMA copy of a 4-D tensor map (D, L,
+//   H, B) built on the host from each view's strides. Q is loaded once; K
+//   and V tiles of BK keys run through a two-stage ring of full and empty
+//   mbarriers, so the next tile's copy is in flight while this one is
+//   consumed. TMA zero-fills rows past L and columns past D, so a ragged L
+//   and any D up to 256 need no host padding: the tile width Dp is D
+//   rounded up to 32, 64, 128 or 256, zero columns change neither q . k nor
+//   the kept outputs, and the epilogue writes only D columns.
+// - warpgroups 1 and 2 are consumers (setmaxnreg raises them), 64 q rows
+//   each. S = Q K^T is one wgmma m64n{BK}k16 per 16 columns of Dp, both
+//   operands K-major in 128-byte swizzled shared memory (64-byte at Dp =
+//   32), stored as 64-column atoms, one TMA box each. The online softmax
+//   runs on S's fp32 accumulator registers in the log2 domain: row maxima
+//   of the raw scores in independent chains, then the quad shuffles, and
+//   p = 2^(s * scale * log2 e - max) as one FFMA and one ex2 per score; the
+//   row sum is kept per thread and reduced once at the end, and a row whose
+//   max is still -inf uses 0 as its offset (p = alpha = 0). P is rounded to
+//   bf16 in pairs straight from the accumulators, whose m64nNk16 layout per
+//   16 columns is the register A-fragment layout of O += P V: wgmma
+//   m64n{Dp}k16 with A from registers and V as an MN-major B (the transpose
+//   bit). P's bf16 rounding matches the JAX einsum route's rounding of its
+//   probabilities (models/attention.py:113) and sets the tolerance against
+//   the fp32 plain version (2e-2 of max |o|).
+// - the consumers share the ring, so within a block they run in lockstep:
+//   both wait for the same tile, then both use the tensor cores, then both
+//   the SFUs. At Dp <= 64 two blocks of 64-key tiles share an SM (Tile), and
+//   the blocks' consumers overlap one another's phases; explicit ping-pong
+//   between the warpgroups is the next step. A block walks only the key
+//   tiles its rows' band meets (O(L w) for bands); a consumer skips the
+//   products of a tile its own 64 rows cannot see, and tiles wholly inside
+//   the band take no mask.
+// - the epilogue divides once (l == 0 gives 0), stages each consumer's rows
+//   in its own part of the Q tile and stores 16-byte vectors with o's
+//   strides. Any (b, h, l) strides are taken, with unit stride along D,
+//   16-byte aligned rows and D a multiple of 8 (the wrapper copies other
+//   views), so the UNet's transposed (B, L, H, D) views need no copies.
 //
 // fp32 inputs take a second kernel with fp32 FMA on the CUDA cores (no
 // TF32, which would change the numbers): 4 threads per q row, each holding
-// a quarter of the row's q and o, 32-key tiles in shared memory.
+// a quarter of the row's q and o, 32-key tiles in shared memory (16 at
+// Dp = 256), loads and stores predicated on d < D.
 
 #include "common.cuh"
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <math.h>
 
 namespace {
@@ -52,6 +73,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxD = 256;
 
 struct Params {
   const void* q;
@@ -59,7 +81,7 @@ struct Params {
   const void* v;
   void* o;
   int64_t sq[3], sk[3], sv[3], so[3];  // element strides of b, h, l; d has stride 1
-  int H, L;
+  int H, L, D;
   float scale_log2;  // scale * log2(e)
   int window;        // < 0: no band
   int causal;
@@ -82,46 +104,206 @@ __device__ __forceinline__ bool visible(const Params& p, int row, int col) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma, TMA and an mbarrier ring
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kBQ = 16 * kWarps;  // q rows per block
-constexpr int kBK = 64;           // keys per tile
-constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 128;            // q rows per block, 64 per consumer warpgroup
+constexpr int kThreads = 3 * 128;   // producer warpgroup + 2 consumer warpgroups
+constexpr int kStages = 2;          // K/V ring depth
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// tile geometry for a padded head width DP
+template <int DP>
+struct Tile {
+  // keys per tile and blocks per SM: at Dp <= 64 two blocks of 64-key
+  // tiles share an SM, so the two blocks' consumers drift apart and one's
+  // softmax overlaps the other's products (faster than one block of 128-key
+  // tiles at the path's shape: scripts/k7_ablation.py, one_block_bk128)
+  static constexpr int BK = DP <= 64 ? 64 : DP <= 128 ? 128 : 64;
+  static constexpr int BLOCKS = DP <= 64 ? 2 : 1;
+  // registers per thread at launch (__launch_bounds__), and the consumers'
+  // after setmaxnreg: registers move only within the block, so the two
+  // consumer warpgroups take what the producer frees going down to 24
+  // (240 at one block per SM, 104 at two)
+  static constexpr int ENTRY = 65536 / (kThreads * BLOCKS) / 8 * 8;
+  static constexpr int REGS = (ENTRY + (ENTRY - 24) / 2) / 8 * 8;
+  static constexpr int SW = DP == 32 ? 64 : 128;    // swizzle span: bytes per atom row
+  static constexpr int AC = SW / 2;                 // columns per atom (one TMA box)
+  static constexpr int NA = DP / AC;                // atoms per row
+  static constexpr int Q_BYTES = kBQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;      // one K or V tile
+  // Q, the K and V stages, 1 KB to align the tiles to the swizzle pattern,
+  // and the barriers (q_full, full[kStages], empty[kStages])
+  static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// box (c0, c1, c2, c3) of a 4-D tensor map -> shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, and the swizzle (128 or 64 bytes)
+template <int SW>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads and writes across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define DD_ACC8(i)                                                                     \
+  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
+      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+// d (64 x 64, fp32) (+)= A (64 x 16, shared) * B (64 x 16, shared), both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 16, shared) * B (128 x 16, shared), both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24),
+        DD_ACC8(32), DD_ACC8(40), DD_ACC8(48), DD_ACC8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) += A (64 x 16, registers) * B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : DD_ACC8(0), DD_ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24),
+        DD_ACC8(32), DD_ACC8(40), DD_ACC8(48), DD_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256, fp32) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24),
+        DD_ACC8(32), DD_ACC8(40), DD_ACC8(48), DD_ACC8(56),
+        DD_ACC8(64), DD_ACC8(72), DD_ACC8(80), DD_ACC8(88),
+        DD_ACC8(96), DD_ACC8(104), DD_ACC8(112), DD_ACC8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef DD_ACC8
+
+// 2^x on the SFU; results below 2^-126 flush to 0 (probabilities that small vanish
+// against the row's maximum of 1 anyway)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -129,157 +311,125 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [r0, r0 + rows) of one (b, h) matrix -> shared tile (row stride LDS);
-// rows at or past L are zero-filled
-template <int D, int LDS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t sl, int r0,
-                                          int rows, int L) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int q = threadIdx.x; q < rows * kChunks; q += kThreads) {
-    const int r = q / kChunks, c = (q % kChunks) * 8;
-    const bool in = r0 + r < L;
-    cp_async16(dst + r * LDS + c, in ? src + (int64_t)(r0 + r) * sl + c : src, in);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(const Params p) {
-  constexpr int LDS = D + 8;  // row stride: conflict-free ldmatrix, 16-byte aligned rows
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBQ * LDS;       // two stages
-  bf16* sV = sK + 2 * kBK * LDS;   // two stages
-
+// one consumer warpgroup: 64 q rows from r0 over the block's n_tiles key tiles
+template <int DP>
+__device__ __forceinline__ void consume(const Params& p, unsigned char* smem, uint32_t sQ,
+                                        uint32_t sK, uint32_t sV, uint32_t q_full, uint32_t full,
+                                        uint32_t empty, int c, int r0, int t_lo, int n_tiles,
+                                        int b, int h) {
+  using T = Tile<DP>;
+  constexpr int BK = T::BK, SW = T::SW;
   const int L = p.L;
-  const int q0 = blockIdx.x * kBQ;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.sq[0] + h * p.sq[1];
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.sk[0] + h * p.sk[1];
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.sv[0] + h * p.sv[1];
-  bf16* ob = static_cast<bf16*>(p.o) + b * p.so[0] + h * p.so[1];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int q_hi = min(q0 + kBQ, L) - 1;
-  int k_lo, k_hi;
-  key_range(p, q0, q_hi, k_lo, k_hi);
-  const int t_lo = k_lo / kBK, t_hi = k_hi / kBK;
+  const int row0 = r0 + warp * 16 + g, row1 = row0 + 8;
+  // the key range this warpgroup's rows see; its other tiles are waited
+  // for and released, but not computed
+  int w_lo = 0, w_hi = -1;
+  if (r0 < L) key_range(p, r0, min(r0 + 63, L - 1), w_lo, w_hi);
 
-  load_tile<D, LDS>(sQ, qb, p.sq[2], q0, kBQ, L);
-  load_tile<D, LDS>(sK, kb, p.sk[2], t_lo * kBK, kBK, L);
-  load_tile<D, LDS>(sV, vb, p.sv[2], t_lo * kBK, kBK, L);
-  cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float o[D / 8][4];
+  float o[DP / 2];
+  float s[BK / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8 (log2 domain)
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8 (raw scores)
+  // scale * log2(e); the wrapper makes the scale >= 0, and 0 becomes a
+  // scale too small to move any score (so -inf * scale stays -inf)
+  const float scale = fmaxf(p.scale_log2, 1e-30f);
   float l[2] = {0.f, 0.f};              // this thread's part of the running sums
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const uint32_t qa = sQ + c * 64 * SW;  // this warpgroup's rows in Q's first atom
 
-  for (int j = t_lo; j <= t_hi; ++j) {
-    const int st = (j - t_lo) & 1;
-    if (j < t_hi) {
-      const int nx = (st ^ 1) * kBK * LDS;
-      load_tile<D, LDS>(sK + nx, kb, p.sk[2], (j + 1) * kBK, kBK, L);
-      load_tile<D, LDS>(sV + nx, vb, p.sv[2], (j + 1) * kBK, kBK, L);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == t_lo) {
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    const int k0 = (t_lo + it) * BK;
+    mbar_wait(full + 8 * st, (it / kStages) & 1);
+    if (k0 <= w_hi && k0 + BK - 1 >= w_lo) {
+      const uint32_t tK = sK + st * T::KV_BYTES, tV = sV + st * T::KV_BYTES;
+      // S = Q K^T: 16 columns of Dp per wgmma; an atom holds AC columns
+      fence_regs(s);
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int m8 = lane / 8;
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane % 8) + (m8 % 2) * 8) * LDS + kk * 16 +
-                                (m8 / 2) * 8);
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int a = kk / (T::AC / 16), off = (kk % (T::AC / 16)) * 32;
+        wgmma_ss(s, make_desc<SW>(qa + a * kBQ * SW + off, 16, 8 * SW),
+                 make_desc<SW>(tK + a * BK * SW + off, 16, 8 * SW), kk > 0);
       }
-    }
-    const bf16* tK = sK + st * kBK * LDS;
-    const bf16* tV = sV + st * kBK * LDS;
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kBK / 8][4];
+      // online softmax in the log2 domain; s[4 n + e] is row (e < 2 ? g : g + 8),
+      // column 8 n + 2 t + (e & 1)
+      const bool need_mask = k0 + BK > L || (p.causal && k0 + BK - 1 > r0) ||
+                             (p.window >= 0 && (k0 < r0 + 63 - p.window ||
+                                                k0 + BK - 1 > r0 + p.window));
+      if (need_mask) {
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n2 = 0; n2 < kBK / 16; ++n2) {
-        const int m8 = lane / 8;
-        uint32_t r[4];
-        ldmatrix_x4(r, tK + (n2 * 16 + (lane % 8) + (m8 / 2) * 8) * LDS + kk * 16 + (m8 % 2) * 8);
-        mma_bf16(s[2 * n2], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * n2 + 1], qf[kk], r[2], r[3]);
+        for (int i = 0; i < BK / 2; ++i)
+          if (!visible(p, (i & 2) ? row1 : row0, k0 + (i / 4) * 8 + 2 * t + (i & 1)))
+            s[i] = -INFINITY;
       }
-    }
+      // row maxima of the raw scores and sums, in four independent chains per
+      // row; the scale (> 0) is applied inside the exponent, one FFMA each
+      float mq[2][4], lq[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mq[r][j] = m[r];
+          lq[r][j] = 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        mq[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mq[(i >> 1) & 1][(i >> 2) & 3], s[i]);
+      float m_use[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = fmaxf(fmaxf(mq[r][0], mq[r][1]), fmaxf(mq[r][2], mq[r][3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        m_use[r] = mx == -INFINITY ? 0.f : mx;  // all masked so far: p = alpha = 0
+        alpha[r] = exp2_ftz((m[r] - m_use[r]) * scale);
+        m[r] = mx;
+        m_use[r] *= scale;
+      }
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const float pv = exp2_ftz(fmaf(s[i], scale, -m_use[(i >> 1) & 1]));
+        s[i] = pv;
+        lq[(i >> 1) & 1][(i >> 2) & 3] += pv;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l[r] = l[r] * alpha[r] + ((lq[r][0] + lq[r][1]) + (lq[r][2] + lq[r][3]));
+      // P rounded to bf16: the accumulators of columns 16 kk .. 16 kk + 15
+      // are the A fragment of k-step kk
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
-    // online softmax in the log2 domain
-    const int k0 = j * kBK;
-    const bool need_mask = k0 + kBK > L || (p.causal && k0 + kBK - 1 > q0) ||
-                           (p.window >= 0 && (k0 < q0 + kBQ - 1 - p.window ||
-                                              k0 + kBK - 1 > q0 + p.window));
-    float mx[2] = {m[0], m[1]};
+      // O += P V: V [keys, Dp] is B in MN-major order (the transpose bit)
+      fence_regs(o);
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * p.scale_log2;
-        if (need_mask && !visible(p, e < 2 ? row0 : row1, k0 + n * 8 + 2 * t + (e & 1)))
-          x = -INFINITY;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(o, pa[kk], make_desc<SW>(tV + kk * 16 * SW, BK * SW, 8 * SW));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
     }
-    float m_use[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      m_use[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // all masked so far: p = alpha = 0
-      alpha[r] = exp2f(m[r] - m_use[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = exp2f(s[n][e] - m_use[e >> 1]);
-        s[n][e] = pv;
-        l[e >> 1] += pv;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V, P rounded to bf16 straight from the S accumulators
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        const int m8 = lane / 8;
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, tV + (kk * 16 + (lane % 8) + (m8 % 2) * 8) * LDS + n2 * 16 +
-                                 (m8 / 2) * 8);
-        mma_bf16(o[2 * n2], a, r[0], r[1]);
-        mma_bf16(o[2 * n2 + 1], a, r[2], r[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with stage st before it is refilled
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);  // this warp is done with stage st
   }
 
   // divide once; fully masked rows (l == 0) emit 0
@@ -290,35 +440,139 @@ __global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(const Params 
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = l[r] == 0.f ? 0.f : 1.f / l[r];
   }
-  // stage this warp's rows in its own part of sQ (only it read them), then
-  // store 16-byte vectors
-  bf16* sO = sQ + warp * 16 * LDS;
+  // stage the rows in this warpgroup's own part of the Q tile (same atoms,
+  // 16-byte chunks XOR-swizzled by row), then store 16-byte vectors
+  constexpr int CH = SW / 16;  // 16-byte chunks per atom row
+  auto staged = [&](int r, int col) {
+    const int a = col / T::AC, ch = (col % T::AC) / 8;
+    return smem + a * kBQ * SW + (c * 64 + r) * SW + ((ch ^ (r % CH)) * 16) + (col % 8) * 2;
+  };
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(sO + g * LDS + n * 8 + 2 * t) =
-        pack_bf16(o[n][0] * inv[0], o[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(sO + (g + 8) * LDS + n * 8 + 2 * t) =
-        pack_bf16(o[n][2] * inv[1], o[n][3] * inv[1]);
+  for (int n = 0; n < DP / 8; ++n) {
+    const int r = warp * 16 + g, col = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(staged(r, col)) =
+        pack_bf16(o[4 * n + 0] * inv[0], o[4 * n + 1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(staged(r + 8, col)) =
+        pack_bf16(o[4 * n + 2] * inv[1], o[4 * n + 3] * inv[1]);
   }
-  __syncwarp();
-  constexpr int kChunks = D / 8;
-  for (int q = lane; q < 16 * kChunks; q += 32) {
-    const int r = q / kChunks, c = (q % kChunks) * 8;
-    const int row = q0 + warp * 16 + r;
-    if (row < L)
-      *reinterpret_cast<uint4*>(ob + (int64_t)row * p.so[2] + c) =
-          *reinterpret_cast<const uint4*>(sO + r * LDS + c);
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");  // this warpgroup only
+  bf16* ob = static_cast<bf16*>(p.o) + b * p.so[0] + h * p.so[1];
+  for (int i = tid; i < 64 * (DP / 8); i += 128) {
+    const int r = i / (DP / 8), col = (i % (DP / 8)) * 8;
+    const int row = r0 + r;
+    if (row < L && col < p.D)
+      *reinterpret_cast<uint4*>(ob + (int64_t)row * p.so[2] + col) =
+          *reinterpret_cast<const uint4*>(staged(r, col));
   }
 }
 
-template <int D>
+template <int DP>
+__global__ void __launch_bounds__(kThreads, Tile<DP>::BLOCKS)
+    flash_attn_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const Params p) {
+  using T = Tile<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  // tiles aligned to 1 KB, the period of the 128-byte swizzle
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (sQ - raw);
+  const uint32_t sK = sQ + T::Q_BYTES;           // stage st at sK + st * KV_BYTES
+  const uint32_t sV = sK + kStages * T::KV_BYTES;
+  const uint32_t q_full = sV + kStages * T::KV_BYTES;
+  const uint32_t full = q_full + 8, empty = full + 8 * kStages;
+
+  const int q0 = blockIdx.x * kBQ;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  int k_lo, k_hi;
+  key_range(p, q0, min(q0 + kBQ, p.L) - 1, k_lo, k_hi);
+  const int t_lo = k_lo / T::BK, n_tiles = k_hi / T::BK - t_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 1);        // the producer's expect_tx
+      mbar_init(empty + 8 * st, 8);       // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread issues every TMA copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+#pragma unroll
+      for (int a = 0; a < T::NA; ++a)
+        tma_load(sQ + a * kBQ * T::SW, &tq, q_full, a * T::AC, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        const int k0 = (t_lo + it) * T::BK;
+        mbar_wait(empty + 8 * st, ((it / kStages) & 1) ^ 1);  // passes at once on the first lap
+        mbar_expect_tx(full + 8 * st, 2 * T::KV_BYTES);
+#pragma unroll
+        for (int a = 0; a < T::NA; ++a) {
+          const uint32_t off = st * T::KV_BYTES + a * T::BK * T::SW;
+          tma_load(sK + off, &tk, full + 8 * st, a * T::AC, k0, h, b);
+          tma_load(sV + off, &tv, full + 8 * st, a * T::AC, k0, h, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::REGS) : "memory");
+    const int c = threadIdx.x / 128 - 1;
+    consume<DP>(p, smem, sQ, sK, sV, q_full, full, empty, c, q0 + 64 * c, t_lo, n_tiles, b, h);
+  }
+}
+
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// a 4-D (D, L, H, B) tensor map of one bf16 operand; boxes of `cols` x `rows`
+bool encode_map(CUtensorMap* map, const void* ptr, const int64_t* st, int B, int H, int L, int D,
+                int cols, int rows, int swizzle) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;  // zero fill
+}
+
+template <int DP>
 int launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = (size_t)(kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
-  auto kernel = flash_attn_bf16_kernel<D>;
-  cudaError_t err = dd_allow_smem(kernel, smem);
+  using T = Tile<DP>;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, p.q, p.sq, B, p.H, p.L, p.D, T::AC, kBQ, T::SW) ||
+      !encode_map(&tk, p.k, p.sk, B, p.H, p.L, p.D, T::AC, T::BK, T::SW) ||
+      !encode_map(&tv, p.v, p.sv, B, p.H, p.L, p.D, T::AC, T::BK, T::SW))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_attn_bf16_kernel<DP>;
+  cudaError_t err = dd_allow_smem(kernel, T::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.L + kBQ - 1) / kBQ, B * p.H);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, T::SMEM, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -328,15 +582,15 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
 
 constexpr int kF32Rows = 64;                  // q rows per block
 constexpr int kF32Threads = 4 * kF32Rows;     // 4 threads per row
-constexpr int kF32Keys = 32;                  // keys per tile
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(kF32Threads) flash_attn_f32_kernel(const Params p) {
-  constexpr int DP = D / 4;  // dims per thread: c, c + 4, c + 8, ...
-  __shared__ float sK[kF32Keys][D];
-  __shared__ float sV[kF32Keys][D];
+  constexpr int KEYS = DP <= 128 ? 32 : 16;  // keys per tile
+  constexpr int NP = DP / 4;                 // dims per thread: c, c + 4, c + 8, ...
+  __shared__ float sK[KEYS][DP];
+  __shared__ float sV[KEYS][DP];
 
-  const int L = p.L;
+  const int L = p.L, D = p.D;
   const int q0 = blockIdx.x * kF32Rows;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const float* qb = static_cast<const float*>(p.q) + b * p.sq[0] + h * p.sq[1];
@@ -350,31 +604,31 @@ __global__ void __launch_bounds__(kF32Threads) flash_attn_f32_kernel(const Param
   int k_lo, k_hi;
   key_range(p, q0, q_hi, k_lo, k_hi);
 
-  float qr[DP], o[DP];
+  float qr[NP], o[NP];
 #pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    qr[i] = row < L ? qb[(int64_t)row * p.sq[2] + c + 4 * i] : 0.f;
+  for (int i = 0; i < NP; ++i) {
+    qr[i] = row < L && c + 4 * i < D ? qb[(int64_t)row * p.sq[2] + c + 4 * i] : 0.f;
     o[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
   const float scale_log2 = p.scale_log2;
 
-  for (int k0 = k_lo / kF32Keys * kF32Keys; k0 <= k_hi; k0 += kF32Keys) {
+  for (int k0 = k_lo / KEYS * KEYS; k0 <= k_hi; k0 += KEYS) {
     __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kF32Keys * D; i += kF32Threads) {
-      const int r = i / D, d = i % D;
-      const bool in = k0 + r < L;
+    for (int i = threadIdx.x; i < KEYS * DP; i += kF32Threads) {
+      const int r = i / DP, d = i % DP;
+      const bool in = k0 + r < L && d < D;
       sK[r][d] = in ? kb[(int64_t)(k0 + r) * p.sk[2] + d] : 0.f;
       sV[r][d] = in ? vb[(int64_t)(k0 + r) * p.sv[2] + d] : 0.f;
     }
     __syncthreads();
-    float s[kF32Keys];
+    float s[KEYS];
     float mx = m;
 #pragma unroll
-    for (int jj = 0; jj < kF32Keys; ++jj) {
+    for (int jj = 0; jj < KEYS; ++jj) {
       float acc = 0.f;
 #pragma unroll
-      for (int i = 0; i < DP; ++i) acc = fmaf(qr[i], sK[jj][c + 4 * i], acc);
+      for (int i = 0; i < NP; ++i) acc = fmaf(qr[i], sK[jj][c + 4 * i], acc);
       acc += __shfl_xor_sync(0xffffffffu, acc, 1);
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
       const float x = visible(p, row, k0 + jj) ? acc * scale_log2 : -INFINITY;
@@ -386,41 +640,44 @@ __global__ void __launch_bounds__(kF32Threads) flash_attn_f32_kernel(const Param
     m = mx;
     l *= alpha;
 #pragma unroll
-    for (int i = 0; i < DP; ++i) o[i] *= alpha;
+    for (int i = 0; i < NP; ++i) o[i] *= alpha;
 #pragma unroll
-    for (int jj = 0; jj < kF32Keys; ++jj) {
+    for (int jj = 0; jj < KEYS; ++jj) {
       const float pj = exp2f(s[jj] - m_use);
       l += pj;
 #pragma unroll
-      for (int i = 0; i < DP; ++i) o[i] = fmaf(pj, sV[jj][c + 4 * i], o[i]);
+      for (int i = 0; i < NP; ++i) o[i] = fmaf(pj, sV[jj][c + 4 * i], o[i]);
     }
   }
   const float inv = l == 0.f ? 0.f : 1.f / l;
   if (row < L) {
 #pragma unroll
-    for (int i = 0; i < DP; ++i) ob[(int64_t)row * p.so[2] + c + 4 * i] = o[i] * inv;
+    for (int i = 0; i < NP; ++i)
+      if (c + 4 * i < D) ob[(int64_t)row * p.so[2] + c + 4 * i] = o[i] * inv;
   }
 }
 
-template <int D>
+template <int DP>
 int launch_f32(const Params& p, int B, cudaStream_t stream) {
   dim3 grid((p.L + kF32Rows - 1) / kF32Rows, B * p.H);
-  flash_attn_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(p);
+  flash_attn_f32_kernel<DP><<<grid, kF32Threads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 int launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
-  return is_bf16 ? launch_bf16<D>(p, B, stream) : launch_f32<D>(p, B, stream);
+  return is_bf16 ? launch_bf16<DP>(p, B, stream) : launch_f32<DP>(p, B, stream);
 }
 
 }  // namespace
 
-// strides: 12 element strides, (b, h, l) of q, k, v and o in that order
+// strides: 12 element strides, (b, h, l) of q, k, v and o in that order. bf16
+// needs 16-byte aligned pointers, strides that are multiples of 8 elements
+// and D a multiple of 8 (TMA's and the 16-byte stores' rules).
 extern "C" int dd_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   const long long* strides, int B, int H, int L, int D,
                                   float scale, int window, int causal, int is_bf16, void* stream) {
-  if (B * H > 65535 || L <= 0) return (int)cudaErrorInvalidValue;
+  if (B * H > 65535 || L <= 0 || D <= 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;
@@ -432,21 +689,22 @@ extern "C" int dd_flash_attention(const void* q, const void* k, const void* v, v
     p.sv[i] = strides[6 + i];
     p.so[i] = strides[9 + i];
   }
+  if (is_bf16) {
+    bool ok = D % 8 == 0;
+    for (int i = 0; i < 12; ++i) ok = ok && strides[i] > 0 && strides[i] % 8 == 0;
+    const void* ptrs[4] = {q, k, v, o};
+    for (int i = 0; i < 4; ++i) ok = ok && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+    if (!ok) return (int)cudaErrorMisalignedAddress;
+  }
   p.H = H;
   p.L = L;
+  p.D = D;
   p.scale_log2 = scale * kLog2e;
   p.window = window;
   p.causal = causal;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return launch<16>(p, B, is_bf16, s);
-    case 32: return launch<32>(p, B, is_bf16, s);
-    case 48: return launch<48>(p, B, is_bf16, s);
-    case 64: return launch<64>(p, B, is_bf16, s);
-    case 80: return launch<80>(p, B, is_bf16, s);
-    case 96: return launch<96>(p, B, is_bf16, s);
-    case 112: return launch<112>(p, B, is_bf16, s);
-    case 128: return launch<128>(p, B, is_bf16, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D <= 32) return launch<32>(p, B, is_bf16, s);
+  if (D <= 64) return launch<64>(p, B, is_bf16, s);
+  if (D <= 128) return launch<128>(p, B, is_bf16, s);
+  return launch<256>(p, B, is_bf16, s);
 }

@@ -10,14 +10,15 @@ src/modules/formats/ms_mdct_dual_2.py:35-381).
   filter with gaussian weights on log(ideal width / window width);
   blended**0.25, affine-normalized.
 * ``mel_spec_to_linear``: the pinv of the raw slaney bank, times
-  sqrt(mel density), last bin dropped.
+  sqrt(mel density), last bin dropped; ``sample_to_raw_fgla`` inverts it to
+  magnitudes and runs Griffin-Lim (the decode of a pipeline without DDEC).
 * MDCT: 512-sample window, mel-density normalized, with an optional phase
   rotation of the complex MCLT coefficients. The JAX package draws the
   rotation angles inside; here the caller passes them (``theta``, one
   angle per sample) so a test can replay JAX's draws.
 
 Layouts: mel (B, F=256, T', C); MDCT (B, N=256, frames, C); raw (B, C, T).
-The FGLA fallback decode and the phase/psd split are not ported.
+The phase/psd split is not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ...ops.fgla import griffinlim
 from ...ops.mdct import imdct, mdct
 from ...ops.mel import FrequencyScale, mel_density
 from ...ops.stft import stft
@@ -187,6 +189,23 @@ class MSMDCTDualFormat(Format):
         lin = lin * self._const(np.sqrt(self.ms_stft_mel_density), ms)[None, :, None, None]
         lin = lin[:, :-1]
         return (lin + cfg.mel_spec_to_linear_offset) / cfg.mel_spec_to_linear_scale
+
+    def sample_to_raw_fgla(self, mel_spec: torch.Tensor, n_fgla_iters: int = 200,
+                           phase_init: Optional[str] = None) -> torch.Tensor:
+        """(B, F, T', C) -> (B, C, T): the FGLA fallback decode for a pipeline
+        without a DDEC. mel -> linear PSD, unscaled and clamped at 0, the
+        dropped last bin restored, then Griffin-Lim on the ``ms_window_length``
+        STFT grid with a periodic Hann window. JAX's ``key`` feeds only its
+        random phase init, which this decode never takes."""
+        cfg = self.config
+        lin = self.mel_spec_to_linear(mel_spec)
+        lin = (lin * cfg.mel_spec_to_linear_scale - cfg.mel_spec_to_linear_offset).clamp_min(0.0)
+        lin = torch.nn.functional.pad(lin, (0, 0, 0, 0, 0, 1))     # the last stft bin
+        mag = lin.permute(0, 3, 2, 1)                                # (B, C, frames, bins)
+        win = get_window("hann", cfg.ms_window_length, periodic=True)
+        return griffinlim(mag, win, cfg.ms_window_length, cfg.ms_hop_length,
+                          n_iter=n_fgla_iters, stereo=cfg.num_raw_channels == 2,
+                          phase_init=phase_init or "flat")
 
     # ---- mdct path -------------------------------------------------------------
     def raw_to_mdct(self, raw: torch.Tensor,

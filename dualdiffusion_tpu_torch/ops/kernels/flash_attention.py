@@ -18,8 +18,9 @@ import torch
 from .build import library
 from .common import no_tf32, on_cpu, stream_of
 
-#: head widths the kernel is instantiated for
-HEAD_DIMS = tuple(range(16, 129, 16))
+#: the widest head the kernel takes; it runs every D from 1 up, zero-padded
+#: in its loads to 32, 64, 128 or 256
+MAX_HEAD_DIM = 256
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,14 +45,35 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel can read it (unit stride along D, 16-byte
-    aligned rows and start), else a contiguous copy."""
-    step = 16 // t.element_size()
-    if t.stride(-1) == 1 and all(s % step == 0 for s in t.stride()[:3]) \
-            and t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
+def _strides(t: torch.Tensor) -> tuple:
+    """The (b, h, l) element strides, with a size-1 dim's (arbitrary in
+    torch) replaced by its contiguous one."""
+    st, n = t.stride(), t.shape
+    if n[0] > 1 and n[1] > 1 and n[2] > 1:
+        return st[:3]
+    dense = (n[1] * n[2] * n[3], n[2] * n[3], n[3])
+    return tuple(st[i] if n[i] > 1 else dense[i] for i in range(3))
+
+
+def _kernel_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v as the kernel reads them: each tensor itself where TMA can
+    (unit stride along D, D a multiple of 8, 16-byte aligned start and
+    (b, h, l) strides), else a contiguous copy; when D is not a multiple of
+    8, copies of all three zero-padded to the next multiple."""
+    d = q.shape[-1]
+    if d % 8:
+        padded = [t.new_zeros(t.shape[:-1] + (d + 8 - d % 8,)) for t in (q, k, v)]
+        for dst, src in zip(padded, (q, k, v)):
+            dst[..., :d] = src
+        return padded
+    step = 16 // q.element_size()
+
+    def readable(t):
+        sb, sh, sl = _strides(t)
+        return (t.stride(3) == 1 and sb % step == 0 and sh % step == 0 and sl % step == 0
+                and min(sb, sh, sl) > 0 and t.data_ptr() % 16 == 0)
+    return [t if readable(t) else t.clone(memory_format=torch.contiguous_format)
+            for t in (q, k, v)]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,9 +81,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """q/k/v (B, H, L, D) -> (B, H, L, D) in q's dtype. ``window=w`` keeps
     keys with |i - j| <= w, ``causal`` keys with j <= i. CUDA tensors take
-    K7 (bf16 on the tensor cores, fp32 with fp32 FMA; D a multiple of 16 up
-    to 128); CPU tensors take the plain version. A dense q (such as the
-    UNet's transposed (B, L, H, D) views) gives an output with its strides."""
+    K7 (bf16 on the tensor cores, fp32 with fp32 FMA; any D up to 256); CPU
+    tensors take the plain version. A dense q (such as the UNet's transposed
+    (B, L, H, D) views) gives an output with its strides; a D that is not a
+    multiple of 8 gives a view of a padded output."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v must share one (B, H, L, D) shape: "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
@@ -75,22 +98,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.dtype != q.dtype:
         raise TypeError(f"q/k/v: one dtype of bfloat16 or float32, got "
                         f"{q.dtype} {k.dtype} {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head width {d} is not a multiple of 16 in 16..128")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head width {d} is outside the kernel's 1..{MAX_HEAD_DIM}")
     if b * h > 65535:
         raise ValueError(f"B * H = {b * h} exceeds the grid's 65535")
-    q, k, v = (_kernel_view(t) for t in (q, k, v))
+    if scale < 0:        # the bf16 kernel scales inside its exponent, which needs scale >= 0
+        q, scale = -q, -scale
+    q, k, v = _kernel_views(q, k, v)
     out = torch.empty_like(q)          # q's (dense) strides, so q's layout
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in _strides(t)))
     lib = library()
     with torch.cuda.device(q.device):
         err = lib.lib.dd_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                         out.data_ptr(), strides, b, h, l, d, scale,
+                                         out.data_ptr(), strides, b, h, l, q.shape[-1], scale,
                                          -1 if window is None else int(window), int(causal),
                                          int(q.dtype == torch.bfloat16), stream_of(q))
     lib.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out if out.shape[-1] == d else out[..., :d]
 
 
 flash_attention.launches = 0

@@ -11,6 +11,7 @@ written by either package loads in the other.
 
 from __future__ import annotations
 
+import inspect
 import re
 import time
 from dataclasses import dataclass
@@ -261,7 +262,12 @@ class Pipeline:
             mel = self.diffusion_decode(params, tuple(mel_shape), prompt_embedding, generator,
                                         init_noise, step_noise)
             t0 = mark("sampler", t0)
-        raw = fmt.sample_to_raw(mel, n_fgla_iters=params.num_fgla_iters,
-                                phase_init=params.fgla_phase_init)
+        # the format's FGLA decode where it has one (ms_mdct_dual's
+        # sample_to_raw is the MDCT inverse); phase_init where it takes one
+        decode = getattr(fmt, "sample_to_raw_fgla", fmt.sample_to_raw)
+        kw = {}
+        if params.fgla_phase_init and "phase_init" in inspect.signature(decode).parameters:
+            kw["phase_init"] = params.fgla_phase_init
+        raw = decode(mel, n_fgla_iters=params.num_fgla_iters, **kw)
         mark("fgla", t0)
         return {"raw": raw, "sample": mel, "latents": latents}

@@ -76,6 +76,9 @@ def _qkv(seed, shape, dtype=np.float32):
     (64, 128, 16, True, 32),         # banded + causal
     (64, 32, 0, False, 32),          # each query sees its own key only
     (64, 32, 0, True, 32),
+    (96, 8, None, False, 32),        # head widths the card pads in its loads: 8 -> 32
+    (96, 24, 20, False, 32),         # 24 -> 32, banded
+    (64, 192, None, True, 32),       # 192 -> 256 (JAX pads to 256 lanes)
 ])
 def test_flash_plain_matches_pallas_kernel(l, d, window, causal, bq):
     """fp32: the same softmax summed in another order (2e-5, the JAX

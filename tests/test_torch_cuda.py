@@ -188,24 +188,29 @@ def test_mss2d_fused_loss_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,d,window,causal", [
-    (300, 64, None, False),      # dense, ragged last tile
-    (256, 64, None, True),       # causal
-    (1000, 32, 100, False),      # banded: tiles skipped on both sides
-    (517, 128, None, False),     # D = 128, ragged
-    (130, 64, 40, True),         # banded + causal
-    (77, 32, 0, False),          # one key per row
-    (2100, 64, None, False),     # past FLASH_MIN_SEQ
+@pytest.mark.parametrize("l,h,d,window,causal", [
+    (300, 3, 64, None, False),   # dense, ragged last tile
+    (256, 3, 64, None, True),    # causal
+    (1000, 3, 32, 100, False),   # banded: tiles skipped on both sides
+    (517, 3, 128, None, False),  # D = 128, ragged
+    (130, 3, 64, 40, True),      # banded + causal
+    (77, 3, 32, 0, False),       # one key per row
+    (2100, 3, 64, None, False),  # past FLASH_MIN_SEQ
+    (700, 4, 8, None, False),    # head widths zero-padded in the loads: 8 -> 32
+    (700, 12, 24, 90, False),    # 24 -> 32, banded
+    (600, 4, 96, None, True),    # 96 -> 128, causal
+    (700, 12, 192, None, False),  # 192 -> 256
+    (5504, 8, 64, None, False),  # the full-attention model's level 1
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
-def test_flash_attention_kernel_matches_plain(cuda, l, d, window, causal, dtype, tol):
+def test_flash_attention_kernel_matches_plain(cuda, l, h, d, window, causal, dtype, tol):
     """K7 against the fp32 plain version. bf16: P is rounded to bf16 for the
     P V products (as the JAX einsum route rounds its probabilities) and o is
     stored in bf16, so 2e-2 of max |o|; fp32 (fp32 FMA): summation order,
     2e-5. Inputs are the UNet's transposed (B, L, H, D) views; the output
     keeps q's strides."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    q, k, v = (torch.randn((2, l, 3, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
+    q, k, v = (torch.randn((2, l, h, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
                for _ in range(3))
     before = flash_attention.launches
     got = flash_attention(q, k, v, window=window, causal=causal)
@@ -231,6 +236,36 @@ def test_flash_attention_takes_any_layout(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_attention_pads_unaligned_head_widths(cuda):
+    """D 20 in bf16 (40-byte rows: no TMA view) runs on zero-padded copies:
+    a strided view with a 2-byte offset gives the output of its contiguous
+    copy bit for bit, and both agree with the plain version (2e-2 of max)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    base = torch.randn((2, 300, 3, 24), generator=g, device=cuda).bfloat16().transpose(1, 2)
+    q = base[..., 1:21]
+    got = flash_attention(q, q, q)
+    want = flash_attention(q.contiguous(), q.contiguous(), q.contiguous())
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.equal(got, want)
+    assert _rel_err(got.float().cpu(), flash_attention_plain(q, q, q).float().cpu()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.2, 0.0, 0.05])
+def test_flash_attention_takes_any_scale(cuda, scale):
+    """The bf16 kernel applies the scale inside its exponent, which needs a
+    scale >= 0: the wrapper moves a negative one onto q, and 0 gives the
+    mean of the visible values. Against the plain version, 2e-2 of max."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn((2, 3, 300, 64), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    got = flash_attention(q, k, v, scale=scale, window=50)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, scale=scale, window=50)
+    assert _rel_err(got.float().cpu(), want.float().cpu()) <= 2e-2
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     x = torch.randn((1, 4, 8, 16), device=cuda)            # fp32: K1 takes bf16 only
     wt = prepare_weights(torch.randn((16, 8, 3, 3), device=cuda), 2)
@@ -243,11 +278,8 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         mss2d_block_loss(s, s, 16, 2, _window_2d("flat_top", 16), product_weights(16))
     with pytest.raises(ValueError):                          # a window that is not separable
         mss2d_block_loss(s, s, 32, 4, _window_2d("flat_top_circular", 32), product_weights(32))
-    a = torch.randn((1, 2, 64, 40), device=cuda).bfloat16()  # K7 takes D = 16, 32, .., 128
-    with pytest.raises(ValueError):
-        flash_attention(a, a, a)
-    a = torch.randn((1, 2, 64, 144), device=cuda).bfloat16()
-    with pytest.raises(ValueError):
+    a = torch.randn((1, 2, 64, 257), device=cuda).bfloat16()  # K7 takes D up to 256
+    with pytest.raises(ValueError, match="256"):
         flash_attention(a, a, a)
     a = torch.randn((1, 2, 64, 64), device=cuda).half()      # bf16 and fp32 only
     with pytest.raises(TypeError):
