@@ -700,8 +700,9 @@ def kernel_phase_flash(gen) -> dict:
     P V products, as the JAX einsum route rounds its probabilities, and o is
     stored in bf16: 2e-2 of max |o|. The line's numbers are per UNet
     forward (the 7 level-1 blocks: 4, 5 x 8 and 12 heads); the band, causal
-    and ragged cases and the head widths 8, 24 and 192 (zero-padded in the
-    kernel's loads) are checked and timed beside them."""
+    and ragged cases, the head widths 8, 24 and 192 (zero-padded in the
+    kernel's loads) and 320 and 512 (the D-chunked kernel, at L 2048) are
+    checked and timed beside them."""
     import torch
     import torch.nn.functional as F
     from dualdiffusion_tpu_torch.ops.kernels import flash_attention, flash_attention_plain
@@ -711,6 +712,8 @@ def kernel_phase_flash(gen) -> dict:
     cases += [(8, l, d0, 256, False, 0), (8, l, d0, None, True, 0), (8, 5000, d0, None, False, 0)]
     # head widths that the kernel zero-pads in its loads (to 32, 32 and 256)
     cases += [(8, l, d, None, False, 0) for d in (8, 24, 192)]
+    # heads wider than 256 (the D-chunked kernel): B 2, H 4, L 2048
+    cases += [(4, 2048, d, None, False, 0) for d in (320, 512)]
     worst, tot = 0.0, [0.0] * 5       # kernel, plain, library ms, flops, bytes
     for h, seq, d, window, causal, n in cases:
         q, k, v = attention_inputs(gen, b, seq, h, d)

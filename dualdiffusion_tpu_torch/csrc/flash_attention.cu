@@ -61,6 +61,10 @@
 // TF32, which would change the numbers): 4 threads per q row, each holding
 // a quarter of the row's q and o, 32-key tiles in shared memory (16 at
 // Dp = 256), loads and stores predicated on d < D.
+//
+// Heads wider than 256, bf16 or fp32, take a third kernel that walks D in
+// chunks (flash_attn_wide_kernel). Every kernel's grid is q tiles x B*H in
+// gridDim.x, so B*H has no 65535 limit.
 
 #include "common.cuh"
 
@@ -73,7 +77,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 256;  // the widest head of the wgmma and fp32 tile kernels
 
 struct Params {
   const void* q;
@@ -482,8 +486,10 @@ __global__ void __launch_bounds__(kThreads, Tile<DP>::BLOCKS)
   const uint32_t q_full = sV + kStages * T::KV_BYTES;
   const uint32_t full = q_full + 8, empty = full + 8 * kStages;
 
-  const int q0 = blockIdx.x * kBQ;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  // gridDim.x = q tiles x B*H, q tiles fastest: no 65535 limit on B*H
+  const int nq = (p.L + kBQ - 1) / kBQ;
+  const int q0 = (blockIdx.x % nq) * kBQ;
+  const int b = blockIdx.x / nq / p.H, h = blockIdx.x / nq % p.H;
   int k_lo, k_hi;
   key_range(p, q0, min(q0 + kBQ, p.L) - 1, k_lo, k_hi);
   const int t_lo = k_lo / T::BK, n_tiles = k_hi / T::BK - t_lo + 1;
@@ -571,8 +577,7 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
   auto kernel = flash_attn_bf16_kernel<DP>;
   cudaError_t err = dd_allow_smem(kernel, T::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.L + kBQ - 1) / kBQ, B * p.H);
-  kernel<<<grid, kThreads, T::SMEM, stream>>>(tq, tk, tv, p);
+  kernel<<<(p.L + kBQ - 1) / kBQ * B * p.H, kThreads, T::SMEM, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -591,8 +596,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_attn_f32_kernel(const Param
   __shared__ float sV[KEYS][DP];
 
   const int L = p.L, D = p.D;
-  const int q0 = blockIdx.x * kF32Rows;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int nq = (p.L + kF32Rows - 1) / kF32Rows;
+  const int q0 = (blockIdx.x % nq) * kF32Rows;
+  const int b = blockIdx.x / nq / p.H, h = blockIdx.x / nq % p.H;
   const float* qb = static_cast<const float*>(p.q) + b * p.sq[0] + h * p.sq[1];
   const float* kb = static_cast<const float*>(p.k) + b * p.sk[0] + h * p.sk[1];
   const float* vb = static_cast<const float*>(p.v) + b * p.sv[0] + h * p.sv[1];
@@ -659,14 +665,129 @@ __global__ void __launch_bounds__(kF32Threads) flash_attn_f32_kernel(const Param
 
 template <int DP>
 int launch_f32(const Params& p, int B, cudaStream_t stream) {
-  dim3 grid((p.L + kF32Rows - 1) / kF32Rows, B * p.H);
-  flash_attn_f32_kernel<DP><<<grid, kF32Threads, 0, stream>>>(p);
+  flash_attn_f32_kernel<DP><<<(p.L + kF32Rows - 1) / kF32Rows * B * p.H, kF32Threads, 0,
+                              stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
   return is_bf16 ? launch_bf16<DP>(p, B, stream) : launch_f32<DP>(p, B, stream);
+}
+
+// ---------------------------------------------------------------------------
+// D > 256, bf16 or fp32: FMA on the CUDA cores, D walked in chunks
+// ---------------------------------------------------------------------------
+
+constexpr int kWideRows = 64;               // q rows per block, 4 threads per row
+constexpr int kWideThreads = 4 * kWideRows;
+constexpr int kWideKeys = 32;               // keys per tile
+constexpr int kWideChunk = 128;             // head dims per chunk, 32 per thread
+
+// No configuration of the repo has a head this wide, so this kernel is
+// simple, not fast: O's columns go in passes of kWideChunk, and each pass
+// runs the whole online softmax again, with S = q . k summed over D in
+// chunks of kWideChunk (q from global memory, the K chunk in shared memory).
+// Everything is fp32; o is stored in T.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) flash_attn_wide_kernel(const Params p) {
+  constexpr int NP = kWideChunk / 4;
+  __shared__ float sKV[kWideKeys][kWideChunk];
+
+  const int L = p.L, D = p.D;
+  const int nq = (L + kWideRows - 1) / kWideRows;
+  const int q0 = (blockIdx.x % nq) * kWideRows;
+  const int b = blockIdx.x / nq / p.H, h = blockIdx.x / nq % p.H;
+  const T* qb = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[1];
+  const T* kb = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[1];
+  const T* vb = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[1];
+  T* ob = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1];
+
+  const int c = threadIdx.x & 3;
+  const int row = q0 + (threadIdx.x >> 2);
+  const bool live = row < L;
+  int k_lo, k_hi;
+  key_range(p, q0, min(q0 + kWideRows, L) - 1, k_lo, k_hi);
+
+  for (int o0 = 0; o0 < D; o0 += kWideChunk) {
+    float o[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) o[i] = 0.f;
+    float m = -INFINITY, l = 0.f;
+    for (int k0 = k_lo / kWideKeys * kWideKeys; k0 <= k_hi; k0 += kWideKeys) {
+      float s[kWideKeys];
+#pragma unroll
+      for (int jj = 0; jj < kWideKeys; ++jj) s[jj] = 0.f;
+      for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+        float qr[NP];
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const int d = d0 + c + 4 * i;
+          qr[i] = live && d < D ? dd::load_f(qb, (int64_t)row * p.sq[2] + d) : 0.f;
+        }
+        __syncthreads();  // the previous chunk is consumed
+        for (int i = threadIdx.x; i < kWideKeys * kWideChunk; i += kWideThreads) {
+          const int r = i / kWideChunk, d = d0 + i % kWideChunk;
+          sKV[r][i % kWideChunk] =
+              k0 + r < L && d < D ? dd::load_f(kb, (int64_t)(k0 + r) * p.sk[2] + d) : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int jj = 0; jj < kWideKeys; ++jj) {
+          float acc = 0.f;
+#pragma unroll
+          for (int i = 0; i < NP; ++i) acc = fmaf(qr[i], sKV[jj][c + 4 * i], acc);
+          s[jj] += acc;
+        }
+      }
+      float mx = m;
+#pragma unroll
+      for (int jj = 0; jj < kWideKeys; ++jj) {
+        float acc = s[jj];
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        s[jj] = visible(p, row, k0 + jj) ? acc * p.scale_log2 : -INFINITY;
+        mx = fmaxf(mx, s[jj]);
+      }
+      const float m_use = mx == -INFINITY ? 0.f : mx;
+      const float alpha = exp2f(m - m_use);
+      m = mx;
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) o[i] *= alpha;
+      __syncthreads();  // the last K chunk is consumed
+      for (int i = threadIdx.x; i < kWideKeys * kWideChunk; i += kWideThreads) {
+        const int r = i / kWideChunk, d = o0 + i % kWideChunk;
+        sKV[r][i % kWideChunk] =
+            k0 + r < L && d < D ? dd::load_f(vb, (int64_t)(k0 + r) * p.sv[2] + d) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int jj = 0; jj < kWideKeys; ++jj) {
+        const float pj = exp2f(s[jj] - m_use);
+        l += pj;
+#pragma unroll
+        for (int i = 0; i < NP; ++i) o[i] = fmaf(pj, sKV[jj][c + 4 * i], o[i]);
+      }
+    }
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int d = o0 + c + 4 * i;
+        if (d < D) dd::store_f(ob, (int64_t)row * p.so[2] + d, o[i] * inv);
+      }
+    }
+  }
+}
+
+int launch_wide(const Params& p, int B, int is_bf16, cudaStream_t stream) {
+  const int blocks = (p.L + kWideRows - 1) / kWideRows * B * p.H;
+  if (is_bf16)
+    flash_attn_wide_kernel<bf16><<<blocks, kWideThreads, 0, stream>>>(p);
+  else
+    flash_attn_wide_kernel<float><<<blocks, kWideThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -677,7 +798,7 @@ int launch(const Params& p, int B, int is_bf16, cudaStream_t stream) {
 extern "C" int dd_flash_attention(const void* q, const void* k, const void* v, void* o,
                                   const long long* strides, int B, int H, int L, int D,
                                   float scale, int window, int causal, int is_bf16, void* stream) {
-  if (B * H > 65535 || L <= 0 || D <= 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || L <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;
@@ -706,5 +827,6 @@ extern "C" int dd_flash_attention(const void* q, const void* k, const void* v, v
   if (D <= 32) return launch<32>(p, B, is_bf16, s);
   if (D <= 64) return launch<64>(p, B, is_bf16, s);
   if (D <= 128) return launch<128>(p, B, is_bf16, s);
-  return launch<256>(p, B, is_bf16, s);
+  if (D <= kMaxD) return launch<256>(p, B, is_bf16, s);
+  return launch_wide(p, B, is_bf16, s);
 }

@@ -18,11 +18,6 @@ import torch
 from .build import library
 from .common import no_tf32, on_cpu, stream_of
 
-#: the widest head the kernel takes; it runs every D from 1 up, zero-padded
-#: in its loads to 32, 64, 128 or 256
-MAX_HEAD_DIM = 256
-
-
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None, window: Optional[int] = None,
                           causal: bool = False) -> torch.Tensor:
@@ -81,8 +76,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """q/k/v (B, H, L, D) -> (B, H, L, D) in q's dtype. ``window=w`` keeps
     keys with |i - j| <= w, ``causal`` keys with j <= i. CUDA tensors take
-    K7 (bf16 on the tensor cores, fp32 with fp32 FMA; any D up to 256); CPU
-    tensors take the plain version. A dense q (such as the UNet's transposed
+    K7 (bf16 on the tensor cores and fp32 with fp32 FMA up to D 256, both
+    with FMA on a D-chunked kernel above; any B * H); CPU tensors take the
+    plain version. A dense q (such as the UNet's transposed
     (B, L, H, D) views) gives an output with its strides; a D that is not a
     multiple of 8 gives a view of a padded output."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -98,10 +94,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.dtype != q.dtype:
         raise TypeError(f"q/k/v: one dtype of bfloat16 or float32, got "
                         f"{q.dtype} {k.dtype} {v.dtype}")
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"head width {d} is outside the kernel's 1..{MAX_HEAD_DIM}")
-    if b * h > 65535:
-        raise ValueError(f"B * H = {b * h} exceeds the grid's 65535")
     if scale < 0:        # the bf16 kernel scales inside its exponent, which needs scale >= 0
         q, scale = -q, -scale
     q, k, v = _kernel_views(q, k, v)

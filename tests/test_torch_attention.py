@@ -79,6 +79,7 @@ def _qkv(seed, shape, dtype=np.float32):
     (96, 8, None, False, 32),        # head widths the card pads in its loads: 8 -> 32
     (96, 24, 20, False, 32),         # 24 -> 32, banded
     (64, 192, None, True, 32),       # 192 -> 256 (JAX pads to 256 lanes)
+    (64, 320, 24, False, 32),        # wider than 256: the card's D-chunked kernel (JAX: 384 lanes)
 ])
 def test_flash_plain_matches_pallas_kernel(l, d, window, causal, bq):
     """fp32: the same softmax summed in another order (2e-5, the JAX
