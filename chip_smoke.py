@@ -75,9 +75,10 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 
 #: (name, route, source, TPU kernel it replaces)
 KERNEL_INFO = [
-    ("grouped_conv3x3", "cuda", "dualdiffusion_tpu_torch/csrc/grouped_conv3x3.cu",
+    ("grouped_conv3x3", "cuda", "dualdiffusion_tpu_torch/csrc/grouped_conv3x3_hopper.cu",
      "dualdiffusion_tpu/ops/pallas/grouped_conv.py:120"),
-    ("grouped_conv3x3_wgrad", "cuda", "dualdiffusion_tpu_torch/csrc/grouped_conv3x3_wgrad.cu",
+    ("grouped_conv3x3_wgrad", "cuda",
+     "dualdiffusion_tpu_torch/csrc/grouped_conv3x3_wgrad_hopper.cu",
      "dualdiffusion_tpu/ops/pallas/grouped_conv.py:342"),
     ("fgla_frame", "cuda", "dualdiffusion_tpu_torch/csrc/fgla_frame.cu",
      "dualdiffusion_tpu/ops/pallas/fgla_iter.py:75"),
@@ -178,6 +179,46 @@ def grouped_conv_shapes(unet, batch: int, lat_h: int, lat_w: int):
     return shapes
 
 
+def conv_level(lat_h: int, h: int) -> int:
+    """The UNet level of a conv at height h (the latents' height >> level)."""
+    return (lat_h // h).bit_length() - 1
+
+
+def conv_route(cig: int, cog: int, *tensors) -> str:
+    """Which K1/K4 kernel a shape takes: "hopper" (wgmma + TMA) or "wmma"."""
+    from dualdiffusion_tpu_torch.ops.kernels import hopper_takes
+    return "hopper" if hopper_takes(cig, cog, *tensors) else "wmma"
+
+
+def k1_host_us(x, wt, groups: int, wmma: bool = False) -> float:
+    """Host microseconds per K1 call: 1,000 calls at a tiny shape without
+    synchronising (the wrapper, the tensor maps and the launch). ``wmma``
+    sends the calls to the WMMA kernel, the design before the Hopper one."""
+    import contextlib
+    import torch
+    from unittest import mock
+    import dualdiffusion_tpu_torch.ops.kernels.grouped_conv as gc
+    route = (mock.patch.object(gc, "hopper_takes", lambda *a: False) if wmma
+             else contextlib.nullcontext())
+    with route:
+        for _ in range(20):
+            gc.grouped_conv3x3(x, wt, groups)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            gc.grouped_conv3x3(x, wt, groups)
+        us = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    return us
+
+
+def print_levels(what: str, levels: dict) -> None:
+    """One line per UNet level: the summed ms of each column."""
+    for level, cols in sorted(levels.items()):
+        print(f"  {what} level {level}: " + ", ".join(f"{k} {v:.3f}" for k, v in cols.items())
+              + " ms", flush=True)
+
+
 def kernel_phase_conv(unet, groups: int, lat_h: int, lat_w: int, gen):
     import torch
     import torch.nn.functional as F
@@ -189,6 +230,7 @@ def kernel_phase_conv(unet, groups: int, lat_h: int, lat_w: int, gen):
           f"UNet forward (batch 2, groups {groups}); bf16 in/out, fp32 accumulation",
           flush=True)
     worst, ms, plain_ms, cudnn_ms, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
+    levels = {}
     for (b, h, w, cin, cout), n in counts.items():
         x = torch.randn((b, h, w, cin), generator=gen, device="cuda").bfloat16()
         wgt = torch.randn((cout, cin // groups, 3, 3), generator=gen, device="cuda")
@@ -196,26 +238,42 @@ def kernel_phase_conv(unet, groups: int, lat_h: int, lat_w: int, gen):
         got = grouped_conv3x3(x, wt, groups)
         torch.cuda.synchronize()
         want = grouped_conv3x3_plain(x, wt, groups)
+        route = conv_route(cin // groups, cout // groups, x, wt, got)
         # bf16 output: one rounding of an fp32 sum taken in another order
-        err = check_close(f"({b},{h},{w},{cin}->{cout}) x{n}", got, want, 2 ** -7)
+        err = check_close(f"({b},{h},{w},{cin}->{cout}) x{n} [{route}]", got, want, 2 ** -7)
         worst = max(worst, err)
-        ms += n * time_ms(lambda: grouped_conv3x3(x, wt, groups))
-        plain_ms += n * time_ms(lambda: grouped_conv3x3_plain(x, wt, groups))
         xc = x.permute(0, 3, 1, 2)
         wc = (wgt / (9 * cin // groups) ** 0.5).bfloat16()
-        cudnn_ms += n * time_ms(lambda: F.conv2d(xc, wc, padding=1, groups=groups))
+        t = (n * time_ms(lambda: grouped_conv3x3(x, wt, groups)),
+             n * time_ms(lambda: F.conv2d(xc, wc, padding=1, groups=groups)))
+        ms += t[0]
+        cudnn_ms += t[1]
+        lv = levels.setdefault(conv_level(lat_h, h), {"K1": 0.0, "cuDNN fprop": 0.0})
+        lv["K1"] += t[0]
+        lv["cuDNN fprop"] += t[1]
+        plain_ms += n * time_ms(lambda: grouped_conv3x3_plain(x, wt, groups))
         flops += n * 2 * 9 * cin * cout // groups * b * h * w
         nbytes += n * 2 * (b * h * w * (cin + cout) + 9 * cin // groups * cout)
+    print_levels("per UNet forward,", levels)
     print(f"  per UNet forward: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms, "
           f"cuDNN bf16 {cudnn_ms:.3f} ms", flush=True)
+    # inputs from a generator of their own, so the later phases' draws stay as they were
+    own = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((1, 2, 16, 64), generator=own, device="cuda").bfloat16()
+    wt = prepare_weights(torch.randn((64, 8, 3, 3), generator=own, device="cuda"), 8)
+    us = [k1_host_us(x, wt, 8, wmma) for wmma in (True, False, False, True)]
+    print(f"  K1 host us per call (1,000 calls of (1, 2, 16, 64) -> 64, 8 groups, no sync): "
+          f"WMMA route {us[0]:.2f} / {us[3]:.2f}, Hopper route {us[1]:.2f} / {us[2]:.2f}",
+          flush=True)
     return result(worst, ms, plain_ms, flops, nbytes, "bf16", cudnn_ms)
 
 
 def kernel_phase_conv_backward(unet, groups: int, lat_h: int, lat_w: int, gen):
     """K1 dgrad (K1 on ``dgrad_weights``) and K4 wgrad against their plain
-    versions at every distinct grouped-conv shape of one training microbatch.
-    Both return bf16: one rounding of an fp32 sum taken in another order,
-    so they agree to one bf16 ulp of the max (2**-7)."""
+    versions at every distinct grouped-conv shape of one training microbatch,
+    with cuDNN's dgrad (``conv2d_input``) and wgrad (``conv2d_weight``) in
+    bf16 beside them. Both return bf16: one rounding of an fp32 sum taken in
+    another order, so they agree to one bf16 ulp of the max (2**-7)."""
     import torch
     from dualdiffusion_tpu_torch.ops.kernels import (dgrad_weights, grouped_conv3x3,
                                                      grouped_conv3x3_plain, grouped_conv3x3_wgrad,
@@ -226,36 +284,47 @@ def kernel_phase_conv_backward(unet, groups: int, lat_h: int, lat_w: int, gen):
           f"convs per UNet backward (batch {TRAIN_BATCH}, groups {groups}); bf16 in/out, fp32 "
           f"accumulation", flush=True)
     res = {"dgrad": [0.0, 0.0, 0.0], "wgrad": [0.0, 0.0, 0.0]}
-    cudnn_ms, flops, nbytes = 0.0, 0.0, 0.0
+    cudnn = {"dgrad": 0.0, "wgrad": 0.0}
+    flops, nbytes = 0.0, 0.0
+    levels = {}
     for (b, h, w, cin, cout), n in counts.items():
+        cig, cog = cin // groups, cout // groups
         x = torch.randn((b, h, w, cin), generator=gen, device="cuda").bfloat16()
         gy = torch.randn((b, h, w, cout), generator=gen, device="cuda").bfloat16()
-        wgt = torch.randn((cout, cin // groups, 3, 3), generator=gen, device="cuda")
-        wd = dgrad_weights(prepare_weights(wgt / (9 * cin // groups) ** 0.5, groups))
-        tag = f"({b},{h},{w},{cin}->{cout}) x{n}"
-        for key, fn, plain in (
+        wgt = torch.randn((cout, cig, 3, 3), generator=gen, device="cuda")
+        wd = dgrad_weights(prepare_weights(wgt / (9 * cig) ** 0.5, groups))
+        xc, gyc, wc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2), wgt.bfloat16()
+        lv = levels.setdefault(conv_level(lat_h, h), {"dgrad": 0.0, "cuDNN dgrad": 0.0,
+                                                      "K4 wgrad": 0.0, "cuDNN wgrad": 0.0})
+        for key, fn, plain, lib, route in (
                 ("dgrad", lambda: grouped_conv3x3(gy, wd, groups),
-                 lambda: grouped_conv3x3_plain(gy, wd, groups)),
+                 lambda: grouped_conv3x3_plain(gy, wd, groups),
+                 lambda: torch.nn.grad.conv2d_input(xc.shape, wc, gyc, padding=1, groups=groups),
+                 conv_route(cog, cig, gy, wd, x)),
                 ("wgrad", lambda: grouped_conv3x3_wgrad(x, gy, groups),
-                 lambda: grouped_conv3x3_wgrad_plain(x, gy, groups))):
+                 lambda: grouped_conv3x3_wgrad_plain(x, gy, groups),
+                 lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, gyc, padding=1, groups=groups),
+                 conv_route(cig, cog, x, gy))):
             got = fn()
             torch.cuda.synchronize()
             r = res[key]
-            r[0] = max(r[0], check_close(f"{key} {tag}", got, plain(), 2 ** -7))
-            r[1] += n * time_ms(fn)
+            tag = f"{key} ({b},{h},{w},{cin}->{cout}) x{n} [{route}]"
+            r[0] = max(r[0], check_close(tag, got, plain(), 2 ** -7))
+            t = (n * time_ms(fn), n * time_ms(lib))
+            r[1] += t[0]
+            cudnn[key] += t[1]
+            lv["dgrad" if key == "dgrad" else "K4 wgrad"] += t[0]
+            lv[f"cuDNN {key}"] += t[1]
             r[2] += n * time_ms(plain)
-        xc, gyc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
-        cudnn_ms += n * time_ms(lambda: torch.nn.grad.conv2d_weight(
-            xc, (cout, cin // groups, 3, 3), gyc, padding=1, groups=groups))
         flops += n * 2 * 9 * cin * cout // groups * b * h * w
         nbytes += n * 2 * (b * h * w * (cin + cout) + 9 * cin // groups * cout)
+    print_levels("per UNet backward,", levels)
     for key, (_, ms, plain_ms) in res.items():
-        print(f"  {key} per UNet backward: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms",
-              flush=True)
-    print(f"  cuDNN bf16 wgrad {cudnn_ms:.3f} ms; dgrad and wgrad each do the work below",
-          flush=True)
+        print(f"  {key} per UNet backward: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms, "
+              f"cuDNN bf16 {cudnn[key]:.3f} ms", flush=True)
+    print("  dgrad and wgrad each do the work below", flush=True)
     err, ms, plain_ms = res["wgrad"]
-    return result(err, ms, plain_ms, flops, nbytes, "bf16", cudnn_ms)
+    return result(err, ms, plain_ms, flops, nbytes, "bf16", cudnn["wgrad"])
 
 
 def fgla_inputs(fmt, gen):
@@ -1037,6 +1106,7 @@ def main() -> int:
     lib = library()
     print(f"kernel build: {lib.build_seconds:.2f} s nvcc ({time.perf_counter() - t0:.2f} s "
           f"with load) -> {lib.path.name}", flush=True)
+    print("\n".join(l for l in lib.log.splitlines() if l.startswith("nvcc seconds")), flush=True)
     if sys.argv[1:] == ["--profile"]:
         with tempfile.TemporaryDirectory(prefix="dd_profile_") as tmp:
             profile_dae_step(Path(tmp))

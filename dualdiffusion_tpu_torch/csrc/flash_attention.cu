@@ -67,12 +67,13 @@
 // gridDim.x, so B*H has no 65535 limit.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <math.h>
 
 namespace {
+
+using namespace dd;
 
 using bf16 = __nv_bfloat16;
 
@@ -140,179 +141,12 @@ struct Tile {
   static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 1024 + 8 * (1 + 2 * kStages);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// box (c0, c1, c2, c3) of a 4-D tensor map -> shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// a wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets, and the swizzle (128 or 64 bytes)
-template <int SW>
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accumulator reads and writes across a wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define DD_ACC8(i)                                                                     \
-  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
-      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-
-// d (64 x 64, fp32) (+)= A (64 x 16, shared) * B (64 x 16, shared), both K-major
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128, fp32) (+)= A (64 x 16, shared) * B (128 x 16, shared), both K-major
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24),
-        DD_ACC8(32), DD_ACC8(40), DD_ACC8(48), DD_ACC8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 32, fp32) += A (64 x 16, registers) * B (16 x 32, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : DD_ACC8(0), DD_ACC8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24),
-        DD_ACC8(32), DD_ACC8(40), DD_ACC8(48), DD_ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 256, fp32) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : DD_ACC8(0), DD_ACC8(8), DD_ACC8(16), DD_ACC8(24),
-        DD_ACC8(32), DD_ACC8(40), DD_ACC8(48), DD_ACC8(56),
-        DD_ACC8(64), DD_ACC8(72), DD_ACC8(80), DD_ACC8(88),
-        DD_ACC8(96), DD_ACC8(104), DD_ACC8(112), DD_ACC8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef DD_ACC8
-
 // 2^x on the SFU; results below 2^-126 flush to 0 (probabilities that small vanish
 // against the row's maximum of 1 anyway)
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // one consumer warpgroup: 64 q rows from r0 over the block's n_tiles key tiles
@@ -500,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, Tile<DP>::BLOCKS)
       mbar_init(full + 8 * st, 1);        // the producer's expect_tx
       mbar_init(empty + 8 * st, 8);       // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -532,38 +366,13 @@ __global__ void __launch_bounds__(kThreads, Tile<DP>::BLOCKS)
   }
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
 // a 4-D (D, L, H, B) tensor map of one bf16 operand; boxes of `cols` x `rows`
 bool encode_map(CUtensorMap* map, const void* ptr, const int64_t* st, int B, int H, int L, int D,
                 int cols, int rows, int swizzle) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;  // zero fill
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)L, (uint64_t)H, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)st[2] * 2, (uint64_t)st[1] * 2, (uint64_t)st[0] * 2};
+  const uint32_t box[4] = {(uint32_t)cols, (uint32_t)rows, 1, 1};
+  return encode_bf16_map(map, ptr, 4, dims, strides, box, swizzle);
 }
 
 template <int DP>
@@ -687,12 +496,14 @@ constexpr int kWideChunk = 128;             // head dims per chunk, 32 per threa
 // No configuration of the repo has a head this wide, so this kernel is
 // simple, not fast: O's columns go in passes of kWideChunk, and each pass
 // runs the whole online softmax again, with S = q . k summed over D in
-// chunks of kWideChunk (q from global memory, the K chunk in shared memory).
-// Everything is fp32; o is stored in T.
+// chunks of kWideChunk (q from global memory, the K chunk in shared memory)
+// into a shared-memory score tile. Everything is fp32; o is stored in T.
+// The key loops are unrolled only by 4, which keeps its build short.
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads) flash_attn_wide_kernel(const Params p) {
   constexpr int NP = kWideChunk / 4;
   __shared__ float sKV[kWideKeys][kWideChunk];
+  __shared__ float sS[kWideRows][kWideKeys + 1];  // scores of the key tile, one row a quad
 
   const int L = p.L, D = p.D;
   const int nq = (L + kWideRows - 1) / kWideRows;
@@ -703,9 +514,10 @@ __global__ void __launch_bounds__(kWideThreads) flash_attn_wide_kernel(const Par
   const T* vb = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[1];
   T* ob = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1];
 
-  const int c = threadIdx.x & 3;
-  const int row = q0 + (threadIdx.x >> 2);
+  const int c = threadIdx.x & 3, r = threadIdx.x >> 2;
+  const int row = q0 + r;
   const bool live = row < L;
+  float* srow = sS[r];
   int k_lo, k_hi;
   key_range(p, q0, min(q0 + kWideRows, L) - 1, k_lo, k_hi);
 
@@ -715,9 +527,6 @@ __global__ void __launch_bounds__(kWideThreads) flash_attn_wide_kernel(const Par
     for (int i = 0; i < NP; ++i) o[i] = 0.f;
     float m = -INFINITY, l = 0.f;
     for (int k0 = k_lo / kWideKeys * kWideKeys; k0 <= k_hi; k0 += kWideKeys) {
-      float s[kWideKeys];
-#pragma unroll
-      for (int jj = 0; jj < kWideKeys; ++jj) s[jj] = 0.f;
       for (int d0 = 0; d0 < D; d0 += kWideChunk) {
         float qr[NP];
 #pragma unroll
@@ -727,27 +536,27 @@ __global__ void __launch_bounds__(kWideThreads) flash_attn_wide_kernel(const Par
         }
         __syncthreads();  // the previous chunk is consumed
         for (int i = threadIdx.x; i < kWideKeys * kWideChunk; i += kWideThreads) {
-          const int r = i / kWideChunk, d = d0 + i % kWideChunk;
-          sKV[r][i % kWideChunk] =
-              k0 + r < L && d < D ? dd::load_f(kb, (int64_t)(k0 + r) * p.sk[2] + d) : 0.f;
+          const int kr = i / kWideChunk, d = d0 + i % kWideChunk;
+          sKV[kr][i % kWideChunk] =
+              k0 + kr < L && d < D ? dd::load_f(kb, (int64_t)(k0 + kr) * p.sk[2] + d) : 0.f;
         }
         __syncthreads();
-#pragma unroll
+#pragma unroll 4
         for (int jj = 0; jj < kWideKeys; ++jj) {
           float acc = 0.f;
 #pragma unroll
           for (int i = 0; i < NP; ++i) acc = fmaf(qr[i], sKV[jj][c + 4 * i], acc);
-          s[jj] += acc;
+          acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+          acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+          if (c == 0) srow[jj] = (d0 == 0 ? 0.f : srow[jj]) + acc;
         }
       }
+      __syncwarp();  // the quad's scores are written
       float mx = m;
-#pragma unroll
+#pragma unroll 4
       for (int jj = 0; jj < kWideKeys; ++jj) {
-        float acc = s[jj];
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-        s[jj] = visible(p, row, k0 + jj) ? acc * p.scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[jj]);
+        const float x = visible(p, row, k0 + jj) ? srow[jj] * p.scale_log2 : -INFINITY;
+        mx = fmaxf(mx, x);
       }
       const float m_use = mx == -INFINITY ? 0.f : mx;
       const float alpha = exp2f(m - m_use);
@@ -757,18 +566,20 @@ __global__ void __launch_bounds__(kWideThreads) flash_attn_wide_kernel(const Par
       for (int i = 0; i < NP; ++i) o[i] *= alpha;
       __syncthreads();  // the last K chunk is consumed
       for (int i = threadIdx.x; i < kWideKeys * kWideChunk; i += kWideThreads) {
-        const int r = i / kWideChunk, d = o0 + i % kWideChunk;
-        sKV[r][i % kWideChunk] =
-            k0 + r < L && d < D ? dd::load_f(vb, (int64_t)(k0 + r) * p.sv[2] + d) : 0.f;
+        const int kr = i / kWideChunk, d = o0 + i % kWideChunk;
+        sKV[kr][i % kWideChunk] =
+            k0 + kr < L && d < D ? dd::load_f(vb, (int64_t)(k0 + kr) * p.sv[2] + d) : 0.f;
       }
       __syncthreads();
-#pragma unroll
+#pragma unroll 4
       for (int jj = 0; jj < kWideKeys; ++jj) {
-        const float pj = exp2f(s[jj] - m_use);
+        const float x = visible(p, row, k0 + jj) ? srow[jj] * p.scale_log2 : -INFINITY;
+        const float pj = exp2f(x - m_use);
         l += pj;
 #pragma unroll
         for (int i = 0; i < NP; ++i) o[i] = fmaf(pj, sKV[jj][c + 4 * i], o[i]);
       }
+      __syncwarp();  // every thread of the quad has read the scores
     }
     const float inv = l == 0.f ? 0.f : 1.f / l;
     if (live) {

@@ -8,7 +8,7 @@ CUDA tensors it launches the kernel or raises (never a silent fallback).
 
 from .fgla_frame import dft_twiddles, fgla_frame, fgla_frame_plain
 from .flash_attention import flash_attention, flash_attention_plain
-from .grouped_conv import (GroupedConv3x3Fn, dgrad_weights, grouped_conv3x3,
+from .grouped_conv import (GroupedConv3x3Fn, dgrad_weights, grouped_conv3x3, hopper_takes,
                            grouped_conv3x3_plain, grouped_conv3x3_wgrad,
                            grouped_conv3x3_wgrad_plain, prepare_weights)
 from .mss2d import (Mss2dBlockLossFn, mss2d_block_loss, mss2d_block_loss_grad,

@@ -34,6 +34,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "dd_grouped_conv3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dd_grouped_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dd_grouped_conv3x3_hopper": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dd_grouped_conv3x3_wgrad_hopper": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dd_fgla_frame": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_I), _I,
                       _LL, _I, _F, _F, _I, _P],
     "dd_ola_reframe": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
@@ -101,13 +103,26 @@ def build() -> KernelLibrary:
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                             text=True)))
+    outs, seconds = {}, {}
+
+    def wait(cmd, proc):
+        outs[cmd[-1]] = proc.communicate()[0]
+        seconds[Path(cmd[-1]).name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=cp) for cp in procs]
+    for th in waiters:
+        th.start()
+    for th in waiters:
+        th.join()
     log = ""
     failed = []
     for cmd, proc in procs:
-        out, _ = proc.communicate()
+        out = outs[cmd[-1]]
         log += out
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    log += "nvcc seconds per source: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(seconds.items(), key=lambda kv: -kv[1])) + "\n"
     try:
         if failed:
             raise RuntimeError("\n".join(failed))

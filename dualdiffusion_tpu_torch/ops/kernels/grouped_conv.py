@@ -1,6 +1,10 @@
-"""K1: 3x3 stride-1 zero-padded grouped conv, NHWC bf16 (csrc/grouped_conv3x3.cu),
-and its backward: dgrad through K1 on rotated weights, wgrad through K4
-(csrc/grouped_conv3x3_wgrad.cu).
+"""K1: 3x3 stride-1 zero-padded grouped conv, NHWC bf16, and its backward:
+dgrad through K1 on rotated weights, wgrad through K4. Each has two CUDA
+kernels: the Hopper one (wgmma fed by TMA: csrc/grouped_conv3x3_hopper.cu,
+csrc/grouped_conv3x3_wgrad_hopper.cu) for channel counts that are multiples
+of 8 on 16-byte aligned tensors (TMA's rules: ``hopper_takes``), and the
+WMMA one (csrc/grouped_conv3x3.cu, csrc/grouped_conv3x3_wgrad.cu) for the
+other shapes.
 
 Replaces dualdiffusion_tpu/ops/pallas/grouped_conv.py (``_kernel_v2`` and
 ``_kernel``, reached through ``grouped_conv2d_3x3_pre``, and the custom VJP's
@@ -15,10 +19,17 @@ import torch.nn.functional as F
 from .build import library
 from .common import check, no_tf32, on_cpu, stream_of
 
-#: input channels per K4 block (csrc/grouped_conv3x3_wgrad.cu kKC)
-_WGRAD_KC = 32
-#: K4 blocks to aim for: a few waves of the H100's 132 SMs
-_WGRAD_WAVES = 4
+#: input channels per K4 block: the WMMA kernel's kKC, the Hopper kernel's kMC
+_WGRAD_KC = {False: 32, True: 64}
+#: K4 blocks to aim for, in waves of the card's SMs: the WMMA kernel fits
+#: several blocks on an SM, the Hopper kernel one
+_WGRAD_WAVES = {False: 4, True: 2}
+
+
+def hopper_takes(cig: int, cog: int, *tensors: torch.Tensor) -> bool:
+    """Whether K1 and K4 take their Hopper kernels: TMA needs channel counts
+    that are multiples of 8 (16-byte strides) and 16-byte aligned tensors."""
+    return cig % 8 == 0 and cog % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def prepare_weights(w: torch.Tensor, groups: int,
@@ -70,9 +81,11 @@ def grouped_conv3x3(x: torch.Tensor, wt: torch.Tensor,
     check(wt, "wt", (torch.bfloat16,))
     out = torch.empty((b, h, w, groups * cog), dtype=x.dtype, device=x.device)
     lib = library()
+    fn = (lib.lib.dd_grouped_conv3x3_hopper if hopper_takes(cig, cog, x, wt, out)
+          else lib.lib.dd_grouped_conv3x3)
     with torch.cuda.device(x.device):
-        err = lib.lib.dd_grouped_conv3x3(x.data_ptr(), wt.data_ptr(), out.data_ptr(),
-                                         b, h, w, groups, cig, cog, stream_of(x))
+        err = fn(x.data_ptr(), wt.data_ptr(), out.data_ptr(), b, h, w, groups, cig, cog,
+                 stream_of(x))
     lib.check(err, "grouped_conv3x3")
     grouped_conv3x3.launches += 1
     return out
@@ -97,13 +110,14 @@ def grouped_conv3x3_wgrad_plain(x: torch.Tensor, gy: torch.Tensor,
     return torch.stack(taps, dim=1).reshape(groups, 9 * cig, cog).to(x.dtype)
 
 
-def _wgrad_splits(device: torch.device, bh: int, groups: int, cig: int, cog: int) -> int:
+def _wgrad_splits(device: torch.device, bh: int, groups: int, cig: int, cog: int,
+                  hopper: bool) -> int:
     """How many blocks share one output tile's sum over the B*H rows: enough
     for a few waves of the card's SMs, every split keeping at least one row."""
     bn = 64 if cog % 64 == 0 else 32
-    tiles = groups * -(-cig // _WGRAD_KC) * -(-cog // bn)
+    tiles = groups * -(-cig // _WGRAD_KC[hopper]) * -(-cog // bn)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    nsplit = max(1, min(bh, -(-_WGRAD_WAVES * sms // tiles)))
+    nsplit = max(1, min(bh, -(-_WGRAD_WAVES[hopper] * sms // tiles)))
     rows = -(-bh // nsplit)
     return -(-bh // rows)
 
@@ -123,14 +137,16 @@ def grouped_conv3x3_wgrad(x: torch.Tensor, gy: torch.Tensor,
         return grouped_conv3x3_wgrad_plain(x, gy, groups)
     check(x, "x", (torch.bfloat16,), ndim=4)
     check(gy, "gy", (torch.bfloat16,), ndim=4)
-    nsplit = _wgrad_splits(x.device, b * h, groups, cig, cog)
+    hopper = hopper_takes(cig, cog, x, gy)
+    nsplit = _wgrad_splits(x.device, b * h, groups, cig, cog, hopper)
     partial = torch.empty((nsplit, groups, 9 * cig, cog), dtype=torch.float32, device=x.device)
     out = torch.empty((groups, 9 * cig, cog), dtype=x.dtype, device=x.device)
     lib = library()
+    fn = (lib.lib.dd_grouped_conv3x3_wgrad_hopper if hopper
+          else lib.lib.dd_grouped_conv3x3_wgrad)
     with torch.cuda.device(x.device):
-        err = lib.lib.dd_grouped_conv3x3_wgrad(x.data_ptr(), gy.data_ptr(), partial.data_ptr(),
-                                               out.data_ptr(), b, h, w, groups, cig, cog,
-                                               nsplit, stream_of(x))
+        err = fn(x.data_ptr(), gy.data_ptr(), partial.data_ptr(), out.data_ptr(), b, h, w,
+                 groups, cig, cog, nsplit, stream_of(x))
     lib.check(err, "grouped_conv3x3_wgrad")
     grouped_conv3x3_wgrad.launches += 1
     return out

@@ -17,7 +17,8 @@ from dualdiffusion_tpu_torch.ops.kernels import (GroupedConv3x3Fn, dft_twiddles,
                                                  fgla_frame, fgla_frame_plain, flash_attention,
                                                  flash_attention_plain, grouped_conv3x3,
                                                  grouped_conv3x3_plain, grouped_conv3x3_wgrad,
-                                                 grouped_conv3x3_wgrad_plain, mss2d_block_loss,
+                                                 grouped_conv3x3_wgrad_plain, hopper_takes,
+                                                 mss2d_block_loss,
                                                  mss2d_block_loss_grad,
                                                  mss2d_block_loss_grad_plain,
                                                  mss2d_block_loss_plain, mss2d_loss_fused,
@@ -41,7 +42,8 @@ def _rel_err(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,groups,cig,cog", [(1, 3, 5, 2, 8, 8), (2, 4, 86, 8, 288, 256),
-                                                  (2, 2, 43, 8, 320, 320)])
+                                                  (2, 2, 43, 8, 320, 320),
+                                                  (2, 4, 70, 4, 12, 20)])   # the WMMA kernel
 def test_grouped_conv_kernel_matches_plain(cuda, b, h, w, groups, cig, cog):
     """bf16 out: one rounding of an fp32 sum taken in another order."""
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -75,6 +77,34 @@ def test_wgrad_kernel_matches_plain(cuda, b, h, w, groups, cig, cog):
     assert got.shape == (groups, 9 * cig, cog) and got.dtype == torch.bfloat16
     assert torch.equal(got, again)
     assert _rel_err(got.float().cpu(),
+                    grouped_conv3x3_wgrad_plain(x, gy, groups).float().cpu()) <= 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,groups,cig,cog", [(8, 32, 688, 8, 64, 32), (8, 16, 344, 8, 128, 64),
+                                                  (8, 8, 172, 8, 192, 96), (8, 4, 86, 8, 288, 256),
+                                                  (8, 2, 43, 8, 320, 160)])
+def test_grouped_conv_kernels_at_each_level(cuda, b, h, w, groups, cig, cog):
+    """One main-path shape per level of the reference UNet at the training
+    batch: K1 forward, dgrad (K1 on dgrad_weights) and K4 on the Hopper
+    kernels, each against its plain version to one bf16 ulp of max (2**-7);
+    K4 twice, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((b, h, w, groups * cig), generator=g, device=cuda).bfloat16()
+    wt = prepare_weights(torch.randn((groups * cog, cig, 3, 3), generator=g, device=cuda)
+                         / (9 * cig) ** 0.5, groups)
+    gy = torch.randn((b, h, w, groups * cog), generator=g, device=cuda).bfloat16()
+    wd = dgrad_weights(wt)
+    assert hopper_takes(cig, cog, x, wt, gy) and hopper_takes(cog, cig, gy, wd, x)
+    for got, want in ((grouped_conv3x3(x, wt, groups), grouped_conv3x3_plain(x, wt, groups)),
+                      (grouped_conv3x3(gy, wd, groups), grouped_conv3x3_plain(gy, wd, groups))):
+        torch.cuda.synchronize()
+        assert _rel_err(got.float().cpu(), want.float().cpu()) <= 2 ** -7
+    dw = grouped_conv3x3_wgrad(x, gy, groups)
+    again = grouped_conv3x3_wgrad(x, gy, groups)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, again)
+    assert _rel_err(dw.float().cpu(),
                     grouped_conv3x3_wgrad_plain(x, gy, groups).float().cpu()) <= 2 ** -7
 
 
