@@ -190,26 +190,30 @@ def conv_route(cig: int, cog: int, *tensors) -> str:
     return "hopper" if hopper_takes(cig, cog, *tensors) else "wmma"
 
 
-def k1_host_us(x, wt, groups: int, wmma: bool = False) -> float:
-    """Host microseconds per K1 call: 1,000 calls at a tiny shape without
-    synchronising (the wrapper, the tensor maps and the launch). ``wmma``
-    sends the calls to the WMMA kernel, the design before the Hopper one."""
+def k1_host_us(x, wt, groups: int, rounds: int = 6) -> dict:
+    """Host microseconds per K1 call at a tiny shape: rounds of 1,000 calls
+    without synchronising (the wrapper, the tensor maps and the launch), on
+    the WMMA route (the design before the Hopper one) and the Hopper route
+    in turns, so the host's load falls on both alike: {route: [us, ...]}."""
     import contextlib
     import torch
     from unittest import mock
     import dualdiffusion_tpu_torch.ops.kernels.grouped_conv as gc
-    route = (mock.patch.object(gc, "hopper_takes", lambda *a: False) if wmma
-             else contextlib.nullcontext())
-    with route:
-        for _ in range(20):
-            gc.grouped_conv3x3(x, wt, groups)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(1000):
-            gc.grouped_conv3x3(x, wt, groups)
-        us = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-    return us
+    out = {"wmma": [], "hopper": []}
+    for i in range(rounds):
+        for key in (("wmma", "hopper") if i % 2 == 0 else ("hopper", "wmma")):
+            route = (mock.patch.object(gc, "hopper_takes", lambda *a: False) if key == "wmma"
+                     else contextlib.nullcontext())
+            with route:
+                for _ in range(20):
+                    gc.grouped_conv3x3(x, wt, groups)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    gc.grouped_conv3x3(x, wt, groups)
+                out[key].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+    return out
 
 
 def print_levels(what: str, levels: dict) -> None:
@@ -261,10 +265,11 @@ def kernel_phase_conv(unet, groups: int, lat_h: int, lat_w: int, gen):
     own = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((1, 2, 16, 64), generator=own, device="cuda").bfloat16()
     wt = prepare_weights(torch.randn((64, 8, 3, 3), generator=own, device="cuda"), 8)
-    us = [k1_host_us(x, wt, 8, wmma) for wmma in (True, False, False, True)]
-    print(f"  K1 host us per call (1,000 calls of (1, 2, 16, 64) -> 64, 8 groups, no sync): "
-          f"WMMA route {us[0]:.2f} / {us[3]:.2f}, Hopper route {us[1]:.2f} / {us[2]:.2f}",
-          flush=True)
+    us = k1_host_us(x, wt, 8)
+    print("  K1 host us per call (rounds of 1,000 calls of (1, 2, 16, 64) -> 64, 8 groups, no "
+          "sync, routes in turns): " + "; ".join(
+              f"{k} route min {min(v):.2f} median {sorted(v)[len(v) // 2]:.2f} "
+              f"({', '.join(f'{u:.1f}' for u in v)})" for k, v in us.items()), flush=True)
     return result(worst, ms, plain_ms, flops, nbytes, "bf16", cudnn_ms)
 
 

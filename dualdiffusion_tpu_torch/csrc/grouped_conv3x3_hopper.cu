@@ -64,6 +64,7 @@ constexpr int kXSlot = 4608;             // ... rounded up to the 512-byte swizz
 constexpr int kThreads = 3 * 128;        // producer + 2 consumer warpgroups
 constexpr int kMaxSmem = 232448;
 constexpr int kConsumerRegs = 240;       // setmaxnreg: (168 * 3 - 24) / 2, rounded down to 8
+constexpr int kMaxDevices = 64;          // per-device host caches
 
 template <int BN>
 struct FTile {
@@ -216,17 +217,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-int sm_count() {
-  static int sms[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 64 && sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-  return dev < 64 ? sms[dev] : 132;
+int sm_count(int dev) {
+  static int sms[kMaxDevices] = {0};
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
 }
 
 template <int BN>
 int launch(const void* x, const void* wt, void* out, int B, int H, int W, int G, int cig, int cog,
-           int sms, cudaStream_t stream) {
+           int dev, int sms, cudaStream_t stream) {
   using T = FTile<BN>;
   CUtensorMap tx, tw;
   const uint64_t e = 2;  // bytes per element
@@ -242,8 +241,13 @@ int launch(const void* x, const void* wt, void* out, int B, int H, int W, int G,
       !encode_bf16_map(&tw, wt, 5, wd, ws, wb, T::SW))
     return (int)cudaErrorInvalidValue;
   auto kernel = conv3x3_hopper_kernel<BN>;
-  cudaError_t err = dd_allow_smem(kernel, T::SMEM);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
+  static bool smem_set[kMaxDevices] = {};  // the attribute is set once per device
+  if (!smem_set[dev]) {
+    err = dd_allow_smem(kernel, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
   Params p;
   p.out = static_cast<bf16*>(out);
   p.H = H;
@@ -272,7 +276,10 @@ extern "C" int dd_grouped_conv3x3_hopper(const void* x, const void* wt, void* ou
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt) |
        reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorInvalidValue;
-  const int sms = sm_count();
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const int sms = sm_count(dev);
   // N tile: the whole of cog up to 256, else 160; narrower while the items
   // (pairs of runs x N tiles x groups) would not cover the SMs
   const int64_t pairs = ((int64_t)B * H * ((W + kRun - 1) / kRun) + 1) / 2;
@@ -280,13 +287,13 @@ extern "C" int dd_grouped_conv3x3_hopper(const void* x, const void* wt, void* ou
   while (bn > 32 && pairs * G * ((cog + bn - 1) / bn) < sms) bn -= 32;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bn) {
-    case 32: return launch<32>(x, wt, out, B, H, W, G, cig, cog, sms, s);
-    case 64: return launch<64>(x, wt, out, B, H, W, G, cig, cog, sms, s);
-    case 96: return launch<96>(x, wt, out, B, H, W, G, cig, cog, sms, s);
-    case 128: return launch<128>(x, wt, out, B, H, W, G, cig, cog, sms, s);
-    case 160: return launch<160>(x, wt, out, B, H, W, G, cig, cog, sms, s);
-    case 192: return launch<192>(x, wt, out, B, H, W, G, cig, cog, sms, s);
-    case 224: return launch<224>(x, wt, out, B, H, W, G, cig, cog, sms, s);
-    default: return launch<256>(x, wt, out, B, H, W, G, cig, cog, sms, s);
+    case 32: return launch<32>(x, wt, out, B, H, W, G, cig, cog, dev, sms, s);
+    case 64: return launch<64>(x, wt, out, B, H, W, G, cig, cog, dev, sms, s);
+    case 96: return launch<96>(x, wt, out, B, H, W, G, cig, cog, dev, sms, s);
+    case 128: return launch<128>(x, wt, out, B, H, W, G, cig, cog, dev, sms, s);
+    case 160: return launch<160>(x, wt, out, B, H, W, G, cig, cog, dev, sms, s);
+    case 192: return launch<192>(x, wt, out, B, H, W, G, cig, cog, dev, sms, s);
+    case 224: return launch<224>(x, wt, out, B, H, W, G, cig, cog, dev, sms, s);
+    default: return launch<256>(x, wt, out, B, H, W, G, cig, cog, dev, sms, s);
   }
 }

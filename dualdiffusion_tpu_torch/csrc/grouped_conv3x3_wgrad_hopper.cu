@@ -58,6 +58,7 @@ constexpr int kHaloSlot = 12800;             // ... rounded up to the 512-byte s
 constexpr int kStages = 4;
 constexpr int kThreads = 4 * 128;            // producer + 3 consumer warpgroups
 constexpr int kConsumerRegs = 160;           // setmaxnreg: (128 * 4 - 24) / 3, down to 8
+constexpr int kMaxDevices = 64;              // per-device host caches
 
 template <int BN>
 struct WTile {
@@ -197,7 +198,7 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ partial, bf16* __r
 
 template <int BN>
 int launch(const void* x, const void* gy, void* partial, void* out, int B, int H, int W, int G,
-           int cig, int cog, int nsplit, cudaStream_t stream) {
+           int cig, int cog, int nsplit, int dev, cudaStream_t stream) {
   using T = WTile<BN>;
   CUtensorMap tx, tg;
   const uint64_t e = 2;  // bytes per element
@@ -213,8 +214,13 @@ int launch(const void* x, const void* gy, void* partial, void* out, int B, int H
       !encode_bf16_map(&tg, gy, 5, gd, gs, gb, T::SW))
     return (int)cudaErrorInvalidValue;
   auto kernel = wgrad_hopper_kernel<BN>;
-  cudaError_t err = dd_allow_smem(kernel, T::SMEM);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
+  static bool smem_set[kMaxDevices] = {};  // the attribute is set once per device
+  if (!smem_set[dev]) {
+    err = dd_allow_smem(kernel, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
   Params p;
   p.partial = static_cast<float*>(partial);
   p.H = H;
@@ -249,8 +255,11 @@ extern "C" int dd_grouped_conv3x3_wgrad_hopper(const void* x, const void* gy, vo
   if (cig % 8 || cog % 8 || cig <= 0 || cog <= 0 || nsplit <= 0 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gy)) % 16)
     return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   cudaStream_t s = (cudaStream_t)stream;
   if (cog % 64 == 0)
-    return launch<64>(x, gy, partial, out, B, H, W, G, cig, cog, nsplit, s);
-  return launch<32>(x, gy, partial, out, B, H, W, G, cig, cog, nsplit, s);
+    return launch<64>(x, gy, partial, out, B, H, W, G, cig, cog, nsplit, dev, s);
+  return launch<32>(x, gy, partial, out, B, H, W, G, cig, cog, nsplit, dev, s);
 }

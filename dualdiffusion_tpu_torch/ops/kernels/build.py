@@ -43,6 +43,8 @@ SIGNATURES = {
     "dd_mss2d_bwd": [_P, _P, _P] + [_I] * 8 + [_P] * 7,
     "dd_flash_attention": [_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _F, _I, _I, _I,
                            _P],
+    "dd_flash_attention_wide": [_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _F, _I, _I,
+                                _I, _P],
 }
 
 

@@ -1,5 +1,5 @@
 """K7: online-softmax attention over (B, H, L, D), forward only
-(csrc/flash_attention.cu).
+(csrc/flash_attention.cu up to D 256, csrc/flash_attention_wide.cu above).
 
 Replaces dualdiffusion_tpu/ops/pallas/flash_attention.py (``_attn_kernel``
 via ``flash_attention``). The plain version is the fp32 masked softmax of
@@ -17,6 +17,10 @@ import torch
 
 from .build import library
 from .common import no_tf32, on_cpu, stream_of
+
+#: the widest head of csrc/flash_attention.cu's kernels; wider heads take
+#: the D-chunked kernel of csrc/flash_attention_wide.cu
+MAX_TILE_HEAD_DIM = 256
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None, window: Optional[int] = None,
@@ -100,11 +104,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)          # q's (dense) strides, so q's layout
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in _strides(t)))
     lib = library()
+    fn = (lib.lib.dd_flash_attention if q.shape[-1] <= MAX_TILE_HEAD_DIM
+          else lib.lib.dd_flash_attention_wide)
     with torch.cuda.device(q.device):
-        err = lib.lib.dd_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                         out.data_ptr(), strides, b, h, l, q.shape[-1], scale,
-                                         -1 if window is None else int(window), int(causal),
-                                         int(q.dtype == torch.bfloat16), stream_of(q))
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, l,
+                 q.shape[-1], scale, -1 if window is None else int(window), int(causal),
+                 int(q.dtype == torch.bfloat16), stream_of(q))
     lib.check(err, "flash_attention")
     flash_attention.launches += 1
     return out if out.shape[-1] == d else out[..., :d]
