@@ -18,7 +18,8 @@
 // cores' peak, and its bytes less. So it is bound by feeding the tensor
 // cores: the 3x3 neighbourhood and the weights into shared memory.
 //
-// Design: a persistent grid, one block of 3 warpgroups per SM, walks work
+// Design: a persistent grid of 3-warpgroup blocks (one per SM, two at BN <=
+// 64) walks work
 // items (group g, N tile of BN output channels, a pair of 64-pixel runs of
 // image rows). Per item it runs K in stages of (32 input channels, one
 // kernel row dy):
@@ -62,12 +63,19 @@ constexpr int kCK = 32;                  // input channels per stage: 64-byte ha
 constexpr int kXBox = kCK * kCols * 2;   // one halo row of one run: 4224 bytes
 constexpr int kXSlot = 4608;             // ... rounded up to the 512-byte swizzle period
 constexpr int kThreads = 3 * 128;        // producer + 2 consumer warpgroups
-constexpr int kMaxSmem = 232448;
-constexpr int kConsumerRegs = 240;       // setmaxnreg: (168 * 3 - 24) / 2, rounded down to 8
+constexpr int kSmemPerSM = 233472;       // 228 KB, of which the system keeps 1 KB a block
 constexpr int kMaxDevices = 64;          // per-device host caches
 
 template <int BN>
 struct FTile {
+  // blocks per SM: two at narrow N, whose stages are short, so that one
+  // block's waits overlap the other's products
+  static constexpr int BLOCKS = BN <= 64 ? 2 : 1;
+  // registers per thread at launch (__launch_bounds__) and the consumers'
+  // after setmaxnreg: the two consumer warpgroups take what the producer
+  // frees going down to 24 (240 at one block per SM, 104 at two)
+  static constexpr int ENTRY = 65536 / (kThreads * BLOCKS) / 8 * 8;
+  static constexpr int REGS = (ENTRY * 3 - 24) / 2 / 8 * 8;
   static constexpr int SW = BN % 64 == 0 ? 128 : 64;  // weight swizzle: bytes per atom row
   static constexpr int AC = SW / 2;                   // columns per atom (one TMA box)
   static constexpr int NA = BN / AC;
@@ -77,7 +85,7 @@ struct FTile {
   static constexpr int TX = W_BYTES + 2 * kXBox;      // bytes TMA writes per stage
   static constexpr int EPI_LD = BN * 2 + 16;          // epilogue row bytes (conflict-free)
   static constexpr int EPI = 2 * kRun * EPI_LD;
-  static constexpr int FIT = (kMaxSmem - 1024 - EPI - 128) / STAGE;
+  static constexpr int FIT = (kSmemPerSM / BLOCKS - 1024 - 1024 - EPI - 128) / STAGE;
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static constexpr int SMEM = 1024 + STAGES * STAGE + EPI + 16 * STAGES;
   static_assert(STAGES >= 2, "the ring needs two stages");
@@ -104,7 +112,7 @@ __device__ __forceinline__ void run_coords(const Params& p, int r, int& b, int& 
 }
 
 template <int BN>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, FTile<BN>::BLOCKS)
     conv3x3_hopper_kernel(const __grid_constant__ CUtensorMap tx,
                           const __grid_constant__ CUtensorMap tw, const Params p) {
   using T = FTile<BN>;
@@ -150,7 +158,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::REGS) : "memory");
   const int c = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   // ldmatrix row addresses: matrices (pixels 0-7 | 8-15) x (channels 0-7 |
@@ -261,7 +269,7 @@ int launch(const void* x, const void* wt, void* out, int B, int H, int W, int G,
   p.n_nt = (cog + BN - 1) / BN;
   p.items = p.pairs * p.n_nt * G;
   p.n_it = (cig + kCK - 1) / kCK * 3;
-  const int grid = p.items < sms ? p.items : sms;
+  const int grid = p.items < sms * T::BLOCKS ? p.items : sms * T::BLOCKS;
   kernel<<<grid, kThreads, T::SMEM, stream>>>(tx, tw, p);
   return (int)cudaGetLastError();
 }
