@@ -42,6 +42,9 @@
 //   64-column atoms when BN is a multiple of 64, else 64-byte swizzled
 //   32-column atoms). The halo is loaded once per (channel slice, dy) and
 //   read by all three taps.
+// - registers: a consumer thread holds BN/2 fp32 accumulators and 24
+//   registers of A fragments (6 k-steps of 16 per stage); setmaxnreg gives
+//   the consumers 240 registers (104 at two blocks per SM), 0 spills.
 // - the epilogue rounds the accumulators to bf16 into the consumer's own
 //   shared-memory tile, then stores 16-byte vectors, while the producer
 //   already loads the next item.

@@ -29,7 +29,9 @@
 //   a box never leaves its group, and TMA's zero fill of the coordinates
 //   w = -1, W and h = -1, H is the conv's zero padding.
 // - warpgroups 1..3 are consumers, one kernel row dy each, so each holds
-//   three taps' accumulators (3 x BN/2 fp32 registers). A = the halo
+//   three taps' accumulators (3 x BN/2 fp32 registers, 96 at BN 64, beside
+//   12 of A fragments; setmaxnreg gives them 160, 0 spills; nine taps in one
+//   warpgroup would need 288 for the accumulators alone). A = the halo
 //   transposed (M = channels, K = pixels), shifted by the tap's dx pixels
 //   along K. A shift of one 64-byte row is not a multiple of the 8-row core
 //   matrices a wgmma shared-memory descriptor addresses, so A comes from

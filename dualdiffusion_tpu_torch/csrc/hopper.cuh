@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels (K1,
 // K4 and K7): shared-memory addresses, mbarriers, TMA tensor loads, wgmma
 // shared-memory descriptors and instructions, ldmatrix, and the host's
-// tensor-map encoder (cuTensorMapEncodeTiled through the runtime's driver
-// entry point, so the library needs no -lcuda).
+// tensor-map encoder (cuTensorMapEncodeTiled, looked up at run time, so the
+// library needs no -lcuda).
 #pragma once
 
 #include <cuda.h>

@@ -22,6 +22,7 @@ from .common import no_tf32, on_cpu, stream_of
 #: the D-chunked kernel of csrc/flash_attention_wide.cu
 MAX_TILE_HEAD_DIM = 256
 
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None, window: Optional[int] = None,
                           causal: bool = False) -> torch.Tensor:
