@@ -187,24 +187,31 @@ def conv_level(lat_h: int, h: int) -> int:
 def conv_route(cig: int, cog: int, *tensors) -> str:
     """Which K1/K4 kernel a shape takes: "hopper" (wgmma + TMA) or "wmma"."""
     from dualdiffusion_tpu_torch.ops.kernels import hopper_takes
-    return "hopper" if hopper_takes(cig, cog, *tensors) else "wmma"
+    return "hopper" if hopper_takes(cig, cog, *(t.data_ptr() for t in tensors)) else "wmma"
+
+
+def forced_route(route: str):
+    """A context in which K1 and K4 take `route`'s kernels: "wmma" (the
+    design before the Hopper one, for comparisons) or "hopper" (as chosen)."""
+    import contextlib
+    from unittest import mock
+    import dualdiffusion_tpu_torch.ops.kernels.grouped_conv as gc
+    if route == "wmma":
+        return mock.patch.object(gc, "hopper_takes", lambda *a: False)
+    return contextlib.nullcontext()
 
 
 def k1_host_us(x, wt, groups: int, rounds: int = 6) -> dict:
     """Host microseconds per K1 call at a tiny shape: rounds of 1,000 calls
     without synchronising (the wrapper, the tensor maps and the launch), on
-    the WMMA route (the design before the Hopper one) and the Hopper route
-    in turns, so the host's load falls on both alike: {route: [us, ...]}."""
-    import contextlib
+    the WMMA route and the Hopper route in turns, so the host's load falls
+    on both alike: {route: [us, ...]}."""
     import torch
-    from unittest import mock
     import dualdiffusion_tpu_torch.ops.kernels.grouped_conv as gc
     out = {"wmma": [], "hopper": []}
     for i in range(rounds):
         for key in (("wmma", "hopper") if i % 2 == 0 else ("hopper", "wmma")):
-            route = (mock.patch.object(gc, "hopper_takes", lambda *a: False) if key == "wmma"
-                     else contextlib.nullcontext())
-            with route:
+            with forced_route(key):
                 for _ in range(20):
                     gc.grouped_conv3x3(x, wt, groups)
                 torch.cuda.synchronize()

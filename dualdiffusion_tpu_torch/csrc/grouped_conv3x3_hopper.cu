@@ -248,8 +248,8 @@ int launch(const void* x, const void* wt, void* out, int B, int H, int W, int G,
   const uint64_t ws[4] = {cog * e, (uint64_t)cig * cog * e, 3ull * cig * cog * e,
                           9ull * cig * cog * e};
   const uint32_t wb[5] = {(uint32_t)T::AC, kCK, 3, 1, 1};
-  if (!encode_bf16_map(&tx, x, 5, xd, xs, xb, 64) ||
-      !encode_bf16_map(&tw, wt, 5, wd, ws, wb, T::SW))
+  if (!cached_bf16_map(&tx, x, 5, xd, xs, xb, 64) ||
+      !cached_bf16_map(&tw, wt, 5, wd, ws, wb, T::SW))
     return (int)cudaErrorInvalidValue;
   auto kernel = conv3x3_hopper_kernel<BN>;
   cudaError_t err = cudaSuccess;

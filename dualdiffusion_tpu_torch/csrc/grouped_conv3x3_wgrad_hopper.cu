@@ -212,8 +212,8 @@ int launch(const void* x, const void* gy, void* partial, void* out, int B, int H
   const uint64_t gs[4] = {cog * e, (uint64_t)G * cog * e, (uint64_t)W * G * cog * e,
                           (uint64_t)H * W * G * cog * e};
   const uint32_t gb[5] = {BN, 1, kRun, 1, 1};
-  if (!encode_bf16_map(&tx, x, 5, xd, xs, xb, 64) ||
-      !encode_bf16_map(&tg, gy, 5, gd, gs, gb, T::SW))
+  if (!cached_bf16_map(&tx, x, 5, xd, xs, xb, 64) ||
+      !cached_bf16_map(&tg, gy, 5, gd, gs, gb, T::SW))
     return (int)cudaErrorInvalidValue;
   auto kernel = wgrad_hopper_kernel<BN>;
   cudaError_t err = cudaSuccess;

@@ -10,6 +10,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace dd {
 
@@ -312,6 +313,46 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const u
                 reinterpret_cast<const cuuint32_t*>(box), elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;  // zero fill
+}
+
+// encode_bf16_map through a per-thread cache. A map is a function of its
+// arguments alone, so a call whose arguments equal an earlier call's (a
+// module's weights, a repeated step's activations) reuses that map and
+// skips the encoder's host time.
+inline bool cached_bf16_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                            const uint64_t* byte_strides, const uint32_t* box, int swizzle) {
+  struct Key {
+    const void* ptr;
+    int64_t rank, swizzle;
+    uint64_t dims[5], strides[4], box[5];
+  };
+  struct Entry {
+    CUtensorMap map;
+    Key key;
+    bool valid;
+  };
+  constexpr int kEntries = 256;
+  static thread_local Entry cache[kEntries];
+  Key k = {};
+  k.ptr = ptr;
+  k.rank = rank;
+  k.swizzle = swizzle;
+  for (int i = 0; i < rank; ++i) {
+    k.dims[i] = dims[i];
+    k.box[i] = box[i];
+    if (i + 1 < rank) k.strides[i] = byte_strides[i];
+  }
+  const uint64_t p = reinterpret_cast<uintptr_t>(ptr);
+  Entry& e = cache[((p >> 9) ^ (p >> 17) ^ k.dims[0] ^ (k.box[0] << 3)) % kEntries];
+  if (e.valid && memcmp(&e.key, &k, sizeof k) == 0) {
+    *map = e.map;
+    return true;
+  }
+  e.valid = encode_bf16_map(&e.map, ptr, rank, dims, byte_strides, box, swizzle);
+  if (!e.valid) return false;
+  e.key = k;
+  *map = e.map;
+  return true;
 }
 
 }  // namespace dd

@@ -26,10 +26,14 @@ _WGRAD_KC = {False: 32, True: 64}
 _WGRAD_WAVES = {False: 4, True: 2}
 
 
-def hopper_takes(cig: int, cog: int, *tensors: torch.Tensor) -> bool:
-    """Whether K1 and K4 take their Hopper kernels: TMA needs channel counts
-    that are multiples of 8 (16-byte strides) and 16-byte aligned tensors."""
-    return cig % 8 == 0 and cog % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+def hopper_takes(cig: int, cog: int, *ptrs: int) -> bool:
+    """Whether K1 and K4 take their Hopper kernels, given the channel counts
+    and the operands' data pointers: TMA needs channel counts that are
+    multiples of 8 (16-byte strides) and 16-byte aligned tensors."""
+    bits = 0
+    for p in ptrs:
+        bits |= p
+    return cig % 8 == 0 and cog % 8 == 0 and bits % 16 == 0
 
 
 def prepare_weights(w: torch.Tensor, groups: int,
@@ -81,11 +85,11 @@ def grouped_conv3x3(x: torch.Tensor, wt: torch.Tensor,
     check(wt, "wt", (torch.bfloat16,))
     out = torch.empty((b, h, w, groups * cog), dtype=x.dtype, device=x.device)
     lib = library()
-    fn = (lib.lib.dd_grouped_conv3x3_hopper if hopper_takes(cig, cog, x, wt, out)
+    px, pw, po = x.data_ptr(), wt.data_ptr(), out.data_ptr()
+    fn = (lib.lib.dd_grouped_conv3x3_hopper if hopper_takes(cig, cog, px, pw, po)
           else lib.lib.dd_grouped_conv3x3)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), wt.data_ptr(), out.data_ptr(), b, h, w, groups, cig, cog,
-                 stream_of(x))
+        err = fn(px, pw, po, b, h, w, groups, cig, cog, stream_of(x))
     lib.check(err, "grouped_conv3x3")
     grouped_conv3x3.launches += 1
     return out
@@ -137,7 +141,7 @@ def grouped_conv3x3_wgrad(x: torch.Tensor, gy: torch.Tensor,
         return grouped_conv3x3_wgrad_plain(x, gy, groups)
     check(x, "x", (torch.bfloat16,), ndim=4)
     check(gy, "gy", (torch.bfloat16,), ndim=4)
-    hopper = hopper_takes(cig, cog, x, gy)
+    hopper = hopper_takes(cig, cog, x.data_ptr(), gy.data_ptr())
     nsplit = _wgrad_splits(x.device, b * h, groups, cig, cog, hopper)
     partial = torch.empty((nsplit, groups, 9 * cig, cog), dtype=torch.float32, device=x.device)
     out = torch.empty((groups, 9 * cig, cog), dtype=x.dtype, device=x.device)

@@ -49,14 +49,10 @@ def parent(modes) -> int:
 
 
 def child(mode: str) -> int:
-    import contextlib
-    from unittest import mock
-
     import torch
     import torch.nn.functional as F
 
     import chip_smoke as cs
-    import dualdiffusion_tpu_torch.ops.kernels.grouped_conv as gc
     from dualdiffusion_tpu_torch.models import UNet
     from dualdiffusion_tpu_torch.ops.kernels import (dgrad_weights, grouped_conv3x3,
                                                      grouped_conv3x3_plain, grouped_conv3x3_wgrad,
@@ -65,10 +61,6 @@ def child(mode: str) -> int:
     ucfg = cs.ref_scale_configs()[0]
     unet = UNet(ucfg, device="meta")
     lat_h, lat_w, groups = 32, 688, ucfg.mlp_groups
-
-    def route(name):
-        return (mock.patch.object(gc, "hopper_takes", lambda *a: False) if name == "wmma"
-                else contextlib.nullcontext())
 
     if mode == "check":
         shapes = [(1, 3, 5, 2, 8, 8), (2, 3, 9, 1, 40, 72), (2, 4, 70, 4, 16, 8),
@@ -112,7 +104,7 @@ def child(mode: str) -> int:
             xc, gyc, wc = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2), wgt.bfloat16()
             row = {}
             for name in ("hopper", "wmma"):
-                with route(name):
+                with cs.forced_route(name):
                     if batch == 2:
                         row[f"fwd_{name}"] = cs.time_ms(lambda: grouped_conv3x3(x, wt, groups))
                     else:

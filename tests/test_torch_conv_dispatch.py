@@ -20,6 +20,10 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
+def _takes(cig, cog, *tensors):
+    return hopper_takes(cig, cog, *(t.data_ptr() for t in tensors))
+
+
 def _operands(b, h, w, groups, cig, cog, offset=0):
     """x, prepared weights, gy and the output as K1 and K4 get them, on the
     CPU; ``offset`` elements shift x off its allocation's start."""
@@ -39,22 +43,22 @@ def test_main_path_shapes_take_the_hopper_kernels(batch):
     for b, h, w, cin, cout in set(shapes):
         cig, cog = cin // groups, cout // groups
         x, wt, gy, out = _operands(1, 1, 2, groups, cig, cog)
-        assert hopper_takes(cig, cog, x, wt, out)               # forward
-        assert hopper_takes(cog, cig, gy, wt, x)                # dgrad: K1 on rotated weights
-        assert hopper_takes(cig, cog, x, gy)                    # K4
+        assert _takes(cig, cog, x, wt, out)               # forward
+        assert _takes(cog, cig, gy, wt, x)                # dgrad: K1 on rotated weights
+        assert _takes(cig, cog, x, gy)                    # K4
 
 
 @pytest.mark.parametrize("b,h,w,groups,cig,cog", [(2, 4, 70, 4, 12, 20), (1, 3, 5, 2, 8, 4),
                                                   (2, 3, 9, 1, 40, 6)])
 def test_odd_channel_counts_take_the_wmma_kernels(b, h, w, groups, cig, cog):
     x, wt, gy, out = _operands(b, h, w, groups, cig, cog)
-    assert not hopper_takes(cig, cog, x, wt, out)
-    assert not hopper_takes(cig, cog, x, gy)
+    assert not _takes(cig, cog, x, wt, out)
+    assert not _takes(cig, cog, x, gy)
 
 
 def test_unaligned_tensors_take_the_wmma_kernels():
     """A 2-byte offset breaks TMA's 16-byte base rule; 8 elements keep it."""
     for offset, want in ((1, False), (8, True)):
         x, wt, gy, out = _operands(1, 2, 8, 2, 16, 32, offset=offset)
-        assert hopper_takes(16, 32, x, wt, out) is want
-        assert hopper_takes(16, 32, x, gy) is want
+        assert _takes(16, 32, x, wt, out) is want
+        assert _takes(16, 32, x, gy) is want
