@@ -6,7 +6,7 @@ CUDA tensors it launches the kernel or raises (never a silent fallback).
 ``<wrapper>.launches`` counts kernel launches only.
 """
 
-from .fgla_frame import dft_twiddles, fgla_frame, fgla_frame_plain
+from .fgla_frame import FglaPlan, dft_twiddles, fgla_frame, fgla_frame_plain, fgla_plan
 from .flash_attention import flash_attention, flash_attention_plain
 from .grouped_conv import (GroupedConv3x3Fn, dgrad_weights, grouped_conv3x3, hopper_takes,
                            grouped_conv3x3_plain, grouped_conv3x3_wgrad,

@@ -38,6 +38,8 @@ SIGNATURES = {
     "dd_grouped_conv3x3_wgrad_hopper": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dd_fgla_frame": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_I), _I,
                       _LL, _I, _F, _F, _I, _P],
+    "dd_fgla_frame_hopper": [_P] * 8 + [_LL, _I, _F, _F, _I, _P],
+    "dd_fgla_frame_hopper_plan": [_I, ctypes.POINTER(_I)],
     "dd_ola_reframe": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "dd_mss2d_fwd": [_P, _P] + [_I] * 7 + [_P] * 6,
     "dd_mss2d_bwd": [_P, _P, _P] + [_I] * 8 + [_P] * 7,

@@ -1,6 +1,10 @@
-"""K2: the per-frame half of one Griffin-Lim iteration (csrc/fgla_frame.cu):
-forward real DFT, momentum, phase normalise, annealed magnitude, inverse
-real DFT.
+"""K2: the per-frame half of one Griffin-Lim iteration: forward real DFT,
+momentum, phase normalise, annealed magnitude, inverse real DFT.
+
+Two kernels, chosen by size before the launch (:func:`fgla_plan`): n_fft
+6400 and 4096, the serving paths' sizes, take csrc/fgla_frame_hopper.cu
+(three register-resident FFT passes, several frames a block); any other
+even n_fft takes the Stockham kernel of csrc/fgla_frame.cu.
 
 Replaces the spectral and DFT parts of dualdiffusion_tpu/ops/pallas/
 fgla_iter.py (``_kernel`` via ``fgla_iter``), which hold the math of
@@ -15,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +49,39 @@ def fft_radices(n: int) -> list:
     return out
 
 
+@dataclass(frozen=True)
+class FglaPlan:
+    """How K2 runs a frame of n_fft samples (an m = n/2 complex DFT).
+
+    route: "hopper" (csrc/fgla_frame_hopper.cu) or "stockham"
+    (csrc/fgla_frame.cu). Hopper: each of ``threads`` threads of a frame
+    holds ``points`` complex points in registers through three passes of
+    ``radices`` (points x threads = m), ``frames`` frames a block; shared
+    slot of point e: e + e // SMEM_PAD_EVERY. Stockham: ``radices`` are its
+    stages, one shared-memory sweep each."""
+    route: str
+    radices: Tuple[int, ...]
+    points: int = 0
+    threads: int = 0
+    frames: int = 0
+
+
+#: m -> (points, threads a frame, frames a block, pass radices); the
+#: kernel compiles the same plans (dd_fgla_frame_hopper_plan)
+HOPPER_PLANS = {3200: (40, 80, 4, (40, 10, 8)), 2048: (32, 64, 4, (32, 8, 8))}
+#: one padding slot every 32 complex points in the Hopper kernel's buffers
+SMEM_PAD_EVERY = 32
+
+
+def fgla_plan(n: int) -> FglaPlan:
+    """The route and pass schedule K2 takes for n_fft ``n`` (even)."""
+    m = n // 2
+    if n % 2 == 0 and m in HOPPER_PLANS:
+        points, threads, frames, radices = HOPPER_PLANS[m]
+        return FglaPlan("hopper", radices, points, threads, frames)
+    return FglaPlan("stockham", tuple(fft_radices(m)))
+
+
 def dft_twiddles(n: int, device) -> torch.Tensor:
     """(n, 2) fp32 table of exp(-2 pi i t / n), computed in fp64."""
     t = torch.arange(n, dtype=torch.float64, device=device) * (-2.0 * math.pi / n)
@@ -52,22 +90,25 @@ def dft_twiddles(n: int, device) -> torch.Tensor:
 
 def fgla_frame_plain(x: torch.Tensor, r_prev: Optional[torch.Tensor],
                      spec: torch.Tensor, merged: torch.Tensor, t: float, mom: float,
-                     spectral_in: bool = False, inverse: bool = True
+                     spectral_in: bool = False, inverse: bool = True,
+                     compute: torch.dtype = torch.float32
                      ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """See :func:`fgla_frame`."""
+    """See :func:`fgla_frame`. ``compute``: the dtype every step runs in
+    (float32 as in the kernels; float64 gives the reference the kernels are
+    held against)."""
     wd = spec.dtype
     n = 2 * (spec.shape[-1] - 1)
     r_new = None
     if spectral_in:
-        r = x.float()
+        r = x.to(compute)
     else:
-        r_new = torch.view_as_real(torch.fft.rfft(x.float(), dim=-1)).to(wd)
-        r = r_new.float()
+        r_new = torch.view_as_real(torch.fft.rfft(x.to(compute), dim=-1)).to(wd)
+        r = r_new.to(compute)
     if r_prev is not None:
-        r = r - mom * r_prev.float()
+        r = r - mom * r_prev.to(compute)
     mag = torch.sqrt(r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1]) + 1e-12
-    mg = merged.float()
-    interp = mg + (spec.float() - mg) * max(t, 0.0)
+    mg = merged.to(compute)
+    interp = mg + (spec.to(compute) - mg) * max(t, 0.0)
     y = None
     if inverse:
         xs = torch.complex(r[..., 0] / mag * interp, r[..., 1] / mag * interp)
@@ -112,19 +153,29 @@ def fgla_frame(x: torch.Tensor, r_prev: Optional[torch.Tensor],
     check(twiddle, "twiddle", (torch.float32,), shape=(n, 2))
     if wd not in (torch.float32, torch.bfloat16):
         raise TypeError(f"work dtype {wd} is not float32 or bfloat16")
+    plan = fgla_plan(n)
+    if plan.route == "hopper" and not spectral_in and x.data_ptr() % 16:
+        raise ValueError("x: the Hopper route reads frames 16 bytes at a time; "
+                         "its data pointer must be 16-byte aligned")
     rows = spec.numel() // bins
     r_new = None if spectral_in else torch.empty(spec.shape + (2,), dtype=wd, device=x.device)
     y = torch.empty(spec.shape[:-1] + (n,), dtype=wd, device=x.device) if inverse else None
-    radices = fft_radices(n // 2)
-    rad = (ctypes.c_int * len(radices))(*radices)
     lib = library()
+    frames_ptr = None if spectral_in else x.data_ptr()
+    r_in_ptr = x.data_ptr() if spectral_in else None
     with torch.cuda.device(x.device):
-        err = lib.lib.dd_fgla_frame(
-            None if spectral_in else x.data_ptr(), x.data_ptr() if spectral_in else None,
-            ptr(r_prev), ptr(r_new), ptr(y), spec.data_ptr(), merged.data_ptr(),
-            twiddle.data_ptr(), rad, len(radices), rows, n, float(t), float(mom),
-            int(wd == torch.bfloat16), stream_of(x))
-    lib.check(err, "fgla_frame")
+        if plan.route == "hopper":
+            err = lib.lib.dd_fgla_frame_hopper(
+                frames_ptr, r_in_ptr, ptr(r_prev), ptr(r_new), ptr(y), spec.data_ptr(),
+                merged.data_ptr(), twiddle.data_ptr(), rows, n, float(t), float(mom),
+                int(wd == torch.bfloat16), stream_of(x))
+        else:
+            rad = (ctypes.c_int * len(plan.radices))(*plan.radices)
+            err = lib.lib.dd_fgla_frame(
+                frames_ptr, r_in_ptr, ptr(r_prev), ptr(r_new), ptr(y), spec.data_ptr(),
+                merged.data_ptr(), twiddle.data_ptr(), rad, len(plan.radices), rows, n,
+                float(t), float(mom), int(wd == torch.bfloat16), stream_of(x))
+    lib.check(err, f"fgla_frame ({plan.route})")
     fgla_frame.launches += 1
     return r_new, y
 
