@@ -134,11 +134,15 @@ def test_grouped_conv_fn_matches_plain(cuda, b, h, w, groups, cig, cog):
     assert wd.shape == (groups, 9 * cog, cig)
 
 
+def _fgla_module():
+    import importlib
+    return importlib.import_module("dualdiffusion_tpu_torch.ops.kernels.fgla_frame")
+
+
 def _forced_stockham():
     """A context in which K2 takes the Stockham kernel at every size."""
-    import importlib
     from unittest import mock
-    ff = importlib.import_module("dualdiffusion_tpu_torch.ops.kernels.fgla_frame")
+    ff = _fgla_module()
     return mock.patch.object(ff, "fgla_plan",
                              lambda n: ff.FglaPlan("stockham", tuple(ff.fft_radices(n // 2))))
 
@@ -158,8 +162,8 @@ def test_fgla_kernels_match_plain(cuda, n, hop, dtype, route):
     version's own against float64 plus 1e-6 of max (an fp32 transform's
     rounding varies with the inputs, so a fixed bound on the max error
     passed or failed with the draw); in bf16 2**-6 of max. K3 alongside."""
-    from dualdiffusion_tpu_torch.ops.kernels import fgla_plan
     import contextlib
+    fgla_plan = _fgla_module().fgla_plan
     f, bins = 40, n // 2 + 1
     tol = 1e-5 if dtype == torch.float32 else 2 ** -6
     forced = route == "stockham" and fgla_plan(n).route != "stockham"
@@ -178,7 +182,7 @@ def test_fgla_kernels_match_plain(cuda, n, hop, dtype, route):
         tw = dft_twiddles(n, cuda)
         before = fgla_frame.launches
         with _forced_stockham() if forced else contextlib.nullcontext():
-            assert fgla_plan(n).route == route
+            assert _fgla_module().fgla_plan(n).route == route
             r, y2 = fgla_frame(frames, prev, spec, merged, 0.3, 0.4975, tw)
         torch.cuda.synchronize()
         assert fgla_frame.launches == before + 1
