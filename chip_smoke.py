@@ -12,8 +12,10 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    (the bound) and, where one PyTorch call computes the same function, that
    call's time: the reference-scale UNet's grouped convs forward at batch 2
    (K1), their backward at the training batch 8 (K1 on rotated weights for
-   dgrad, K4 for wgrad), one 45 s stereo Griffin-Lim iteration (K2, K3) and a
-   5-iteration Griffin-Lim run, the fused 2-D multi-scale spectral loss
+   dgrad, K4 for wgrad), one 45 s stereo Griffin-Lim iteration (K3, and K2
+   on both its routes, the Hopper kernel and the Stockham one, against the
+   plain version in float64 at three seeds, beside cuFFT's transforms
+   alone) and a 5-iteration Griffin-Lim run, the fused 2-D multi-scale spectral loss
    of the DAE training microbatch, forward (K5) and gradient (K6), and the
    flash attention (K7) at the full-attention model's level-1 shapes (B 2,
    L 5504, D 64, 4/8/12 heads, plus a band, a causal and a ragged case, and
@@ -80,7 +82,7 @@ KERNEL_INFO = [
     ("grouped_conv3x3_wgrad", "cuda",
      "dualdiffusion_tpu_torch/csrc/grouped_conv3x3_wgrad_hopper.cu",
      "dualdiffusion_tpu/ops/pallas/grouped_conv.py:342"),
-    ("fgla_frame", "cuda", "dualdiffusion_tpu_torch/csrc/fgla_frame.cu",
+    ("fgla_frame", "cuda", "dualdiffusion_tpu_torch/csrc/fgla_frame_hopper.cu",
      "dualdiffusion_tpu/ops/pallas/fgla_iter.py:75"),
     ("ola_reframe", "cuda", "dualdiffusion_tpu_torch/csrc/ola_reframe.cu",
      "dualdiffusion_tpu/ops/pallas/ola_reframe.py:68"),
@@ -358,6 +360,55 @@ def fgla_inputs(fmt, gen):
     return mag.contiguous()
 
 
+def fgla_route(n: int) -> str:
+    """The K2 kernel ``fgla_frame`` takes at n_fft ``n``: "hopper" or "stockham"."""
+    import importlib
+    return importlib.import_module(
+        "dualdiffusion_tpu_torch.ops.kernels.fgla_frame").fgla_plan(n).route
+
+
+def forced_fgla_route(route: str):
+    """A context in which K2 takes `route`: "stockham" (the PR 1 kernel, at
+    every size, for comparisons) or "hopper" (as ``fgla_plan`` chooses)."""
+    import contextlib
+    import importlib
+    from unittest import mock
+    if route == "hopper":
+        return contextlib.nullcontext()
+    ff = importlib.import_module("dualdiffusion_tpu_torch.ops.kernels.fgla_frame")
+    return mock.patch.object(ff, "fgla_plan",
+                             lambda n: ff.FglaPlan("stockham", tuple(ff.fft_radices(n // 2))))
+
+
+def check_fgla_frame(name: str, got, want64, want32, wd) -> float:
+    """K2's (r, y) against the plain version in float64 (want64); want32 is
+    the plain version in fp32, whose own error against float64 sets the
+    frames' bound. r: 1e-5 of max (fp32: rounding in another order), 2**-6
+    (bf16: one rounding of the stored result). y in fp32: relative L2 <=
+    1e-5 and max error <= 2 x the plain fp32 version's + 1e-6 of max (a
+    fixed bound on the max error passed or failed with the draw, PR 7 run
+    D); y in bf16: 2**-6 of max. Returns the largest absolute error."""
+    import torch
+    fp32 = wd == torch.float32
+    errs = [check_close(f"{name} spectrum", got[0], want64[0], 1e-5 if fp32 else 2 ** -6)]
+    y, y64 = got[1].double(), want64[1].double()
+    scale = y64.abs().max().item()
+    err = (y - y64).abs().max().item()
+    if fp32:
+        plain_err = (want32[1].double() - y64).abs().max().item()
+        rel = ((y - y64).norm() / y64.norm()).item()
+        ok = rel <= 1e-5 and err <= 2 * plain_err + 1e-6 * scale
+        print(f"  {name} frames: max_abs_err {err:.6g} (plain fp32 {plain_err:.6g}, max |ref| "
+              f"{scale:.6g}), rel L2 {rel:.3g} (tol 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+    else:
+        ok = err <= 2 ** -6 * scale
+        print(f"  {name} frames: max_abs_err {err:.6g} (max |ref| {scale:.6g}, tol 2**-6 x max) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its float64 plain version")
+    return max(errs + [err])
+
+
 def kernel_phase_fgla(fmt, gen):
     import math
 
@@ -378,28 +429,55 @@ def kernel_phase_fgla(fmt, gen):
                               device="cuda")
     tw = dft_twiddles(n, "cuda")
     results = {}
-    print(f"K2 fgla_frame / K3 ola_reframe: B={b} C={c} F={f} n_fft={n} hop={hop}", flush=True)
+    route = fgla_route(n)
+    print(f"K2 fgla_frame / K3 ola_reframe: B={b} C={c} F={f} n_fft={n} hop={hop}; "
+          f"fgla_frame() takes the {route} route; both routes checked against the plain "
+          f"version in float64 at seeds 0-2", flush=True)
     for wd, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -6)):
-        # tolerances: fp32 -> two transforms' rounding in another order;
-        # bf16 -> one rounding of the stored result (bf16 keeps 8 bits)
+        # K3 tolerances: fp32 -> rounding in another order; bf16 -> one
+        # rounding of the stored result (bf16 keeps 8 bits)
         spec = mag.to(wd).contiguous()
         merged = mag.mean(1, keepdim=True).expand_as(mag).to(wd).contiguous()
         y = torch.randn((b, c, f, n), generator=gen, device="cuda").mul(0.05).to(wd)
         r_prev = torch.randn((b, c, f, bins, 2), generator=gen, device="cuda").to(wd)
         e3 = check_close(f"K3 {wd}", ola_reframe(y, win, inv_env, hop),
                          ola_reframe_plain(y, win, inv_env, hop), tol)
-        frames = ola_reframe_plain(y, win, inv_env, hop)
-        r_k, y_k = fgla_frame(frames, r_prev, spec, merged, 0.25, 0.4975, tw)
-        r_p, y_p = fgla_frame_plain(frames, r_prev, spec, merged, 0.25, 0.4975)
-        e2 = max(check_close(f"K2 spectrum {wd}", r_k, r_p, tol),
-                 check_close(f"K2 frames {wd}", y_k, y_p, tol))
+        e2 = 0.0
+        for seed in range(3):
+            if seed:   # seeds 1, 2 from their own generators: later phases' draws stay
+                own = torch.Generator(device="cuda").manual_seed(seed)
+                y = torch.randn((b, c, f, n), generator=own, device="cuda").mul(0.05).to(wd)
+                r_prev = torch.randn((b, c, f, bins, 2), generator=own, device="cuda").to(wd)
+            frames = ola_reframe_plain(y, win, inv_env, hop)
+            args = (frames, r_prev, spec, merged, 0.25, 0.4975)
+            want64 = fgla_frame_plain(*args, compute=torch.float64)
+            want32 = fgla_frame_plain(*args)
+            for rt in ("hopper", "stockham"):
+                with forced_fgla_route(rt):
+                    got = fgla_frame(*args, tw)
+                err = check_fgla_frame(f"K2 [{rt}] {wd} seed {seed}", got, want64, want32, wd)
+                if rt == route:
+                    e2 = max(e2, err)
         if wd == getattr(torch, cfg.fgla_work_dtype):
             ms3 = time_ms(lambda: ola_reframe(y, win, inv_env, hop))
             plain3 = time_ms(lambda: ola_reframe_plain(y, win, inv_env, hop))
-            ms2 = time_ms(lambda: fgla_frame(frames, r_prev, spec, merged, 0.25, 0.4975, tw))
             plain2 = time_ms(lambda: fgla_frame_plain(frames, r_prev, spec, merged, 0.25, 0.4975))
-            print(f"  fgla_frame {wd}: kernel {ms2:.3f} ms, plain {plain2:.3f} ms; ola_reframe: "
-                  f"kernel {ms3:.3f} ms, plain {plain3:.3f} ms", flush=True)
+            frames32 = frames.float()
+            cufft = time_ms(lambda: torch.fft.irfft(torch.fft.rfft(frames32, dim=-1), n=n, dim=-1))
+            print(f"  cuFFT transforms alone (torch.fft.rfft + irfft of the fp32 frames, a "
+                  f"reference only): {cufft:.4f} ms; fgla_frame plain {plain2:.3f} ms; "
+                  f"ola_reframe: kernel {ms3:.3f} ms, plain {plain3:.3f} ms", flush=True)
+        times = {}
+        for _ in range(2):   # the routes in turns, twice
+            for rt in ("hopper", "stockham"):
+                with forced_fgla_route(rt):
+                    times.setdefault(rt, []).append(time_ms(
+                        lambda: fgla_frame(frames, r_prev, spec, merged, 0.25, 0.4975, tw), 20))
+        print(f"  fgla_frame {wd}: " + "; ".join(
+            f"{rt} route {min(v):.4f} ms (rounds {', '.join(f'{t:.4f}' for t in v)})"
+            for rt, v in times.items()), flush=True)
+        if wd == getattr(torch, cfg.fgla_work_dtype):
+            ms2 = min(times[route])
             item = y.element_size()
             frames_n = b * c * f
             # K2: a real n-point DFT each way per frame (2.5 n log2 n flops as
@@ -430,7 +508,8 @@ def kernel_phase_fgla(fmt, gen):
     # the loops round their bf16 state at different points, so samples
     # drift apart slowly; spectral convergence must match closely
     ok = rel < 0.05 and abs(ek - ep) < 0.01 * ep + 1e-3
-    print(f"  griffinlim 5 iters ({cfg.fgla_work_dtype}, {cfg.fgla_phase_init}): kernels vs "
+    print(f"  griffinlim 5 iters ({cfg.fgla_work_dtype}, {cfg.fgla_phase_init}, K2 "
+          f"{fgla_route(n)} route): kernels vs "
           f"plain loop rel L2 {rel:.4g} (tol 0.05); spectral convergence {ek:.5f} vs "
           f"{ep:.5f} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -511,9 +590,10 @@ def slice_phase(kind: str = "freq"):
     raw_shape = (1, fcfg.num_raw_channels, fmt.get_raw_crop_width())
     if tuple(outs["cuda"]["raw"].shape) != raw_shape:
         raise AssertionError(f"audio shape {tuple(outs['cuda']['raw'].shape)}, not {raw_shape}")
+    n_fft = fcfg.ms_window_length if kind == "ms_mdct_dual" else fcfg.padded_length
     print(f"slice on a tiny model ({kind}: {ucfg.attn_axis} attention, {fmt_type}, latents "
-          f"{tuple(lat_shape)}, audio {raw_shape}), CUDA (kernels: {launched}) vs CPU (plain "
-          f"versions):", flush=True)
+          f"{tuple(lat_shape)}, audio {raw_shape}; FGLA n_fft {n_fft}, K2 {fgla_route(n_fft)} "
+          f"route), CUDA (kernels: {launched}) vs CPU (plain versions):", flush=True)
     for key, tol in (("latents", 5e-2), ("sample", 5e-2)):
         check_close(key, outs["cuda"][key], outs["cpu"][key], tol)
     a, b = outs["cuda"]["audio_mel"], outs["cpu"]["audio_mel"]
@@ -1190,6 +1270,8 @@ def main() -> int:
 
         # ---- serving path: from_pretrained -> generate x2 ------------------
         reset_launch_counts()
+        print(f"serving: FGLA n_fft {fcfg.padded_length}, K2 {fgla_route(fcfg.padded_length)} "
+              f"route", flush=True)
         serving_path(tmp, fmt, prompt)
         path_counts("serving", ("grouped_conv3x3", "fgla_frame", "ola_reframe"),
                     absent=("flash_attention",))
