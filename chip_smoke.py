@@ -390,23 +390,26 @@ def check_fgla_frame(name: str, got, want64, want32, wd) -> float:
     D); y in bf16: 2**-6 of max. Returns the largest absolute error."""
     import torch
     fp32 = wd == torch.float32
-    errs = [check_close(f"{name} spectrum", got[0], want64[0], 1e-5 if fp32 else 2 ** -6)]
+    r, r64 = got[0].double(), want64[0].double()
+    err_r, scale_r = (r - r64).abs().max().item(), r64.abs().max().item()
+    ok = err_r <= (1e-5 if fp32 else 2 ** -6) * scale_r
     y, y64 = got[1].double(), want64[1].double()
-    scale = y64.abs().max().item()
-    err = (y - y64).abs().max().item()
+    err, scale = (y - y64).abs().max().item(), y64.abs().max().item()
+    line = (f"  {name}: spectrum max_abs_err {err_r:.4g} (max |ref| {scale_r:.4g}, tol "
+            f"{'1e-5' if fp32 else '2**-6'} x max); frames max_abs_err {err:.4g} "
+            f"(max |ref| {scale:.4g}")
     if fp32:
         plain_err = (want32[1].double() - y64).abs().max().item()
         rel = ((y - y64).norm() / y64.norm()).item()
-        ok = rel <= 1e-5 and err <= 2 * plain_err + 1e-6 * scale
-        print(f"  {name} frames: max_abs_err {err:.6g} (plain fp32 {plain_err:.6g}, max |ref| "
-              f"{scale:.6g}), rel L2 {rel:.3g} (tol 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+        ok = ok and rel <= 1e-5 and err <= 2 * plain_err + 1e-6 * scale
+        line += f", tol 2 x plain fp32's {plain_err:.4g} + 1e-6 x max), rel L2 {rel:.3g} (tol 1e-5)"
     else:
-        ok = err <= 2 ** -6 * scale
-        print(f"  {name} frames: max_abs_err {err:.6g} (max |ref| {scale:.6g}, tol 2**-6 x max) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+        ok = ok and err <= 2 ** -6 * scale
+        line += ", tol 2**-6 x max)"
+    print(line + (" ok" if ok else " FAIL"), flush=True)
     if not ok:
         raise AssertionError(f"{name} disagrees with its float64 plain version")
-    return max(errs + [err])
+    return max(err_r, err)
 
 
 def kernel_phase_fgla(fmt, gen):
@@ -473,6 +476,17 @@ def kernel_phase_fgla(fmt, gen):
                 with forced_fgla_route(rt):
                     times.setdefault(rt, []).append(time_ms(
                         lambda: fgla_frame(frames, r_prev, spec, merged, 0.25, 0.4975, tw), 20))
+        if wd == getattr(torch, cfg.fgla_work_dtype):
+            # where the chosen route's time goes: without the inverse, and
+            # the seed call (a spectrum in, no forward transform)
+            ang = torch.nn.functional.normalize(r_prev.float(), dim=-1).to(wd)
+            fwd = time_ms(lambda: fgla_frame(frames, r_prev, spec, merged, 0.25, 0.4975, tw,
+                                             inverse=False), 20)
+            inv = time_ms(lambda: fgla_frame(ang, None, spec, merged, 0.25, 0.4975, tw,
+                                             spectral_in=True), 20)
+            print(f"  fgla_frame {wd}, {route} route in parts: forward + spectral step "
+                  f"(inverse=False) {fwd:.4f} ms; spectral step + inverse (the seed call) "
+                  f"{inv:.4f} ms", flush=True)
         print(f"  fgla_frame {wd}: " + "; ".join(
             f"{rt} route {min(v):.4f} ms (rounds {', '.join(f'{t:.4f}' for t in v)})"
             for rt, v in times.items()), flush=True)
