@@ -25,7 +25,9 @@
 // and writes them back once. The butterflies are unrolled codelets (radix 2,
 // 4 and 5 by hand, larger radices composed of them) whose inner twiddles are
 // compile-time constants. Every index inside a pass divides by compile-time
-// constants only. A frame is m/P threads; four frames share a block. The
+// constants only. A frame is m/P threads; four frames share a block, and
+// a persistent grid (as many blocks as the SMs hold) fills the pass tables
+// once per block and walks the groups of four frames. The
 // shared buffers are padded by one complex every 32, which keeps every
 // exchange between passes at most 2-way bank-conflicted (the plan's numpy
 // model in tests/test_torch_fgla_plan.py counts them). Frames are read and
@@ -37,7 +39,7 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "common.cuh"
+#include "fgla.cuh"
 
 namespace {
 
@@ -251,25 +253,14 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ float2 split_bin(float2 za, float2 zb, float2 w) {
-  const float2 sum = make_float2(za.x + zb.x, za.y - zb.y);
-  const float2 wd = dd::cmul(w, make_float2(za.x - zb.x, za.y + zb.y));
-  return make_float2(0.5f * (sum.x + wd.y), 0.5f * (sum.y - wd.x));
-}
-
-__device__ __forceinline__ float2 merge_bin(float2 xa, float2 xb, float2 wc) {
-  const float2 sum = make_float2(xa.x + xb.x, xa.y - xb.y);
-  const float2 v = dd::cmul(wc, make_float2(xa.x - xb.x, xa.y + xb.y));
-  return make_float2(0.5f * (sum.x - v.y), 0.5f * (sum.y + v.x));
-}
-
 template <int M> struct Layout {
   using PL = HopperPlan<M>;
   static constexpr int kTw1 = (PL::R1 - 1) * PL::R0;
   static constexpr int kTw2 = (PL::R2 - 1) * PL::R0 * PL::R1;
   static constexpr int kBuf = ((M + M / 32) + 1) & ~1;  // 16-byte aligned frames
+  static constexpr int kTwSlots = (kTw1 + kTw2 + 1) & ~1;  // the frames' buffers follow
   static constexpr int kThreads = PL::T * PL::FPB;
-  static constexpr size_t kSmem = sizeof(float2) * (((kTw1 + kTw2 + 1) & ~1) + PL::FPB * kBuf);
+  static constexpr size_t kSmem = sizeof(float2) * (kTwSlots + PL::FPB * kBuf);
 };
 
 template <int M, typename T>
@@ -289,7 +280,7 @@ fgla_frame_hopper_kernel(const T* __restrict__ frames, const T* __restrict__ r_i
   float2* tw2 = tw1 + L::kTw1;
   const int frame = threadIdx.x / PL::T;
   const int t = threadIdx.x - frame * PL::T;
-  float2* buf = smem + ((L::kTw1 + L::kTw2 + 1) & ~1) + frame * L::kBuf;
+  float2* buf = smem + L::kTwSlots + frame * L::kBuf;
 
   // the passes' twiddles W_(PP R)^(j k) = table[(n / (PP R)) j k], once per block
   for (int idx = threadIdx.x; idx < L::kTw1; idx += L::kThreads) {

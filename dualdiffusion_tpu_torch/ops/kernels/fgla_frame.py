@@ -154,9 +154,14 @@ def fgla_frame(x: torch.Tensor, r_prev: Optional[torch.Tensor],
     if wd not in (torch.float32, torch.bfloat16):
         raise TypeError(f"work dtype {wd} is not float32 or bfloat16")
     plan = fgla_plan(n)
-    if plan.route == "hopper" and not spectral_in and x.data_ptr() % 16:
-        raise ValueError("x: the Hopper route reads frames 16 bytes at a time; "
-                         "its data pointer must be 16-byte aligned")
+    if plan.route == "hopper":
+        # frames move 16 bytes at a time, spectra a complex pair at a time
+        pair = 2 * spec.element_size()
+        for name, tensor, align in (("x", x, pair if spectral_in else 16),
+                                    ("r_prev", r_prev, pair)):
+            if tensor is not None and tensor.data_ptr() % align:
+                raise ValueError(f"{name}: the Hopper route needs a {align}-byte aligned "
+                                 f"data pointer")
     rows = spec.numel() // bins
     r_new = None if spectral_in else torch.empty(spec.shape + (2,), dtype=wd, device=x.device)
     y = torch.empty(spec.shape[:-1] + (n,), dtype=wd, device=x.device) if inverse else None

@@ -25,7 +25,7 @@ def slot(e):
 
 def buffer_slots(m):
     """Complex slots of one frame's buffer (rounded up to 16 bytes)."""
-    return (m + m // 32 + 1) & ~1
+    return (m + m // SMEM_PAD_EVERY + 1) & ~1
 
 
 def table(n):
