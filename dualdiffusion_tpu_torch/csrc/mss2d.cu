@@ -20,216 +20,366 @@
 // that cover a row. Stage 2 is X_ij[k, l] = sum_r Fr[k, r] P_j[i*s + r, l].
 //
 // What bounds it on the H100: fp32 arithmetic (the inputs are read once, a few
-// tens of MB). This first version computes both stages as direct DFTs with
-// register tiling, which is about 7x (bw 32) to 9x (bw 64) the arithmetic of a
-// radix-2 FFT; an FFT of stage 2 is the next step. Design: one thread block
-// per (image, column block j) walks down the column, PI block positions at a
-// time, keeping the stage-1 rows of the bw + (PI-1)*s rows under the current
-// positions in a ring in shared memory, so every (row, j) is transformed once
-// and the input is read once per column block. In stage 2 a thread owns 4 k
-// x 2 l bins of one position, for both tensors, reading 4 twiddles and 2 + 2
-// stage-1 values per row (16-byte loads, no bank conflicts). K5 writes one
-// partial sum per (image, j); a second pass adds them per image in a fixed
-// order. No atomics anywhere: the result is deterministic.
+// tens of MB). The first version (PR 3) ran both stages as direct DFTs, about
+// 12x the arithmetic of FFTs. Here every transform is a bw-point complex FFT
+// held in registers by N2 = bw/8 threads of 8 points each (MSS2D_PLANS in
+// ops/kernels/mss2d.py is the same plan, and tests/test_torch_mss2d_plan.py
+// models it): thread t holds points t + N2 n1, runs a radix-8 codelet
+// (fft.cuh), multiplies by W_bw^(t k1), trades points with the FFT's other
+// threads through the FFT's own padded slice of shared memory (entry
+// k1 (N2 + 1) + n2; the threads of an FFT share a warp, so __syncwarp
+// suffices), and then owns bins k1 + 8 k2 for k1 = t + N2 m, on which it runs
+// radix-N2 codelets. The inverse (adjoint) runs the same steps backwards.
+//
+// A thread block walks JB neighbouring column blocks down the image, one block
+// position of each per step, with one __syncthreads a step. Its threads have
+// two roles:
+// - producers (JB * bw/8 FFTs), a step ahead: stage 1 of the new rows, one
+//   complex FFT of w1[c] (sample + i target) per (row, column block) into a
+//   ring of bw + stride rows in shared memory, so each (row, j) is transformed
+//   once and the input is read once per column block. The Hermitian split of
+//   the two tensors' spectra, P_s[l] = (Z[l] + conj Z[-l]) / 2 and
+//   P_t[l] = (Z[l] - conj Z[-l]) / 2i, happens where stage 2 reads the ring.
+// - consumers (JB * (bw/2 + 1) FFTs, one per bin column l): stage 2, the FFT
+//   over r of w1[r] P[i*s + r, l] for S and for T, then the loss (K5) or G
+//   (K6) on the bins each thread holds. K5 keeps one running sum per thread,
+//   reduced per block in a fixed order; a second pass adds the blocks' sums
+//   per image in a fixed order.
 //
 // K6: with G = g * weight * sign(|S| - |T|) * S / |S| (0 where |S| = 0), the
 // gradient is Re(Fr^H G conj(Fc)) summed over the blocks covering a pixel (the
 // adjoint of the forward map as written: no doubling of half-spectrum bins).
-// K6a recomputes S and T as K5 does, forms G in shared memory, applies
-// Fr^H (Q_ij[r, l] = w1[r] sum_k e^{+2 pi i k r / bw} G[k, l]) and sums Q_ij
-// over the positions covering each row in a ring, in position order; a row
-// complete after a step is written out as Q_j[y, l]. K6b then gathers, for each
-// pixel x of a row, Re(sum_l Q_j[y, l] w1[c] e^{+2 pi i l c / bw}), c = x - j*s,
-// over the column blocks j covering x, in ascending j. dTarget (-sign, T/|T|)
-// is computed only when asked for.
+// The consumers' inverse FFT over k gives Q_i[r, l] = w1[r] sum_k
+// e^{+2 pi i k r / bw} G[k, l], which they add into a second ring of bw +
+// stride rows; in a step one thread writes a cell, so each row sums its
+// positions in position order. The step after a row's last position, the
+// producers apply the W adjoint, D_j[y, c] = w1[c] Re(sum_{l <= bw/2} Q[y, l]
+// e^{+2 pi i l c / bw}), as one inverse FFT of Q's Hermitian extension (both
+// tensors in one transform, as its real and imaginary parts), and write D_j.
+// K6b adds, for each pixel, D_j of the column blocks covering it, in ascending
+// j. dTarget (-sign, T/|T|) is computed only when asked for. No atomics: two
+// calls agree bit for bit.
 
-#include "common.cuh"
+#include "fft.cuh"
 
 namespace {
 
-template <int BW>
-struct Dims {
+using namespace dd_fft;
+
+// N2: threads of one FFT (radices 8 and N2); JB: column blocks a thread
+// block walks; ZS, QS: row strides (complex) of the stage-1 and gradient
+// rings; XS: complex slots of one FFT's exchange slice. The strides keep
+// every shared access at most 2-way bank-conflicted.
+template <int BW> struct Plan;
+template <> struct Plan<64> {
+  static constexpr int N2 = 8, JB = 1, ZS = 66, QS = 34, XS = 72;
+};
+template <> struct Plan<32> {
+  static constexpr int N2 = 4, JB = 4, ZS = 36, QS = 20, XS = 44;
+};
+
+template <int BW> struct Shape : Plan<BW> {
+  using PL = Plan<BW>;
+  static constexpr int N2 = PL::N2, JB = PL::JB;
   static constexpr int kBins = BW / 2 + 1;
-  static constexpr int kBinsP = kBins + 1;         // padded to an even count
-  static constexpr int kKG = BW / 4;               // groups of 4 k (or r) per position
-  static constexpr int kLG = kBinsP / 2;           // pairs of l per position
-  static constexpr int kTPP = kKG * kLG;           // threads per block position
+  static constexpr int kOwn = 8 / N2;                   // k1 values a thread owns
+  static constexpr int kProd = JB * (BW / 8) * N2;      // producer threads
+  static constexpr int kCons = JB * kBins * N2;         // consumer threads
+  static constexpr int kThreads = kProd + kCons;
+  static constexpr int kGroups = kThreads / N2;         // FFTs in flight
+  static_assert(N2 * 8 == BW && kProd % 32 == 0, "an FFT's threads share a warp");
 };
 
-// Shared-memory carve-up shared by K5 and K6a (all offsets in float2 units).
-template <int BW, int PI>
-struct Smem {
-  int stride, ring, new_rows, n_grad;
-  __device__ __host__ Smem(int s, int n_grad_) : stride(s), n_grad(n_grad_) {
-    ring = BW + (PI - 1) * s;
-    new_rows = PI * s;
-  }
-  __device__ __host__ size_t e_off() const { return 0; }
-  __device__ __host__ size_t w1_off() const { return (size_t)BW * BW; }
-  __device__ __host__ size_t ain_off() const { return w1_off() + BW; }          // float rows
-  __device__ __host__ size_t p_off() const { return ain_off() + (size_t)new_rows * BW; }
-  __device__ __host__ size_t g_off() const {
-    return p_off() + 2 * (size_t)ring * Dims<BW>::kBinsP;
-  }
-  __device__ __host__ size_t q_off() const {
-    return g_off() + (size_t)n_grad * PI * BW * Dims<BW>::kBinsP;
-  }
-  __device__ __host__ size_t bytes(bool backward) const {
-    return (backward ? q_off() + (size_t)n_grad * ring * Dims<BW>::kBinsP : g_off()) *
-           sizeof(float2);
+// Shared memory (float2 units): JB stage-1 rings, the FFTs' exchange slices,
+// n_grad x JB gradient rings. A ring holds bw + stride rows.
+template <int BW> struct Smem {
+  using SH = Shape<BW>;
+  int ring, n_grad;
+  __host__ __device__ Smem(int stride, int n_grad_) : ring(BW + stride), n_grad(n_grad_) {}
+  __host__ __device__ size_t x_off() const { return (size_t)SH::JB * ring * SH::ZS; }
+  __host__ __device__ size_t q_off() const { return x_off() + (size_t)SH::kGroups * SH::XS; }
+  __host__ __device__ size_t bytes() const {
+    return (q_off() + (size_t)n_grad * SH::JB * ring * SH::QS) * sizeof(float2);
   }
 };
 
-// Loads rows [y0, y0 + cnt) of both images' column block (windowed along c)
-// and writes their stage-1 transforms into the ring.
+// What a thread keeps for its FFTs.
+template <int BW> struct Lane {
+  using SH = Shape<BW>;
+  int t;           // its index in the FFT
+  unsigned mask;   // the FFT's lanes
+  float2* xb;      // the FFT's exchange slice
+  float2 tw[8];    // W_bw^(t k1)
+  float w1[8];     // w1[N2 n1 + t]
+
+  __device__ Lane(float2* xbase, const float2* __restrict__ E_g, const float* __restrict__ w1_g) {
+    t = threadIdx.x % SH::N2;
+    mask = ((1u << SH::N2) - 1) << ((threadIdx.x & 31) & ~(SH::N2 - 1));
+    xb = xbase + (threadIdx.x / SH::N2) * SH::XS;
+#pragma unroll
+    for (int k1 = 0; k1 < 8; ++k1) tw[k1] = __ldg(E_g + BW + (t * k1) % BW);  // E[1][m]
+#pragma unroll
+    for (int n1 = 0; n1 < 8; ++n1) w1[n1] = __ldg(w1_g + SH::N2 * n1 + t);
+  }
+  // the bin held in a[e] after fft_fwd (and read by fft_inv)
+  __device__ __forceinline__ int bin(int e) const {
+    return t + SH::N2 * (e / SH::N2) + 8 * (e % SH::N2);
+  }
+};
+
+// Forward FFT: a[n1] = x[N2 n1 + t] in, a[e] = X[ln.bin(e)] out.
 template <int BW>
-__device__ void stage1_rows(const float* __restrict__ s_img, const float* __restrict__ t_img,
-                            int y0, int cnt, int H, int W, int x0, int ring, const float2* E,
-                            const float* w1, float* ain, float2* P) {
-  using D = Dims<BW>;
-  const int n_load = 2 * cnt * BW;
-  for (int idx = threadIdx.x; idx < n_load; idx += blockDim.x) {
-    const int tens = idx / (cnt * BW);
-    const int rem = idx - tens * cnt * BW;
-    const int row = rem / BW, c = rem - row * BW;
-    const int y = y0 + row;
-    const float* img = tens ? t_img : s_img;
-    // ain holds 2 x cnt rows; the caller keeps cnt <= new_rows
-    ain[idx] = y < H ? __ldg(img + (int64_t)y * W + x0 + c) * w1[c] : 0.f;
+__device__ __forceinline__ void fft_fwd(float2 (&a)[8], const Lane<BW>& ln) {
+  using SH = Shape<BW>;
+  constexpr int N2 = SH::N2;
+  dft<8, false>(a);
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) ln.xb[k1 * (N2 + 1) + ln.t] = dd::cmul(a[k1], ln.tw[k1]);
+  __syncwarp(ln.mask);
+#pragma unroll
+  for (int m = 0; m < SH::kOwn; ++m) {
+    float2 b[N2];
+#pragma unroll
+    for (int n2 = 0; n2 < N2; ++n2) b[n2] = ln.xb[(ln.t + N2 * m) * (N2 + 1) + n2];
+    dft<N2, false>(b);
+#pragma unroll
+    for (int k2 = 0; k2 < N2; ++k2) a[m * N2 + k2] = b[k2];
   }
-  __syncthreads();
-  const int n_out = 2 * cnt * D::kBinsP;
-  for (int idx = threadIdx.x; idx < n_out; idx += blockDim.x) {
-    const int tens = idx / (cnt * D::kBinsP);
-    const int rem = idx - tens * cnt * D::kBinsP;
-    const int row = rem / D::kBinsP, l = rem - row * D::kBinsP;
-    float2 acc = make_float2(0.f, 0.f);
-    if (l < D::kBins) {
-      const float* a = ain + (tens * cnt + row) * BW;
-#pragma unroll 8
-      for (int c = 0; c < BW; ++c) {
-        const float2 e = E[c * BW + l];  // e^{-2 pi i l c / BW}
-        acc.x += a[c] * e.x;
-        acc.y += a[c] * e.y;
-      }
+  __syncwarp(ln.mask);
+}
+
+// Its adjoint, the unscaled inverse: a[e] = X[ln.bin(e)] in,
+// a[n1] = sum_k X[k] e^{+2 pi i k r / bw} at r = N2 n1 + t out.
+template <int BW>
+__device__ __forceinline__ void fft_inv(float2 (&a)[8], const Lane<BW>& ln) {
+  using SH = Shape<BW>;
+  constexpr int N2 = SH::N2;
+#pragma unroll
+  for (int m = 0; m < SH::kOwn; ++m) {
+    float2 b[N2];
+#pragma unroll
+    for (int k2 = 0; k2 < N2; ++k2) b[k2] = a[m * N2 + k2];
+    dft<N2, true>(b);
+#pragma unroll
+    for (int n2 = 0; n2 < N2; ++n2) ln.xb[(ln.t + N2 * m) * (N2 + 1) + n2] = b[n2];
+  }
+  __syncwarp(ln.mask);
+#pragma unroll
+  for (int k1 = 0; k1 < 8; ++k1) {
+    const float2 w = ln.tw[k1];
+    a[k1] = dd::cmul(ln.xb[k1 * (N2 + 1) + ln.t], make_float2(w.x, -w.y));
+  }
+  dft<8, true>(a);
+  __syncwarp(ln.mask);
+}
+
+// Stage 1 of image row y of the column block at x0 into its ring row.
+template <int BW>
+__device__ __forceinline__ void stage1_row(const Lane<BW>& ln, const float* __restrict__ s_img,
+                                           const float* __restrict__ t_img, int y, int W, int x0,
+                                           float2* zrow) {
+  constexpr int N2 = Shape<BW>::N2;
+  const int64_t off = (int64_t)y * W + x0 + ln.t;
+  float2 a[8];
+#pragma unroll
+  for (int n1 = 0; n1 < 8; ++n1)
+    a[n1] = make_float2(__ldg(s_img + off + N2 * n1) * ln.w1[n1],
+                        __ldg(t_img + off + N2 * n1) * ln.w1[n1]);
+  fft_fwd<BW>(a, ln);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) zrow[ln.bin(e)] = a[e];
+}
+
+// Stage 2 of bin column l at the position whose first row is in ring slot
+// base: S and T on this thread's bins.
+template <int BW>
+__device__ __forceinline__ void stage2(const Lane<BW>& ln, const float2* zring, int base, int ring,
+                                       int l, float2 (&S)[8], float2 (&T)[8]) {
+  using SH = Shape<BW>;
+  const int lm = l ? BW - l : 0;
+#pragma unroll
+  for (int n1 = 0; n1 < 8; ++n1) {
+    int sl = base + SH::N2 * n1 + ln.t;
+    if (sl >= ring) sl -= ring;
+    const float2 z1 = zring[sl * SH::ZS + l], z2 = zring[sl * SH::ZS + lm];
+    const float h = 0.5f * ln.w1[n1];
+    S[n1] = make_float2(h * (z1.x + z2.x), h * (z1.y - z2.y));   // (z1 + conj z2) / 2
+    T[n1] = make_float2(h * (z1.y + z2.y), h * (z2.x - z1.x));   // (z1 - conj z2) / 2i
+  }
+  fft_fwd<BW>(S, ln);
+  fft_fwd<BW>(T, ln);
+}
+
+// The Hermitian extension of a half spectrum q at bin l (q read at l or
+// bw - l), halved off the ends: its inverse FFT is Re(sum_{l <= bw/2} ...).
+template <int BW>
+__device__ __forceinline__ float2 herm(float2 q, int l) {
+  if (l == 0 || l == BW / 2) return make_float2(q.x, 0.f);
+  return l < BW / 2 ? make_float2(0.5f * q.x, 0.5f * q.y) : make_float2(0.5f * q.x, -0.5f * q.y);
+}
+
+// K6: the W adjoint of a finished gradient-ring row (slot sl), written to
+// D_j[y] (ds, dt: bw floats each; dt null without dTarget); clears the row.
+template <int BW>
+__device__ __forceinline__ void finalize_row(const Lane<BW>& ln, float2* qs, float2* qt, int sl,
+                                             float* ds, float* dt) {
+  using SH = Shape<BW>;
+  qs += sl * SH::QS;
+  if (qt) qt += sl * SH::QS;
+  float2 v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int l = ln.bin(e), src = l <= BW / 2 ? l : BW - l;
+    const float2 hs = herm<BW>(qs[src], l);
+    const float2 ht = qt ? herm<BW>(qt[src], l) : make_float2(0.f, 0.f);
+    v[e] = make_float2(hs.x - ht.y, hs.y + ht.x);
+  }
+  __syncwarp(ln.mask);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int l = ln.bin(e);
+    if (l <= BW / 2) {
+      qs[l] = make_float2(0.f, 0.f);
+      if (qt) qt[l] = make_float2(0.f, 0.f);
     }
-    P[((size_t)tens * ring + (y0 + row) % ring) * D::kBinsP + l] = acc;
   }
-  __syncthreads();
-}
-
-// Brings the ring up to date for rows < target.
-template <int BW>
-__device__ void fill_ring(const float* s_img, const float* t_img, int& filled, int target, int H,
-                          int W, int x0, int ring, int new_rows, const float2* E, const float* w1,
-                          float* ain, float2* P) {
-  while (filled < target) {
-    const int cnt = min(new_rows, target - filled);
-    stage1_rows<BW>(s_img, t_img, filled, cnt, H, W, x0, ring, E, w1, ain, P);
-    filled += cnt;
+  fft_inv<BW>(v, ln);
+#pragma unroll
+  for (int n1 = 0; n1 < 8; ++n1) {
+    const int c = SH::N2 * n1 + ln.t;
+    ds[c] = ln.w1[n1] * v[n1].x;
+    if (dt) dt[c] = ln.w1[n1] * v[n1].y;
   }
-}
-
-// Stage 2 of one block position: S and T for this thread's 4 k x 2 l bins.
-template <int BW>
-__device__ __forceinline__ void stage2(int i, int stride, int ring, int kg, int lg,
-                                       const float2* E, const float* w1, const float2* P,
-                                       float2 (&S)[4][2], float2 (&T)[4][2]) {
-  using D = Dims<BW>;
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 2; ++n) S[m][n] = T[m][n] = make_float2(0.f, 0.f);
-  const float2* Ps = P;
-  const float2* Pt = P + (size_t)ring * D::kBinsP;
-  int slot = (i * stride) % ring;
-#pragma unroll 4
-  for (int r = 0; r < BW; ++r) {
-    const float4 e01 = *reinterpret_cast<const float4*>(E + r * BW + 4 * kg);
-    const float4 e23 = *reinterpret_cast<const float4*>(E + r * BW + 4 * kg + 2);
-    const float2 e[4] = {make_float2(e01.x, e01.y), make_float2(e01.z, e01.w),
-                         make_float2(e23.x, e23.y), make_float2(e23.z, e23.w)};
-    const float wr = w1[r];
-    const float4 ps = *reinterpret_cast<const float4*>(Ps + slot * D::kBinsP + 2 * lg);
-    const float4 pt = *reinterpret_cast<const float4*>(Pt + slot * D::kBinsP + 2 * lg);
-    const float2 vs[2] = {make_float2(ps.x * wr, ps.y * wr), make_float2(ps.z * wr, ps.w * wr)};
-    const float2 vt[2] = {make_float2(pt.x * wr, pt.y * wr), make_float2(pt.z * wr, pt.w * wr)};
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        S[m][n].x += e[m].x * vs[n].x - e[m].y * vs[n].y;
-        S[m][n].y += e[m].x * vs[n].y + e[m].y * vs[n].x;
-        T[m][n].x += e[m].x * vt[n].x - e[m].y * vt[n].y;
-        T[m][n].y += e[m].x * vt[n].y + e[m].y * vt[n].x;
-      }
-    if (++slot == ring) slot = 0;
-  }
-}
-
-template <int BW>
-__device__ void load_tables(const float2* __restrict__ E_g, const float* __restrict__ w1_g,
-                            float2* E, float* w1) {
-  for (int idx = threadIdx.x; idx < BW * BW; idx += blockDim.x) E[idx] = E_g[idx];
-  for (int idx = threadIdx.x; idx < BW; idx += blockDim.x) w1[idx] = w1_g[idx];
 }
 
 __device__ __forceinline__ float cabs(float2 z) { return sqrtf(z.x * z.x + z.y * z.y); }
 
-// K5: one partial sum per (image, column block).
-template <int BW, int PI>
-__global__ void __launch_bounds__(PI * Dims<BW>::kTPP)
-mss2d_fwd_kernel(const float* __restrict__ sample, const float* __restrict__ target, int H, int W,
-                 int stride, int n_rows, int n_cols, const float2* __restrict__ E_g,
-                 const float* __restrict__ w1_g, const float* __restrict__ weight,
-                 float* __restrict__ partial) {
-  using D = Dims<BW>;
+// K5 (BWD false): one partial sum per (image, thread block) into partial.
+// K6a (BWD true): D[tens][b][y][j][c] for the rows some position covers.
+template <int BW, bool BWD>
+__global__ void __launch_bounds__(Shape<BW>::kThreads, 2)
+mss2d_kernel(const float* __restrict__ sample, const float* __restrict__ target,
+             const float* __restrict__ g, int bc, int H, int W, int stride, int n_rows,
+             int n_cols, int n_grad, const float2* __restrict__ E_g,
+             const float* __restrict__ w1_g, const float* __restrict__ weight,
+             float* __restrict__ partial, float* __restrict__ D) {
+  using SH = Shape<BW>;
+  constexpr int N2 = SH::N2, JB = SH::JB;
   extern __shared__ float4 smem4[];
   float2* smem = reinterpret_cast<float2*>(smem4);
-  const Smem<BW, PI> L(stride, 0);
-  float2* E = smem + L.e_off();
-  float* w1 = reinterpret_cast<float*>(smem + L.w1_off());
-  float* ain = reinterpret_cast<float*>(smem + L.ain_off());
-  float2* P = smem + L.p_off();
-  const int j = blockIdx.x, b = blockIdx.y;
+  const Smem<BW> L(stride, BWD ? n_grad : 0);
+  const int ring = L.ring;
+  float2* Z = smem;
+  float2* Qr = smem + L.q_off();
+  const int b = blockIdx.y, j0 = blockIdx.x * JB;
   const float* s_img = sample + (int64_t)b * H * W;
   const float* t_img = target + (int64_t)b * H * W;
-  const int x0 = j * stride;
-  load_tables<BW>(E_g, w1_g, E, w1);
+  const Lane<BW> ln(smem + L.x_off(), E_g, w1_g);
+  const int group = threadIdx.x / N2;
+
+  // K6: the gradient rows of column block jj (slot sl) and where they go
+  auto finalize = [&](int jj, int y) {
+    const int j = j0 + jj, sl = y % ring;
+    float* ds = D + ((((int64_t)b * H + y) * n_cols + j) * BW);
+    float* dt = n_grad > 1 ? ds + (int64_t)bc * H * n_cols * BW : nullptr;
+    float2* qs = Qr + (size_t)jj * ring * SH::QS;
+    float2* qt = n_grad > 1 ? qs + (size_t)JB * ring * SH::QS : nullptr;
+    finalize_row<BW>(ln, qs, qt, sl, ds, dt);
+  };
+
+  if (BWD)
+    for (int idx = threadIdx.x; idx < n_grad * JB * ring * SH::QS; idx += SH::kThreads)
+      Qr[idx] = make_float2(0.f, 0.f);
+  // rows 0 .. bw-1 of every column block, all threads
+  for (int job = group; job < JB * BW; job += SH::kGroups) {
+    const int jj = job / BW, y = job - jj * BW;
+    if (j0 + jj < n_cols)
+      stage1_row<BW>(ln, s_img, t_img, y, W, (j0 + jj) * stride,
+                     Z + ((size_t)jj * ring + y) * SH::ZS);
+  }
   __syncthreads();
 
-  const int pi = threadIdx.x / D::kTPP;
-  const int rem = threadIdx.x - pi * D::kTPP;
-  const int kg = rem % D::kKG, lg = rem / D::kKG;
+  const bool producer = threadIdx.x < SH::kProd;
+  const int cidx = threadIdx.x - SH::kProd;
+  const int cjj = cidx / (SH::kBins * N2);
+  const int l = (cidx / N2) % SH::kBins;
+  const bool consumer = !producer && j0 + cjj < n_cols;
+  const float gb = BWD ? g[b] : 0.f;
   float loss = 0.f;
-  int filled = 0;
-  for (int i0 = 0; i0 < n_rows; i0 += PI) {
-    fill_ring<BW>(s_img, t_img, filled, min(i0 * stride + L.ring, H), H, W, x0, L.ring,
-                  L.new_rows, E, w1, ain, P);
-    const int i = i0 + pi;
-    if (i < n_rows) {
-      float2 S[4][2], T[4][2];
-      stage2<BW>(i, stride, L.ring, kg, lg, E, w1, P, S, T);
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int k = 4 * kg + m, l = 2 * lg + n;
-          if (l < D::kBins)
-            loss += __ldg(weight + k * D::kBins + l) * fabsf(cabs(S[m][n]) - cabs(T[m][n]));
+  for (int i = 0; i < n_rows; ++i) {
+    if (producer) {
+      constexpr int kPG = SH::kProd / N2;
+      // the rows position i + 1 adds, then (K6) the rows position i - 1 finished
+      if (i + 1 < n_rows)
+        for (int job = group; job < JB * stride; job += kPG) {
+          const int jj = job / stride, y = i * stride + BW + job - jj * stride;
+          if (j0 + jj < n_cols)
+            stage1_row<BW>(ln, s_img, t_img, y, W, (j0 + jj) * stride,
+                           Z + ((size_t)jj * ring + y % ring) * SH::ZS);
         }
+      if (BWD && i > 0)
+        for (int job = group; job < JB * stride; job += kPG) {
+          const int jj = job / stride;
+          if (j0 + jj < n_cols) finalize(jj, (i - 1) * stride + job - jj * stride);
+        }
+    } else if (consumer) {
+      const int base = (i * stride) % ring;
+      float2 S[8], T[8];
+      stage2<BW>(ln, Z + (size_t)cjj * ring * SH::ZS, base, ring, l, S, T);
+      if (!BWD) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          loss += __ldg(weight + ln.bin(e) * SH::kBins + l) * fabsf(cabs(S[e]) - cabs(T[e]));
+      } else {
+        // G for sample (in S) and target (in T), then Q = w1[r] Fr^H G
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float ms = cabs(S[e]), mt = cabs(T[e]);
+          const float d = ms - mt;
+          const float c =
+              gb * __ldg(weight + ln.bin(e) * SH::kBins + l) * (float)((d > 0.f) - (d < 0.f));
+          S[e] = ms > 0.f ? make_float2(c * S[e].x / ms, c * S[e].y / ms) : make_float2(0.f, 0.f);
+          T[e] = mt > 0.f ? make_float2(-c * T[e].x / mt, -c * T[e].y / mt)
+                          : make_float2(0.f, 0.f);
+        }
+        auto add_rows = [&](float2(&G)[8], int tens) {
+          fft_inv<BW>(G, ln);
+          float2* q = Qr + ((size_t)tens * JB + cjj) * ring * SH::QS + l;
+#pragma unroll
+          for (int n1 = 0; n1 < 8; ++n1) {
+            int sl = base + N2 * n1 + ln.t;
+            if (sl >= ring) sl -= ring;
+            float2 v = q[sl * SH::QS];
+            v.x += ln.w1[n1] * G[n1].x;
+            v.y += ln.w1[n1] * G[n1].y;
+            q[sl * SH::QS] = v;
+          }
+        };
+        add_rows(S, 0);
+        if (n_grad > 1) add_rows(T, 1);
+      }
     }
-    __syncthreads();  // the next fill overwrites ring rows of this step
+    __syncthreads();
   }
 
-  // fixed-order block reduction (the ring is free now)
-  float* red = reinterpret_cast<float*>(P);
-  red[threadIdx.x] = loss;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-    for (int t = 0; t < (int)blockDim.x; ++t) total += red[t];
-    partial[(int64_t)b * n_cols + j] = total;
+  if (BWD) {
+    // the rows of the last position, all threads
+    for (int job = group; job < JB * BW; job += SH::kGroups) {
+      const int jj = job / BW;
+      if (j0 + jj < n_cols) finalize(jj, (n_rows - 1) * stride + job - jj * BW);
+    }
+  } else {
+    // fixed-order block reduction (the rings are free now)
+    float* red = reinterpret_cast<float*>(smem);
+    red[threadIdx.x] = loss;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      float v = 0.f;
+      for (int k = threadIdx.x; k < SH::kThreads; k += 32) v += red[k];
+#pragma unroll
+      for (int off = 16; off; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (threadIdx.x == 0) partial[(int64_t)b * gridDim.x + blockIdx.x] = v;
+    }
   }
 }
 
@@ -242,242 +392,119 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int n, in
   out[b] = total;
 }
 
-// K6a: the row-summed Fr^H G of every column block, Q[tens][b][y][j][l].
-template <int BW, int PI>
-__global__ void __launch_bounds__(PI * Dims<BW>::kTPP)
-mss2d_bwd_cols_kernel(const float* __restrict__ sample, const float* __restrict__ target,
-                      const float* __restrict__ g, int bc, int H, int W, int stride, int n_rows,
-                      int n_cols, int n_grad, const float2* __restrict__ E_g,
-                      const float* __restrict__ w1_g, const float* __restrict__ weight,
-                      float2* __restrict__ Q) {
-  using D = Dims<BW>;
-  extern __shared__ float4 smem4[];
-  float2* smem = reinterpret_cast<float2*>(smem4);
-  const Smem<BW, PI> L(stride, n_grad);
-  float2* E = smem + L.e_off();
-  float* w1 = reinterpret_cast<float*>(smem + L.w1_off());
-  float* ain = reinterpret_cast<float*>(smem + L.ain_off());
-  float2* P = smem + L.p_off();
-  float2* G = smem + L.g_off();    // [n_grad][PI][BW][kBinsP]
-  float2* Qr = smem + L.q_off();   // [n_grad][ring][kBinsP]
-  const int j = blockIdx.x, b = blockIdx.y;
-  const float* s_img = sample + (int64_t)b * H * W;
-  const float* t_img = target + (int64_t)b * H * W;
-  const int x0 = j * stride;
-  load_tables<BW>(E_g, w1_g, E, w1);
-  for (int idx = threadIdx.x; idx < n_grad * L.ring * D::kBinsP; idx += blockDim.x)
-    Qr[idx] = make_float2(0.f, 0.f);
-  __syncthreads();
-
-  const int pi = threadIdx.x / D::kTPP;
-  const int rem = threadIdx.x - pi * D::kTPP;
-  const int kg = rem % D::kKG, lg = rem / D::kKG;
-  const float gb = g[b];
-  const int covered = (n_rows - 1) * stride + BW;  // rows under some block
-  int filled = 0;
-  for (int i0 = 0; i0 < n_rows; i0 += PI) {
-    fill_ring<BW>(s_img, t_img, filled, min(i0 * stride + L.ring, H), H, W, x0, L.ring,
-                  L.new_rows, E, w1, ain, P);
-    const int i = i0 + pi;
-    const bool valid = i < n_rows;
-    // G = g * weight * sign(|S| - |T|) * (S/|S|, -T/|T|), into shared memory
-    {
-      float2 S[4][2], T[4][2];
-      if (valid) stage2<BW>(i, stride, L.ring, kg, lg, E, w1, P, S, T);
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int k = 4 * kg + m, l = 2 * lg + n;
-          float2 gs = make_float2(0.f, 0.f), gt = gs;
-          if (valid && l < D::kBins) {
-            const float ms = cabs(S[m][n]), mt = cabs(T[m][n]);
-            const float d = ms - mt;
-            const float c = gb * __ldg(weight + k * D::kBins + l) * (float)((d > 0.f) - (d < 0.f));
-            if (ms > 0.f) gs = make_float2(c * S[m][n].x / ms, c * S[m][n].y / ms);
-            if (mt > 0.f) gt = make_float2(-c * T[m][n].x / mt, -c * T[m][n].y / mt);
-          }
-          G[((size_t)pi * BW + k) * D::kBinsP + l] = gs;
-          if (n_grad > 1) G[(((size_t)PI + pi) * BW + k) * D::kBinsP + l] = gt;
-        }
-    }
-    __syncthreads();
-    // Q_i[r, l] = w1[r] sum_k conj(E[k][r]) G[k][l]; this thread: 4 r x 2 l
-    for (int tens = 0; tens < n_grad; ++tens) {
-      float2 q[4][2];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int n = 0; n < 2; ++n) q[m][n] = make_float2(0.f, 0.f);
-      const float2* Gp = G + ((size_t)tens * PI + pi) * BW * D::kBinsP;
-      if (valid) {
-#pragma unroll 4
-        for (int k = 0; k < BW; ++k) {
-          const float4 e01 = *reinterpret_cast<const float4*>(E + k * BW + 4 * kg);
-          const float4 e23 = *reinterpret_cast<const float4*>(E + k * BW + 4 * kg + 2);
-          const float2 e[4] = {make_float2(e01.x, e01.y), make_float2(e01.z, e01.w),
-                               make_float2(e23.x, e23.y), make_float2(e23.z, e23.w)};
-          const float4 gg = *reinterpret_cast<const float4*>(Gp + k * D::kBinsP + 2 * lg);
-          const float2 gv[2] = {make_float2(gg.x, gg.y), make_float2(gg.z, gg.w)};
-#pragma unroll
-          for (int m = 0; m < 4; ++m)
-#pragma unroll
-            for (int n = 0; n < 2; ++n) {  // conj(e) * g
-              q[m][n].x += e[m].x * gv[n].x + e[m].y * gv[n].y;
-              q[m][n].y += e[m].x * gv[n].y - e[m].y * gv[n].x;
-            }
-        }
-      }
-      // add into the row ring, one position after another (fixed order)
-      float2* Qt = Qr + (size_t)tens * L.ring * D::kBinsP;
-      for (int pp = 0; pp < PI; ++pp) {
-        if (pp == pi && valid) {
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const int r = 4 * kg + m;
-            const float wr = w1[r];
-            float2* row = Qt + ((i * stride + r) % L.ring) * D::kBinsP + 2 * lg;
-#pragma unroll
-            for (int n = 0; n < 2; ++n) {
-              row[n].x += q[m][n].x * wr;
-              row[n].y += q[m][n].y * wr;
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-    // rows no later position covers are complete: write them out, clear the slots
-    const bool last = i0 + PI >= n_rows;
-    const int y_lo = i0 * stride, y_hi = last ? H : min((i0 + PI) * stride, H);
-    const int n_out = n_grad * (y_hi - y_lo) * D::kBinsP;
-    for (int idx = threadIdx.x; idx < n_out; idx += blockDim.x) {
-      const int tens = idx / ((y_hi - y_lo) * D::kBinsP);
-      const int rem2 = idx - tens * (y_hi - y_lo) * D::kBinsP;
-      const int y = y_lo + rem2 / D::kBinsP, l = rem2 % D::kBinsP;
-      float2 v = make_float2(0.f, 0.f);
-      if (y < covered) {
-        float2* slot = Qr + ((size_t)tens * L.ring + y % L.ring) * D::kBinsP + l;
-        v = *slot;
-        *slot = make_float2(0.f, 0.f);
-      }
-      Q[((((size_t)tens * bc + b) * H + y) * n_cols + j) * D::kBinsP + l] = v;
-    }
-    __syncthreads();
-  }
-}
-
-// K6b: d[tens][b][y][x] = sum_{j covering x} w1[c] Re(sum_l Q[y][j][l] e^{+2 pi i l c / BW}).
+// K6b: d[tens][b][y][x] = sum over the column blocks j covering x, ascending,
+// of D[tens][b][y][j][x - j*s]; 0 on rows and columns no block covers.
 template <int BW>
 __global__ void __launch_bounds__(128)
-mss2d_bwd_rows_kernel(const float2* __restrict__ Q, int bc, int H, int W, int stride, int n_cols,
-                      const float2* __restrict__ E_g, const float* __restrict__ w1_g,
-                      float* __restrict__ d0, float* __restrict__ d1) {
-  using D = Dims<BW>;
-  constexpr int kX = 128;
-  extern __shared__ float4 smem4[];
-  float2* tw = reinterpret_cast<float2*>(smem4);        // e^{-2 pi i m / BW}
-  float* w1 = reinterpret_cast<float*>(tw + BW);
-  float2* qs = tw + BW + BW / 2;                          // [j - j_lo][kBinsP]
-  const int x0 = blockIdx.x * kX, y = blockIdx.y;
+mss2d_bwd_rows_kernel(const float* __restrict__ D, int bc, int H, int W, int stride, int n_rows,
+                      int n_cols, float* __restrict__ d0, float* __restrict__ d1) {
+  const int x = blockIdx.x * 128 + threadIdx.x, y = blockIdx.y;
   const int tens = blockIdx.z / bc, b = blockIdx.z - tens * bc;
-  const int j_lo = max(0, (x0 - BW + stride) / stride);   // ceil((x0 - BW + 1) / s), x0 >= 0
-  const int j_hi = min(n_cols - 1, (x0 + kX - 1) / stride);
-  for (int idx = threadIdx.x; idx < BW; idx += blockDim.x) {
-    tw[idx] = E_g[BW + idx];
-    w1[idx] = w1_g[idx];
-  }
-  const int nq = (j_hi - j_lo + 1) * D::kBinsP;
-  const float2* Qrow = Q + (((size_t)tens * bc + b) * H + y) * n_cols * D::kBinsP;
-  for (int idx = threadIdx.x; idx < nq; idx += blockDim.x)
-    qs[idx] = Qrow[(size_t)j_lo * D::kBinsP + idx];
-  __syncthreads();
-  const int x = x0 + threadIdx.x;
   if (x >= W) return;
-  const int ja = max(j_lo, x >= BW ? (x - BW + stride) / stride : 0);
-  const int jb = min(j_hi, x / stride);
   float acc = 0.f;
-  for (int jj = ja; jj <= jb; ++jj) {
-    const int c = x - jj * stride;
-    const float2* q = qs + (jj - j_lo) * D::kBinsP;
-    float sum = 0.f;
-#pragma unroll 4
-    for (int l = 0; l < D::kBins; ++l) {
-      const float2 e = tw[(l * c) & (BW - 1)];
-      sum += q[l].x * e.x + q[l].y * e.y;  // Re(q * conj(e))
-    }
-    acc += w1[c] * sum;
+  if (y < (n_rows - 1) * stride + BW) {
+    const int ja = x >= BW ? (x - BW + stride) / stride : 0;  // ceil((x - BW + 1) / s)
+    const int jb = min(n_cols - 1, x / stride);
+    const float* row = D + (((int64_t)tens * bc + b) * H + y) * n_cols * BW;
+    for (int j = ja; j <= jb; ++j) acc += row[(int64_t)j * BW + x - j * stride];
   }
   (tens ? d1 : d0)[((int64_t)b * H + y) * W + x] = acc;
 }
 
-template <int BW, int PI>
+template <int BW, bool BWD>
+cudaError_t launch_main(const float* s, const float* t, const float* g, int bc, int H, int W,
+                        int stride, int n_rows, int n_cols, int n_grad, const float2* E,
+                        const float* w1, const float* weight, float* partial, float* D,
+                        cudaStream_t stream) {
+  using SH = Shape<BW>;
+  const size_t smem = Smem<BW>(stride, BWD ? n_grad : 0).bytes();
+  auto kernel = mss2d_kernel<BW, BWD>;
+  cudaError_t err = dd_allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n_cols + SH::JB - 1) / SH::JB, bc), SH::kThreads, smem, stream>>>(
+      s, t, g, bc, H, W, stride, n_rows, n_cols, n_grad, E, w1, weight, partial, D);
+  return cudaGetLastError();
+}
+
+template <int BW>
 int launch_fwd(const float* s, const float* t, int bc, int H, int W, int stride, int n_rows,
                int n_cols, const float2* E, const float* w1, const float* weight, float* partial,
                float* out, cudaStream_t stream) {
-  const size_t smem = Smem<BW, PI>(stride, 0).bytes(false);
-  auto kernel = mss2d_fwd_kernel<BW, PI>;
-  cudaError_t err = dd_allow_smem(kernel, smem);
+  cudaError_t err = launch_main<BW, false>(s, t, nullptr, bc, H, W, stride, n_rows, n_cols, 0, E,
+                                           w1, weight, partial, nullptr, stream);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(n_cols, bc), PI * Dims<BW>::kTPP, smem, stream>>>(s, t, H, W, stride, n_rows,
-                                                                   n_cols, E, w1, weight, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<(bc + 127) / 128, 128, 0, stream>>>(partial, n_cols, bc, out);
+  const int blocks = (n_cols + Shape<BW>::JB - 1) / Shape<BW>::JB;
+  sum_partials_kernel<<<(bc + 127) / 128, 128, 0, stream>>>(partial, blocks, bc, out);
   return (int)cudaGetLastError();
 }
 
-template <int BW, int PI>
+template <int BW>
 int launch_bwd(const float* s, const float* t, const float* g, int bc, int H, int W, int stride,
                int n_rows, int n_cols, int n_grad, const float2* E, const float* w1,
-               const float* weight, float2* Q, float* ds, float* dt, cudaStream_t stream) {
-  const size_t smem = Smem<BW, PI>(stride, n_grad).bytes(true);
-  auto kernel = mss2d_bwd_cols_kernel<BW, PI>;
-  cudaError_t err = dd_allow_smem(kernel, smem);
+               const float* weight, float* D, float* ds, float* dt, cudaStream_t stream) {
+  cudaError_t err = launch_main<BW, true>(s, t, g, bc, H, W, stride, n_rows, n_cols, n_grad, E,
+                                          w1, weight, nullptr, D, stream);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(n_cols, bc), PI * Dims<BW>::kTPP, smem, stream>>>(
-      s, t, g, bc, H, W, stride, n_rows, n_cols, n_grad, E, w1, weight, Q);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int max_j = (127 + BW) / stride + 2;
-  const size_t smem2 = (BW + BW / 2 + (size_t)max_j * Dims<BW>::kBinsP) * sizeof(float2);
-  auto rows = mss2d_bwd_rows_kernel<BW>;
-  err = dd_allow_smem(rows, smem2);
-  if (err != cudaSuccess) return (int)err;
-  rows<<<dim3((W + 127) / 128, H, n_grad * bc), 128, smem2, stream>>>(Q, bc, H, W, stride,
-                                                                      n_cols, E, w1, ds, dt);
+  mss2d_bwd_rows_kernel<BW><<<dim3((W + 127) / 128, H, n_grad * bc), 128, 0, stream>>>(
+      D, bc, H, W, stride, n_rows, n_cols, ds, dt);
   return (int)cudaGetLastError();
+}
+
+template <int BW>
+void plan_of(int* out) {
+  using PL = Plan<BW>;
+  const int v[] = {PL::N2, 8, PL::N2, PL::JB, PL::ZS, PL::QS, PL::XS};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }
 
 }  // namespace
 
+// partial: bc x ceil(n_cols / JB) floats of scratch; out: (bc,) sums.
 extern "C" int dd_mss2d_fwd(const void* s, const void* t, int bc, int H, int W, int bw, int stride,
                             int n_rows, int n_cols, const void* E, const void* w1,
                             const void* weight, void* partial, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (stride < 1 || stride > bw) return (int)cudaErrorInvalidValue;
   if (bw == 64)
-    return launch_fwd<64, 1>((const float*)s, (const float*)t, bc, H, W, stride, n_rows, n_cols,
-                             (const float2*)E, (const float*)w1, (const float*)weight,
-                             (float*)partial, (float*)out, st);
+    return launch_fwd<64>((const float*)s, (const float*)t, bc, H, W, stride, n_rows, n_cols,
+                          (const float2*)E, (const float*)w1, (const float*)weight,
+                          (float*)partial, (float*)out, st);
   if (bw == 32)
-    return launch_fwd<32, 4>((const float*)s, (const float*)t, bc, H, W, stride, n_rows, n_cols,
-                             (const float2*)E, (const float*)w1, (const float*)weight,
-                             (float*)partial, (float*)out, st);
+    return launch_fwd<32>((const float*)s, (const float*)t, bc, H, W, stride, n_rows, n_cols,
+                          (const float2*)E, (const float*)w1, (const float*)weight,
+                          (float*)partial, (float*)out, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// Q: (n_grad, bc, H, n_cols, bw) floats of scratch (D_j); ds, dt: (bc, H, W).
 extern "C" int dd_mss2d_bwd(const void* s, const void* t, const void* g, int bc, int H, int W,
                             int bw, int stride, int n_rows, int n_cols, int n_grad, const void* E,
                             const void* w1, const void* weight, void* Q, void* ds, void* dt,
                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (stride < 1 || stride > bw) return (int)cudaErrorInvalidValue;
   if (bw == 64)
-    return launch_bwd<64, 1>((const float*)s, (const float*)t, (const float*)g, bc, H, W, stride,
-                             n_rows, n_cols, n_grad, (const float2*)E, (const float*)w1,
-                             (const float*)weight, (float2*)Q, (float*)ds, (float*)dt, st);
+    return launch_bwd<64>((const float*)s, (const float*)t, (const float*)g, bc, H, W, stride,
+                          n_rows, n_cols, n_grad, (const float2*)E, (const float*)w1,
+                          (const float*)weight, (float*)Q, (float*)ds, (float*)dt, st);
   if (bw == 32)
-    return launch_bwd<32, 4>((const float*)s, (const float*)t, (const float*)g, bc, H, W, stride,
-                             n_rows, n_cols, n_grad, (const float2*)E, (const float*)w1,
-                             (const float*)weight, (float2*)Q, (float*)ds, (float*)dt, st);
+    return launch_bwd<32>((const float*)s, (const float*)t, (const float*)g, bc, H, W, stride,
+                          n_rows, n_cols, n_grad, (const float2*)E, (const float*)w1,
+                          (const float*)weight, (float*)Q, (float*)ds, (float*)dt, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The compiled plan of block width bw: (threads an FFT, its two radices,
+// column blocks a thread block, stage-1 ring row stride, gradient ring row
+// stride, exchange slots an FFT) into out[0..6]; returns 1 if bw has one.
+extern "C" int dd_mss2d_plan(int bw, int* out) {
+  if (bw == 64) {
+    plan_of<64>(out);
+    return 1;
+  }
+  if (bw == 32) {
+    plan_of<32>(out);
+    return 1;
+  }
+  return 0;
 }

@@ -43,6 +43,7 @@ SIGNATURES = {
     "dd_ola_reframe": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "dd_mss2d_fwd": [_P, _P] + [_I] * 7 + [_P] * 6,
     "dd_mss2d_bwd": [_P, _P, _P] + [_I] * 8 + [_P] * 7,
+    "dd_mss2d_plan": [_I, ctypes.POINTER(_I)],
     "dd_flash_attention": [_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _F, _I, _I, _I,
                            _P],
     "dd_flash_attention_wide": [_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _F, _I, _I,

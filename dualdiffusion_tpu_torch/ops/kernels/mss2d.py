@@ -14,6 +14,7 @@ rank 1. The window and weights are numpy constants, as in the JAX package.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
@@ -25,6 +26,27 @@ from .common import check, on_cpu, stream_of
 
 #: block widths the kernels take (the trainer sends smaller ones to the unfold path)
 KERNEL_WIDTHS = (32, 64)
+
+
+@dataclass(frozen=True)
+class Mss2dPlan:
+    """How K5/K6 (csrc/mss2d.cu) run block width bw. Every transform is a
+    bw-point complex FFT held by ``threads`` threads of 8 points each, in two
+    passes of ``radices`` (8, threads); a thread block walks ``cols`` column
+    blocks side by side. ``z_stride`` and ``q_stride`` are the row strides
+    (complex) of the stage-1 ring and the gradient ring, ``x_slots`` the
+    complex slots of one FFT's shared exchange slice."""
+    threads: int
+    radices: Tuple[int, int]
+    cols: int
+    z_stride: int
+    q_stride: int
+    x_slots: int
+
+
+#: bw -> plan; the kernel compiles the same plans (dd_mss2d_plan)
+MSS2D_PLANS = {64: Mss2dPlan(8, (8, 8), 1, 66, 34, 72),
+               32: Mss2dPlan(4, (8, 4), 4, 36, 20, 44)}
 
 
 def _grid(shape, bw: int, stride: int) -> Tuple[int, int, int, int, int]:
@@ -99,9 +121,11 @@ def _tables(bw: int, window: np.ndarray, weight: np.ndarray, device) -> tuple:
     return _TABLES[key]
 
 
-def _check_inputs(sample, target, bw):
+def _check_inputs(sample, target, bw, stride):
     if bw not in KERNEL_WIDTHS:
         raise ValueError(f"block width {bw}: the kernels take {KERNEL_WIDTHS}")
+    if not 1 <= stride <= bw:
+        raise ValueError(f"stride {stride}: the kernels take 1 to the block width {bw}")
     check(sample, "sample", (torch.float32,), ndim=3)
     check(target, "target", (torch.float32,), shape=sample.shape)
 
@@ -112,10 +136,10 @@ def mss2d_block_loss(sample: torch.Tensor, target: torch.Tensor, bw: int, stride
     CPU tensors take the plain version."""
     if on_cpu(sample, target):
         return mss2d_block_loss_plain(sample, target, bw, stride, window, weight)
-    _check_inputs(sample, target, bw)
+    _check_inputs(sample, target, bw, stride)
     bc, h, w, n_rows, n_cols = _grid(sample.shape, bw, stride)
     e, w1, wgt = _tables(bw, window, weight, sample.device)
-    partial = torch.empty((bc, n_cols), device=sample.device)
+    partial = torch.empty((bc, -(-n_cols // MSS2D_PLANS[bw].cols)), device=sample.device)
     out = torch.empty((bc,), device=sample.device)
     lib = library()
     with torch.cuda.device(sample.device):
@@ -136,12 +160,12 @@ def mss2d_block_loss_grad(sample: torch.Tensor, target: torch.Tensor, g: torch.T
     if on_cpu(sample, target, g):
         return mss2d_block_loss_grad_plain(sample, target, g, bw, stride, window, weight,
                                            need_target)
-    _check_inputs(sample, target, bw)
+    _check_inputs(sample, target, bw, stride)
     bc, h, w, n_rows, n_cols = _grid(sample.shape, bw, stride)
     check(g, "g", (torch.float32,), shape=(bc,))
     e, w1, wgt = _tables(bw, window, weight, sample.device)
     n_grad = 2 if need_target else 1
-    q = torch.empty((n_grad, bc, h, n_cols, bw // 2 + 2, 2), device=sample.device)
+    q = torch.empty((n_grad, bc, h, n_cols, bw), device=sample.device)   # D_j[y, c]
     ds = torch.empty_like(sample)
     dt = torch.empty_like(target) if need_target else None
     lib = library()
