@@ -168,6 +168,42 @@ def check_close(name: str, got, want, rel_tol: float) -> float:
     return err
 
 
+def ptxas_usage(log: str, pattern: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of each entry
+    function whose mangled name contains ``pattern``, from ``nvcc -Xptxas -v``."""
+    import re
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if pattern in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((kernel_label(name), int(m.group(1)), *spills))
+            name = None
+    return out
+
+
+def kernel_label(mangled: str) -> str:
+    """'mss2d_kernel<64, 1>' from a mangled kernel name: the identifier
+    ending in 'kernel' whose length the digits before it spell, and the
+    template's integer arguments."""
+    import re
+    end = mangled.find("kernel") + len("kernel")
+    for start in range(end - len("kernel"), 0, -1):
+        digits = re.search(r"\d+$", mangled[:start])
+        if digits and digits.group().endswith(str(end - start)):
+            args = re.findall(r"L[ib](\d+)E", mangled[end:].split("EE")[0] + "E")
+            return mangled[start:end] + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
 def grouped_conv_shapes(unet, batch: int, lat_h: int, lat_w: int):
     """(B, H, W, cin, cout) of every grouped conv of one UNet forward."""
     shapes = []
@@ -699,7 +735,11 @@ def kernel_phase_mss2d(gen) -> dict:
     with an independent target a few bins have |S| ~ |T| and the sign of the
     difference flips between two fp32 evaluations, so there the gradient is
     held to 1e-3 relative L2. Two K6 calls must agree bit for bit. Times are
-    per microbatch (both widths); K6 as the trainer calls it (no dTarget)."""
+    per microbatch (both widths); K6 as the trainer calls it (no dTarget).
+    Beside them, per width: the kernels' registers and spills (ptxas) and a
+    yardstick, labelled so because no single PyTorch call computes this loss:
+    torch.fft.rfft2 (cuFFT) of the unfolded, windowed blocks of both tensors,
+    the transforms alone."""
     import math
 
     import numpy as np
@@ -709,7 +749,11 @@ def kernel_phase_mss2d(gen) -> dict:
     from dualdiffusion_tpu_torch.ops.kernels import (mss2d_block_loss, mss2d_block_loss_grad,
                                                      mss2d_block_loss_grad_plain,
                                                      mss2d_block_loss_plain)
+    from dualdiffusion_tpu_torch.ops.kernels.build import library
     from dualdiffusion_tpu_torch.training.losses import _window_2d, product_weights
+    for name, regs, st, ld in ptxas_usage(library().log, "mss2d"):
+        print(f"  ptxas {name}: {regs} registers, spills {st} B stored / {ld} B loaded",
+              flush=True)
     b, c, h, w = TRAIN_BATCH, 2, 256, 680
     print(f"K5 mss2d_block_loss / K6 mss2d_block_loss_grad: recon and target ({b}, {c}, {h}, {w}) "
           f"fp32, stacked to {b * c} images, widths 32 and 64", flush=True)
@@ -718,6 +762,7 @@ def kernel_phase_mss2d(gen) -> dict:
     stack = [(midside_transform(x, 1) * np.sqrt(2.0)).reshape(-1, h, w) for x in (recon, other)]
     g = torch.rand((b * c,), generator=gen, device="cuda") + 0.5
     tot = {"fwd": [0.0, 0.0, 0.0, 0.0, 0.0], "bwd": [0.0, 0.0, 0.0, 0.0, 0.0]}
+    yardstick = 0.0
     for bw in (32, 64):
         stride, pad = bw // 8, bw // 2
         s, t = (F.pad(x[:, None], (pad,) * 4, mode="reflect")[:, 0] for x in stack)
@@ -777,7 +822,18 @@ def kernel_phase_mss2d(gen) -> dict:
             for i in range(1, 5):
                 acc[i] += res[i]
             print(f"  {'K5' if key == 'fwd' else 'K6'} bw {bw}: kernel {res[1]:.3f} ms, plain "
-                  f"{res[2]:.3f} ms", flush=True)
+                  f"{res[2]:.3f} ms, bound {bound(res[3], res[4], 'fp32')[0]:.4f} ms", flush=True)
+        win_t = torch.as_tensor(win, dtype=torch.float32, device="cuda")
+        bs, bt = ((x.unfold(1, bw, stride).unfold(2, bw, stride) * win_t).contiguous()
+                  for x in (s, t))
+        yard = time_ms(lambda: (torch.fft.rfft2(bs), torch.fft.rfft2(bt)), 5)
+        yardstick += yard
+        print(f"  yardstick bw {bw} (no PyTorch call computes this loss; a reference only): "
+              f"torch.fft.rfft2 of the unfolded, windowed blocks of both tensors alone "
+              f"{yard:.3f} ms", flush=True)
+        del bs, bt
+    print(f"  yardstick per microbatch (cuFFT's transforms alone, both widths): {yardstick:.3f} ms",
+          flush=True)
     out = {}
     for key, name in (("fwd", "mss2d_block_loss"), ("bwd", "mss2d_block_loss_grad")):
         err, ms, plain_ms, flops, nbytes = tot[key]

@@ -54,8 +54,8 @@
 // stride rows; in a step one thread writes a cell, so each row sums its
 // positions in position order. The step after a row's last position, the
 // producers apply the W adjoint, D_j[y, c] = w1[c] Re(sum_{l <= bw/2} Q[y, l]
-// e^{+2 pi i l c / bw}), as one inverse FFT of Q's Hermitian extension (both
-// tensors in one transform, as its real and imaginary parts), and write D_j.
+// e^{+2 pi i l c / bw}), as one inverse FFT of Q's Hermitian extension per
+// tensor (so d_sample is the same with or without dTarget), and write D_j.
 // K6b adds, for each pixel, D_j of the column blocks covering it, in ascending
 // j. dTarget (-sign, T/|T|) is computed only when asked for. No atomics: two
 // calls agree bit for bit.
@@ -218,38 +218,24 @@ __device__ __forceinline__ float2 herm(float2 q, int l) {
   return l < BW / 2 ? make_float2(0.5f * q.x, 0.5f * q.y) : make_float2(0.5f * q.x, -0.5f * q.y);
 }
 
-// K6: the W adjoint of a finished gradient-ring row (slot sl), written to
-// D_j[y] (ds, dt: bw floats each; dt null without dTarget); clears the row.
+// K6: the W adjoint of one tensor's finished gradient-ring row q (bw/2 + 1
+// bins), written to D_j[y] (bw floats at d); clears the row.
 template <int BW>
-__device__ __forceinline__ void finalize_row(const Lane<BW>& ln, float2* qs, float2* qt, int sl,
-                                             float* ds, float* dt) {
+__device__ __forceinline__ void finalize_row(const Lane<BW>& ln, float2* q, float* d) {
   using SH = Shape<BW>;
-  qs += sl * SH::QS;
-  if (qt) qt += sl * SH::QS;
   float2 v[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
-    const int l = ln.bin(e), src = l <= BW / 2 ? l : BW - l;
-    const float2 hs = herm<BW>(qs[src], l);
-    const float2 ht = qt ? herm<BW>(qt[src], l) : make_float2(0.f, 0.f);
-    v[e] = make_float2(hs.x - ht.y, hs.y + ht.x);
+    const int l = ln.bin(e);
+    v[e] = herm<BW>(q[l <= BW / 2 ? l : BW - l], l);
   }
   __syncwarp(ln.mask);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int l = ln.bin(e);
-    if (l <= BW / 2) {
-      qs[l] = make_float2(0.f, 0.f);
-      if (qt) qt[l] = make_float2(0.f, 0.f);
-    }
-  }
+  for (int e = 0; e < 8; ++e)
+    if (ln.bin(e) <= BW / 2) q[ln.bin(e)] = make_float2(0.f, 0.f);
   fft_inv<BW>(v, ln);
 #pragma unroll
-  for (int n1 = 0; n1 < 8; ++n1) {
-    const int c = SH::N2 * n1 + ln.t;
-    ds[c] = ln.w1[n1] * v[n1].x;
-    if (dt) dt[c] = ln.w1[n1] * v[n1].y;
-  }
+  for (int n1 = 0; n1 < 8; ++n1) d[SH::N2 * n1 + ln.t] = ln.w1[n1] * v[n1].x;
 }
 
 __device__ __forceinline__ float cabs(float2 z) { return sqrtf(z.x * z.x + z.y * z.y); }
@@ -277,14 +263,11 @@ mss2d_kernel(const float* __restrict__ sample, const float* __restrict__ target,
   const Lane<BW> ln(smem + L.x_off(), E_g, w1_g);
   const int group = threadIdx.x / N2;
 
-  // K6: the gradient rows of column block jj (slot sl) and where they go
+  // K6: row y of column block jj is finished: D_j[y] of each tensor
   auto finalize = [&](int jj, int y) {
-    const int j = j0 + jj, sl = y % ring;
-    float* ds = D + ((((int64_t)b * H + y) * n_cols + j) * BW);
-    float* dt = n_grad > 1 ? ds + (int64_t)bc * H * n_cols * BW : nullptr;
-    float2* qs = Qr + (size_t)jj * ring * SH::QS;
-    float2* qt = n_grad > 1 ? qs + (size_t)JB * ring * SH::QS : nullptr;
-    finalize_row<BW>(ln, qs, qt, sl, ds, dt);
+    for (int tens = 0; tens < n_grad; ++tens)
+      finalize_row<BW>(ln, Qr + (((size_t)tens * JB + jj) * ring + y % ring) * SH::QS,
+                       D + (((((int64_t)tens * bc + b) * H + y) * n_cols + j0 + jj) * BW));
   };
 
   if (BWD)

@@ -237,7 +237,13 @@ def test_fgla_hopper_route(cuda, n):
 @pytest.mark.parametrize("bw,stride,bc,h,w", [(32, 4, 2, 32 + 21, 32 + 13),
                                               (64, 8, 2, 64 + 19, 64 + 9),
                                               (32, 4, 16, 256 + 32, 680 + 32),
-                                              (64, 8, 16, 256 + 64, 680 + 64)])
+                                              (64, 8, 16, 256 + 64, 680 + 64),
+                                              (32, 4, 1, 32 + 21, 32 + 13),     # bc 1
+                                              (64, 8, 1, 64 + 19, 64 + 9),
+                                              (32, 4, 2, 32 + 3, 32 + 2),       # one position
+                                              (64, 8, 2, 64 + 5, 64 + 3),
+                                              (32, 4, 2, 32 + 9, 32 + 21),      # 6 column blocks
+                                              (32, 3, 2, 32 + 21, 32 + 23)])    # another stride
 def test_mss2d_kernels_match_plain(cuda, bw, stride, bc, h, w):
     """K5 per-image sums to 1e-4 relative (fp32 sums in another order;
     measured 4e-7). K6 to 1e-4 of max with target = sample / 2, where
@@ -245,7 +251,9 @@ def test_mss2d_kernels_match_plain(cuda, bw, stride, bc, h, w):
     some bins have |S| ~ |T| and the sign of their difference flips between
     two fp32 evaluations, so there the gradients agree to 1e-3 relative L2
     (measured 1.6e-4 at the chip path's shapes). Two K6 calls agree bit for
-    bit; the small shapes leave ragged edges."""
+    bit; the small shapes leave ragged edges: rows and columns no block
+    covers, fewer positions than a ring step, and at bw 32 a thread block
+    (4 column blocks) whose last column blocks lie past the image."""
     g = torch.Generator(device=cuda).manual_seed(3)
     s = torch.randn((bc, h, w), generator=g, device=cuda)
     gg = torch.randn((bc,), generator=g, device=cuda)
@@ -270,6 +278,19 @@ def test_mss2d_kernels_match_plain(cuda, bw, stride, bc, h, w):
     assert none is None and torch.equal(only_s, ds)
     assert (mss2d_block_loss.launches, mss2d_block_loss_grad.launches) == \
         (before[0] + 1, before[1] + 4)
+
+
+@pytest.mark.cuda
+def test_mss2d_compiled_plans(cuda):
+    """The kernel's compiled plans are MSS2D_PLANS (the CPU model's)."""
+    import ctypes
+    from dualdiffusion_tpu_torch.ops.kernels import MSS2D_PLANS
+    from dualdiffusion_tpu_torch.ops.kernels.build import library
+    for bw, p in MSS2D_PLANS.items():
+        got = (ctypes.c_int * 7)()
+        assert library().lib.dd_mss2d_plan(bw, got) == 1
+        assert list(got) == [p.threads, *p.radices, p.cols, p.z_stride, p.q_stride, p.x_slots]
+    assert library().lib.dd_mss2d_plan(16, (ctypes.c_int * 7)()) == 0
 
 
 @pytest.mark.cuda
@@ -399,6 +420,8 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         mss2d_block_loss(s, s, 16, 2, _window_2d("flat_top", 16), product_weights(16))
     with pytest.raises(ValueError):                          # a window that is not separable
         mss2d_block_loss(s, s, 32, 4, _window_2d("flat_top_circular", 32), product_weights(32))
+    with pytest.raises(ValueError):                          # strides 1 to bw
+        mss2d_block_loss(s, s, 32, 33, _window_2d("flat_top", 32), product_weights(32))
     a = torch.randn((1, 2, 64, 64), device=cuda).half()      # bf16 and fp32 only
     with pytest.raises(TypeError):
         flash_attention(a, a, a)

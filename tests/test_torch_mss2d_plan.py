@@ -125,23 +125,16 @@ def kernel_model(s, t, bw, stride, w1, weight, g=None, n_grad=1):
                 a = w1r * (s[b][ys[:, None, None], x0 + r] + 1j * t[b][ys[:, None, None], x0 + r])
                 z[jj, (ys % ring)[:, None, None], kb] = fft_fwd(a, sh)
 
-            def finalize(jj, ys):
+            def finalize(jj, ys):                            # one inverse FFT per tensor
                 sl = (ys % ring)[:, None, None]
                 src = np.where(kb <= bw // 2, kb, bw - kb)
-                hs = []
-                for tens in range(2):
-                    if tens >= n_grad:
-                        hs.append(0.0)
-                        continue
+                end = (kb == 0) | (kb == bw // 2)
+                for tens in range(n_grad):
                     v = q[tens, jj, sl, src]
-                    end = (kb == 0) | (kb == bw // 2)
-                    hs.append(np.where(end, v.real, np.where(kb < bw // 2, 0.5 * v, 0.5 * np.conj(v))))
+                    v = np.where(end, v.real, np.where(kb < bw // 2, 0.5 * v, 0.5 * np.conj(v)))
+                    D[tens, b, ys[:, None, None], bx * jb + jj, r] = \
+                        (fft_inv(v, sh) * w1r).real                  # c = N2 n1 + t
                 q[:, jj, ys % ring, :bins] = 0
-                out = fft_inv(hs[0] + 1j * np.asarray(hs[1]), sh) * w1r     # c = N2 n1 + t
-                j = bx * jb + jj
-                D[0, b, ys[:, None, None], j, r] = out.real
-                if n_grad > 1:
-                    D[1, b, ys[:, None, None], j, r] = out.imag
 
             for jj in cols:
                 stage1(jj, np.arange(bw))
