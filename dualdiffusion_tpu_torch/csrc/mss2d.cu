@@ -117,7 +117,7 @@ template <int BW> struct Lane {
     mask = ((1u << SH::N2) - 1) << ((threadIdx.x & 31) & ~(SH::N2 - 1));
     xb = xbase + (threadIdx.x / SH::N2) * SH::XS;
 #pragma unroll
-    for (int k1 = 0; k1 < 8; ++k1) tw[k1] = __ldg(E_g + BW + (t * k1) % BW);  // E[1][m]
+    for (int k1 = 0; k1 < 8; ++k1) tw[k1] = __ldg(E_g + (t * k1) % BW);  // E[m] = W_bw^m
 #pragma unroll
     for (int n1 = 0; n1 < 8; ++n1) w1[n1] = __ldg(w1_g + SH::N2 * n1 + t);
   }
@@ -442,7 +442,9 @@ void plan_of(int* out) {
 
 }  // namespace
 
-// partial: bc x ceil(n_cols / JB) floats of scratch; out: (bc,) sums.
+// E: the bw twiddles e^{-2 pi i m / bw} (complex fp32); w1: the window's
+// 1-D factor; weight: (bw, bw/2 + 1). partial: bc x ceil(n_cols / JB)
+// floats of scratch; out: (bc,) sums.
 extern "C" int dd_mss2d_fwd(const void* s, const void* t, int bc, int H, int W, int bw, int stride,
                             int n_rows, int n_cols, const void* E, const void* w1,
                             const void* weight, void* partial, void* out, void* stream) {

@@ -107,16 +107,15 @@ def _separable_factor(window: np.ndarray) -> np.ndarray:
 
 
 def _tables(bw: int, window: np.ndarray, weight: np.ndarray, device) -> tuple:
-    """(E, w1, weight) on ``device``: E[r, k] = e^{-2 pi i k r / bw} as
-    interleaved fp32 (bw, bw, 2), built in float64."""
+    """(E, w1, weight) on ``device``: the FFTs' twiddles E[m] =
+    e^{-2 pi i m / bw} as interleaved fp32 (bw, 2), built in float64."""
     key = (bw, np.asarray(window, np.float32).tobytes(),
            np.asarray(weight, np.float32).tobytes(), str(device))
     if key not in _TABLES:
         if np.shape(window) != (bw, bw) or np.shape(weight) != (bw, bw // 2 + 1):
             raise ValueError(f"window {np.shape(window)} / weight {np.shape(weight)} do not "
                              f"fit block width {bw}")
-        n = np.arange(bw)
-        e = np.exp(-2j * np.pi * np.outer(n, n) / bw)
+        e = np.exp(-2j * np.pi * np.arange(bw) / bw)
         tabs = (np.stack([e.real, e.imag], -1), _separable_factor(window), weight)
         _TABLES[key] = tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
                              for a in tabs)
