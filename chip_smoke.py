@@ -177,6 +177,7 @@ def ptxas_usage(log: str, pattern: str) -> list:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1) if pattern in m.group(1) else None
+            spills = (0, 0)
             continue
         if name is None:
             continue

@@ -436,8 +436,8 @@ int launch_bwd(const float* s, const float* t, const float* g, int bc, int H, in
 template <int BW>
 void plan_of(int* out) {
   using PL = Plan<BW>;
-  const int v[] = {PL::N2, 8, PL::N2, PL::JB, PL::ZS, PL::QS, PL::XS};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const int v[] = {PL::N2, PL::JB, PL::ZS, PL::QS, PL::XS};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
 }
 
 }  // namespace
@@ -479,9 +479,9 @@ extern "C" int dd_mss2d_bwd(const void* s, const void* t, const void* g, int bc,
   return (int)cudaErrorInvalidValue;
 }
 
-// The compiled plan of block width bw: (threads an FFT, its two radices,
-// column blocks a thread block, stage-1 ring row stride, gradient ring row
-// stride, exchange slots an FFT) into out[0..6]; returns 1 if bw has one.
+// The compiled plan of block width bw (MSS2D_PLANS): threads an FFT, column
+// blocks a thread block, stage-1 ring row stride, gradient ring row stride,
+// exchange slots an FFT, into out[0..4]; returns 1 if bw has one.
 extern "C" int dd_mss2d_plan(int bw, int* out) {
   if (bw == 64) {
     plan_of<64>(out);

@@ -11,9 +11,8 @@ from .flash_attention import flash_attention, flash_attention_plain
 from .grouped_conv import (GroupedConv3x3Fn, dgrad_weights, grouped_conv3x3, hopper_takes,
                            grouped_conv3x3_plain, grouped_conv3x3_wgrad,
                            grouped_conv3x3_wgrad_plain, prepare_weights)
-from .mss2d import (MSS2D_PLANS, Mss2dBlockLossFn, Mss2dPlan, mss2d_block_loss,
-                    mss2d_block_loss_grad, mss2d_block_loss_grad_plain, mss2d_block_loss_plain,
-                    mss2d_loss_fused)
+from .mss2d import (MSS2D_PLANS, Mss2dBlockLossFn, mss2d_block_loss, mss2d_block_loss_grad,
+                    mss2d_block_loss_grad_plain, mss2d_block_loss_plain, mss2d_loss_fused)
 from .ola_reframe import ola_reframe, ola_reframe_plain
 
 #: every kernel wrapper of the serving and training paths

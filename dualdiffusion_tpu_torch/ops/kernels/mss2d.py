@@ -34,12 +34,11 @@ KERNEL_WIDTHS = (32, 64)
 class Mss2dPlan:
     """How K5/K6 (csrc/mss2d.cu) run block width bw. Every transform is a
     bw-point complex FFT held by ``threads`` threads of 8 points each, in two
-    passes of ``radices`` (8, threads); a thread block walks ``cols`` column
-    blocks side by side. ``z_stride`` and ``q_stride`` are the row strides
-    (complex) of the stage-1 ring and the gradient ring, ``x_slots`` the
-    complex slots of one FFT's shared exchange slice."""
+    passes of radix 8 and radix ``threads``; a thread block walks ``cols``
+    column blocks side by side. ``z_stride`` and ``q_stride`` are the row
+    strides (complex) of the stage-1 ring and the gradient ring, ``x_slots``
+    the complex slots of one FFT's shared exchange slice."""
     threads: int
-    radices: Tuple[int, int]
     cols: int
     z_stride: int
     q_stride: int
@@ -47,8 +46,7 @@ class Mss2dPlan:
 
 
 #: bw -> plan; the kernel compiles the same plans (dd_mss2d_plan)
-MSS2D_PLANS = {64: Mss2dPlan(8, (8, 8), 1, 66, 34, 72),
-               32: Mss2dPlan(4, (8, 4), 4, 36, 20, 44)}
+MSS2D_PLANS = {64: Mss2dPlan(8, 1, 66, 34, 72), 32: Mss2dPlan(4, 4, 36, 20, 44)}
 
 
 def _grid(shape, bw: int, stride: int) -> Tuple[int, int, int, int, int]:

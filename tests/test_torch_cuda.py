@@ -287,10 +287,10 @@ def test_mss2d_compiled_plans(cuda):
     from dualdiffusion_tpu_torch.ops.kernels import MSS2D_PLANS
     from dualdiffusion_tpu_torch.ops.kernels.build import library
     for bw, p in MSS2D_PLANS.items():
-        got = (ctypes.c_int * 7)()
+        got = (ctypes.c_int * 5)()
         assert library().lib.dd_mss2d_plan(bw, got) == 1
-        assert list(got) == [p.threads, *p.radices, p.cols, p.z_stride, p.q_stride, p.x_slots]
-    assert library().lib.dd_mss2d_plan(16, (ctypes.c_int * 7)()) == 0
+        assert list(got) == [p.threads, p.cols, p.z_stride, p.q_stride, p.x_slots]
+    assert library().lib.dd_mss2d_plan(16, (ctypes.c_int * 5)()) == 0
 
 
 @pytest.mark.cuda

@@ -214,7 +214,7 @@ def test_plan_is_the_compiled_plan(bw):
     assert m, "Plan<%d> not found in %s" % (bw, SOURCE.name)
     p = MSS2D_PLANS[bw]
     assert [int(v) for v in m.groups()] == [p.threads, p.cols, p.z_stride, p.q_stride, p.x_slots]
-    assert p.radices == (8, p.threads) and 8 * p.threads == bw
+    assert 8 * p.threads == bw
 
 
 @pytest.mark.parametrize("bw", WIDTHS)
