@@ -20,8 +20,8 @@
 // that cover a row. Stage 2 is X_ij[k, l] = sum_r Fr[k, r] P_j[i*s + r, l].
 //
 // What bounds it on the H100: fp32 arithmetic (the inputs are read once, a few
-// tens of MB). The first version (PR 3) ran both stages as direct DFTs, about
-// 12x the arithmetic of FFTs. Here every transform is a bw-point complex FFT
+// tens of MB). Direct DFTs in both stages would take about 12x the
+// arithmetic of FFTs. Here every transform is a bw-point complex FFT
 // held in registers by N2 = bw/8 threads of 8 points each (MSS2D_PLANS in
 // ops/kernels/mss2d.py is the same plan, and tests/test_torch_mss2d_plan.py
 // models it): thread t holds points t + N2 n1, runs a radix-8 codelet
