@@ -15,8 +15,13 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    dgrad, K4 for wgrad), one 45 s stereo Griffin-Lim iteration (K3, and K2
    on both its routes, the Hopper kernel and the Stockham one, against the
    plain version in float64 at three seeds, beside cuFFT's transforms
-   alone) and a 5-iteration Griffin-Lim run, the fused 2-D multi-scale spectral loss
-   of the DAE training microbatch, forward (K5) and gradient (K6), and the
+   alone) and a 5-iteration Griffin-Lim run, K3 on both its routes (the
+   Hopper kernel and the gather one, in turns) at n_fft 6400 and 4096, fp32
+   and bf16, F 5504 and the smallest F whose reflect zones nearly meet,
+   the fused 2-D multi-scale spectral loss
+   of the DAE training microbatch, forward (K5) and gradient (K6), with the
+   shapes the FFT kernels do not take (bw 16 and 128, a window that is not
+   separable, stride > bw) checked and timed on the direct-DFT kernels, and the
    flash attention (K7) at the full-attention model's level-1 shapes (B 2,
    L 5504, D 64, 4/8/12 heads, plus a band, a causal and a ragged case, and
    head widths 8, 24 and 192), with K7 against the einsum route from L 86
@@ -30,7 +35,8 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    UNet, 64-ch DAE, 256-bin mel format) from a seed, saves it, loads it with
    ``Pipeline.from_pretrained`` and calls ``generate`` twice (45 s, batch 1,
    CFG 1.5, Heun, SPSI + 100 Griffin-Lim iterations), checking the audio and
-   that K1, K2 and K3 were launched and K7 was not (its "freq" attention
+   that K1, K2 and K3 were launched (every K3 call on its Hopper route) and
+   K7 was not (its "freq" attention
    sees L <= 32); then the same for ``ref_scale_full_attn`` (the same model
    with "full" attention at levels 1, 3 and 4), where K7 must be launched
    at level 1 (L 5504);
@@ -44,7 +50,8 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    (configs/models/edm2_default) on the MS-MDCT dual format, its trainer
    config with the fused MSS2D loss, 32 synthetic stereo WAVs, 5.5 s crops,
    device batch 8 x accumulation 2, 4 steps then 1 after ``--resume``,
-   checking that K5 and K6 were launched.
+   checking that K5 and K6 were launched and no call went to the plain
+   version.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
 one full-width DAE train step (step 7's model, data and config).
@@ -84,7 +91,7 @@ KERNEL_INFO = [
      "dualdiffusion_tpu/ops/pallas/grouped_conv.py:342"),
     ("fgla_frame", "cuda", "dualdiffusion_tpu_torch/csrc/fgla_frame_hopper.cu",
      "dualdiffusion_tpu/ops/pallas/fgla_iter.py:75"),
-    ("ola_reframe", "cuda", "dualdiffusion_tpu_torch/csrc/ola_reframe.cu",
+    ("ola_reframe", "cuda", "dualdiffusion_tpu_torch/csrc/ola_reframe_hopper.cu",
      "dualdiffusion_tpu/ops/pallas/ola_reframe.py:68"),
     ("mss2d_block_loss", "cuda", "dualdiffusion_tpu_torch/csrc/mss2d.cu",
      "dualdiffusion_tpu/ops/pallas/mss2d.py:66"),
@@ -399,22 +406,104 @@ def fgla_inputs(fmt, gen):
 
 def fgla_route(n: int) -> str:
     """The K2 kernel ``fgla_frame`` takes at n_fft ``n``: "hopper" or "stockham"."""
-    import importlib
-    return importlib.import_module(
-        "dualdiffusion_tpu_torch.ops.kernels.fgla_frame").fgla_plan(n).route
+    from dualdiffusion_tpu_torch.ops.kernels import fgla_plan
+    return fgla_plan(n).route
 
 
 def forced_fgla_route(route: str):
     """A context in which K2 takes `route`: "stockham" (the PR 1 kernel, at
     every size, for comparisons) or "hopper" (as ``fgla_plan`` chooses)."""
     import contextlib
-    import importlib
-    from unittest import mock
-    if route == "hopper":
-        return contextlib.nullcontext()
-    ff = importlib.import_module("dualdiffusion_tpu_torch.ops.kernels.fgla_frame")
-    return mock.patch.object(ff, "fgla_plan",
-                             lambda n: ff.FglaPlan("stockham", tuple(ff.fft_radices(n // 2))))
+    from dualdiffusion_tpu_torch.ops.kernels import stockham_everywhere
+    return stockham_everywhere() if route == "stockham" else contextlib.nullcontext()
+
+
+def ola_route(n: int, hop: int) -> str:
+    """The K3 kernel ``ola_reframe`` takes at n_fft ``n``: "hopper" or "gather"."""
+    from dualdiffusion_tpu_torch.ops.kernels import ola_plan
+    return ola_plan(n, hop).route
+
+
+def forced_ola_route(route: str):
+    """A context in which K3 takes `route`: "gather" (csrc/ola_reframe.cu, at
+    every shape, for comparisons) or "hopper" (as ``ola_plan`` chooses)."""
+    import contextlib
+    from dualdiffusion_tpu_torch.ops.kernels import gather_everywhere
+    return gather_everywhere() if route == "gather" else contextlib.nullcontext()
+
+
+def kernel_phase_ola(fmt, gen) -> dict:
+    """K3 on both routes, the Hopper kernel (``ola_plan``'s choice at hop 256)
+    and the gather kernel (csrc/ola_reframe.cu), in turns, at the serving paths' n_fft:
+    6400 (the spectrogram format's window and envelope) and 4096 (the
+    MS-MDCT dual format's periodic Hann), hop 256, B*C 2, fp32 and bf16.
+    Each route against the plain version at F 5504 and at the smallest F
+    whose reflect zones nearly meet (14 at 6400, 10 at 4096): fp32 to 1e-5
+    of max (sums in another order), bf16 to 2**-6 (one rounding of the
+    stored result). At F 5504: CUDA-event ms of each route (two rounds,
+    in turns) and of the plain version, GB/s and the share of the bound,
+    and the Hopper kernel's registers and spills."""
+    import numpy as np
+    import torch
+    from dualdiffusion_tpu_torch.ops.kernels import ola_reframe, ola_reframe_plain
+    from dualdiffusion_tpu_torch.ops.kernels.build import library
+    from dualdiffusion_tpu_torch.ops.stft import envelope, pad_center
+    from dualdiffusion_tpu_torch.ops.windows import get_window
+    for name, regs, st, ld in ptxas_usage(library().log, "ola_reframe"):
+        print(f"  ptxas {name}: {regs} registers, spills {st} B stored / {ld} B loaded",
+              flush=True)
+    hop, rows, f_serv = 256, 2, 5504
+    windows = {fmt.config.padded_length: pad_center(np.asarray(fmt.window),
+                                                    fmt.config.padded_length),
+               4096: get_window("hann", 4096, periodic=True)}
+    print(f"K3 ola_reframe, both routes: B*C {rows}, hop {hop}, n_fft {tuple(windows)}, "
+          f"F {f_serv} and the smallest F; routes: "
+          + ", ".join(f"{n} {ola_route(n, hop)}" for n in windows), flush=True)
+    out = None
+    for n, window in windows.items():
+        if ola_route(n, hop) != "hopper":
+            raise AssertionError(f"K3 does not take its Hopper route at n_fft {n}")
+        win = torch.as_tensor(window, dtype=torch.float32, device="cuda")
+        for f in (f_serv, 14 if n == 6400 else 10):
+            inv_env = torch.as_tensor((1.0 / envelope(window, n, hop, f)).astype(np.float32),
+                                      device="cuda")
+            for wd, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -6)):
+                y = torch.randn((rows, f, n), generator=gen, device="cuda").mul(0.05).to(wd)
+                want = ola_reframe_plain(y, win, inv_env, hop)
+                errs = {}
+                for rt in ("hopper", "gather", "gather", "hopper"):
+                    before = ola_reframe.routes[rt]
+                    with forced_ola_route(rt):
+                        got = ola_reframe(y, win, inv_env, hop)
+                    torch.cuda.synchronize()
+                    if ola_reframe.routes[rt] != before + 1:
+                        raise AssertionError(f"K3 did not take its {rt} route")
+                    errs[rt] = check_close(f"K3 [{rt}] n_fft {n} F {f} {wd}", got, want, tol)
+                if f != f_serv:
+                    continue
+                times = {}
+                for rt in ("hopper", "gather", "gather", "hopper"):
+                    with forced_ola_route(rt):
+                        times.setdefault(rt, []).append(time_ms(
+                            lambda: ola_reframe(y, win, inv_env, hop), 20))
+                plain = time_ms(lambda: ola_reframe_plain(y, win, inv_env, hop), 3)
+                sig_len = (f - 1) * hop + n
+                # per signal sample n/hop multiply-adds of the overlap-add and
+                # one window product per output sample; frames in and out,
+                # window and envelope in
+                flops = rows * (sig_len * 2 * n / hop + f * n)
+                nbytes = rows * f * n * 2 * y.element_size() + 4 * (n + sig_len)
+                bound_ms, by = bound(flops, nbytes, "fp32")
+                print(f"  K3 n_fft {n} F {f} {wd}: " + "; ".join(
+                    f"{rt} {min(v):.4f} ms (rounds {', '.join(f'{t:.4f}' for t in v)}), "
+                    f"{nbytes / min(v) / 1e6:.1f} GB/s, {bound_ms / min(v):.1%} of the bound"
+                    for rt, v in times.items())
+                    + f"; plain {plain:.3f} ms; bound {bound_ms:.4f} ms ({by}, "
+                    f"{nbytes / 1e6:.1f} MB)", flush=True)
+                serving = getattr(torch, fmt.config.fgla_work_dtype)
+                if n == fmt.config.padded_length and wd == serving:
+                    out = result(errs["hopper"], min(times["hopper"]), plain, flops, nbytes, "fp32")
+    return {"ola_reframe": out}
 
 
 def check_fgla_frame(name: str, got, want64, want32, wd) -> float:
@@ -480,8 +569,8 @@ def kernel_phase_fgla(fmt, gen):
         merged = mag.mean(1, keepdim=True).expand_as(mag).to(wd).contiguous()
         y = torch.randn((b, c, f, n), generator=gen, device="cuda").mul(0.05).to(wd)
         r_prev = torch.randn((b, c, f, bins, 2), generator=gen, device="cuda").to(wd)
-        e3 = check_close(f"K3 {wd}", ola_reframe(y, win, inv_env, hop),
-                         ola_reframe_plain(y, win, inv_env, hop), tol)
+        check_close(f"K3 {wd} [{ola_route(n, hop)}]", ola_reframe(y, win, inv_env, hop),
+                    ola_reframe_plain(y, win, inv_env, hop), tol)
         e2 = 0.0
         for seed in range(3):
             if seed:   # seeds 1, 2 from their own generators: later phases' draws stay
@@ -499,14 +588,12 @@ def kernel_phase_fgla(fmt, gen):
                 if rt == route:
                     e2 = max(e2, err)
         if wd == getattr(torch, cfg.fgla_work_dtype):
-            ms3 = time_ms(lambda: ola_reframe(y, win, inv_env, hop))
-            plain3 = time_ms(lambda: ola_reframe_plain(y, win, inv_env, hop))
             plain2 = time_ms(lambda: fgla_frame_plain(frames, r_prev, spec, merged, 0.25, 0.4975))
             frames32 = frames.float()
             cufft = time_ms(lambda: torch.fft.irfft(torch.fft.rfft(frames32, dim=-1), n=n, dim=-1))
             print(f"  cuFFT transforms alone (torch.fft.rfft + irfft of the fp32 frames, a "
-                  f"reference only): {cufft:.4f} ms; fgla_frame plain {plain2:.3f} ms; "
-                  f"ola_reframe: kernel {ms3:.3f} ms, plain {plain3:.3f} ms", flush=True)
+                  f"reference only): {cufft:.4f} ms; fgla_frame plain {plain2:.3f} ms "
+                  f"(K3's times: kernel_phase_ola)", flush=True)
         times = {}
         for _ in range(2):   # the routes in turns, twice
             for rt in ("hopper", "stockham"):
@@ -537,12 +624,6 @@ def kernel_phase_fgla(fmt, gen):
             results["fgla_frame"] = result(
                 e2, ms2, plain2, frames_n * (5 * n * math.log2(n) + 20 * bins),
                 frames_n * item * (2 * n + 6 * bins), "fp32")
-            # K3: per signal sample n/hop multiply-adds of the overlap-add and
-            # one window product per output sample; frames in and out
-            sig_len = (f - 1) * hop + n
-            results["ola_reframe"] = result(
-                e3, ms3, plain3, b * c * (sig_len * 2 * n / hop + f * n),
-                b * c * f * n * 2 * item + 4 * (n + sig_len), "fp32")
 
     kw = dict(n_fft=n, hop_length=hop, n_iter=5, momentum=cfg.fgla_momentum,
               stereo=cfg.stereo, stereo_coherence=cfg.stereo_coherence,
@@ -644,7 +725,8 @@ def slice_phase(kind: str = "freq"):
     n_fft = fcfg.ms_window_length if kind == "ms_mdct_dual" else fcfg.padded_length
     print(f"slice on a tiny model ({kind}: {ucfg.attn_axis} attention, {fmt_type}, latents "
           f"{tuple(lat_shape)}, audio {raw_shape}; FGLA n_fft {n_fft}, K2 {fgla_route(n_fft)} "
-          f"route), CUDA (kernels: {launched}) vs CPU (plain versions):", flush=True)
+          f"route, K3 {ola_route(n_fft, 256)} route), CUDA (kernels: {launched}) vs CPU (plain "
+          f"versions):", flush=True)
     for key, tol in (("latents", 5e-2), ("sample", 5e-2)):
         check_close(key, outs["cuda"][key], outs["cpu"][key], tol)
     a, b = outs["cuda"]["audio_mel"], outs["cpu"]["audio_mel"]
@@ -726,6 +808,48 @@ def train_slice_phase():
         raise AssertionError("train step params on the card disagree with the CPU run")
 
 
+def mss2d_dft_route_check(gen) -> None:
+    """The shapes the JAX op takes and the FFT kernels do not (bw 16, a
+    window that is not separable, a stride above bw, the widest block, 128)
+    take the direct-DFT kernels (csrc/mss2d_dft.cu), routed by shape: the
+    loss and both gradients against the plain version on CPU copies, 1e-4
+    of max (fp32 sums in another order), each call counted as a launch on
+    the "dft" route; then each kernel and the plain version on the card
+    timed, fp32."""
+    import torch
+    from dualdiffusion_tpu_torch.ops.kernels import (mss2d_block_loss, mss2d_block_loss_grad,
+                                                     mss2d_block_loss_grad_plain,
+                                                     mss2d_block_loss_plain, mss2d_route)
+    from dualdiffusion_tpu_torch.training.losses import _window_2d, product_weights
+    for bw, stride, window in ((16, 2, "flat_top"), (32, 4, "flat_top_circular"),
+                               (32, 33, "flat_top"), (128, 16, "flat_top")):
+        s, t = (torch.randn((4, 72 + bw, 90 + bw), generator=gen, device="cuda")
+                for _ in range(2))
+        g = torch.rand((4,), generator=gen, device="cuda") + 0.5
+        win, wgt = _window_2d(window, bw), product_weights(bw) / bw
+        counts = (mss2d_block_loss.launches, mss2d_block_loss_grad.launches,
+                  mss2d_block_loss.routes["dft"], mss2d_block_loss_grad.routes["dft"])
+        got = (mss2d_block_loss(s, t, bw, stride, win, wgt),
+               *mss2d_block_loss_grad(s, t, g, bw, stride, win, wgt))
+        cpu = [v.cpu() for v in (s, t, g)]
+        want = (mss2d_block_loss_plain(*cpu[:2], bw, stride, win, wgt),
+                *mss2d_block_loss_grad_plain(*cpu, bw, stride, win, wgt))
+        tag = f"K5/K6 bw {bw} stride {stride} {window} [{mss2d_route(bw, stride, win)}]"
+        for name, a, b in zip(("loss", "d_sample", "d_target"), got, want):
+            check_close(f"{tag} {name} (card vs CPU)", a.cpu(), b, 1e-4)
+        now = (mss2d_block_loss.launches, mss2d_block_loss_grad.launches,
+               mss2d_block_loss.routes["dft"], mss2d_block_loss_grad.routes["dft"])
+        if now != tuple(c + 1 for c in counts):
+            raise AssertionError(f"{tag}: not counted as one launch each on the dft route")
+        args = (bw, stride, win, wgt)
+        ms = (time_ms(lambda: mss2d_block_loss(s, t, *args), 5),
+              time_ms(lambda: mss2d_block_loss_plain(s, t, *args), 3),
+              time_ms(lambda: mss2d_block_loss_grad(s, t, g, *args), 5),
+              time_ms(lambda: mss2d_block_loss_grad_plain(s, t, g, *args), 3))
+        print(f"  {tag} (4, {72 + bw}, {90 + bw}) fp32: K5 {ms[0]:.3f} ms (plain {ms[1]:.3f}), "
+              f"K6 with dTarget {ms[2]:.3f} ms (plain {ms[3]:.3f})", flush=True)
+
+
 def kernel_phase_mss2d(gen) -> dict:
     """K5 and K6 at the DAE training microbatch's shapes: the (8, 2, 256, 680)
     recon and target mel, mid/side-stacked to 16 images, reflect-padded by
@@ -755,6 +879,7 @@ def kernel_phase_mss2d(gen) -> dict:
     for name, regs, st, ld in ptxas_usage(library().log, "mss2d"):
         print(f"  ptxas {name}: {regs} registers, spills {st} B stored / {ld} B loaded",
               flush=True)
+    mss2d_dft_route_check(gen)
     b, c, h, w = TRAIN_BATCH, 2, 256, 680
     print(f"K5 mss2d_block_loss / K6 mss2d_block_loss_grad: recon and target ({b}, {c}, {h}, {w}) "
           f"fp32, stacked to {b * c} images, widths 32 and 64", flush=True)
@@ -1255,7 +1380,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from dualdiffusion_tpu_torch.models import DAE, UNet
     from dualdiffusion_tpu_torch.models.formats import SpectrogramFormat
-    from dualdiffusion_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualdiffusion_tpu_torch.ops.kernels import (launch_counts, reset_launch_counts,
+                                                     route_counts)
     from dualdiffusion_tpu_torch.ops.kernels.build import library
     from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
 
@@ -1293,6 +1419,7 @@ def main() -> int:
     measured = {"grouped_conv3x3": kernel_phase_conv(unet, ucfg.mlp_groups, lat_shape[1],
                                                      lat_shape[2], gen)}
     measured.update(kernel_phase_fgla(fmt, gen))
+    measured.update(kernel_phase_ola(fmt, gen))
     slice_phase()
     slice_phase("ms_mdct_dual")
     measured["grouped_conv3x3_wgrad"] = kernel_phase_conv_backward(
@@ -1318,15 +1445,24 @@ def main() -> int:
     prompt = prompt / prompt.norm(dim=-1, keepdim=True)
     counts = {}
 
-    def path_counts(name: str, kernels, absent=()) -> dict:
+    def path_counts(name: str, kernels, absent=(), only_routes=()) -> dict:
+        """The path's launch counts; every kernel of ``kernels`` launched, none
+        of ``absent``, and every call of (wrapper, route) in ``only_routes``
+        on that route."""
         counts[name] = launch_counts()
-        print(f"kernel launches on the {name} path: {counts[name]}", flush=True)
+        routes = route_counts()
+        print(f"kernel launches on the {name} path: {counts[name]}; calls per route: {routes}",
+              flush=True)
         for k in kernels:
             if counts[name][k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the {name} path")
         for k in absent:
             if counts[name][k] != 0:
                 raise AssertionError(f"kernel {k} was launched on the {name} path")
+        for k, route in only_routes:
+            if sum(routes[k].values()) != routes[k][route]:
+                raise AssertionError(f"{k} took another route than {route} on the {name} path: "
+                                     f"{routes[k]}")
         return counts[name]
 
     with tempfile.TemporaryDirectory(prefix="dd_smoke_") as tmp:
@@ -1342,10 +1478,10 @@ def main() -> int:
         # ---- serving path: from_pretrained -> generate x2 ------------------
         reset_launch_counts()
         print(f"serving: FGLA n_fft {fcfg.padded_length}, K2 {fgla_route(fcfg.padded_length)} "
-              f"route", flush=True)
+              f"route, K3 {ola_route(fcfg.padded_length, fcfg.hop_length)} route", flush=True)
         serving_path(tmp, fmt, prompt)
         path_counts("serving", ("grouped_conv3x3", "fgla_frame", "ola_reframe"),
-                    absent=("flash_attention",))
+                    absent=("flash_attention",), only_routes=(("ola_reframe", "hopper"),))
 
         # ---- the same with full attention at levels 1, 3, 4 ---------------
         print(f"ref_scale_full_attn: attn_axis {full_cfg.attn_axis!r}, attn_levels "
@@ -1355,7 +1491,8 @@ def main() -> int:
         reset_launch_counts()
         serving_path(full_dir, fmt, prompt)
         path_counts("full-attention serving", ("flash_attention", "grouped_conv3x3", "fgla_frame",
-                                               "ola_reframe"))
+                                               "ola_reframe"),
+                    only_routes=(("ola_reframe", "hopper"),))
 
         # ---- UNet training path: train 4 steps, --resume 1 more -------------
         torch.cuda.empty_cache()
@@ -1370,8 +1507,9 @@ def main() -> int:
         reset_launch_counts()
         dae_training_path(Path(tmp))
         per_step = {k: v / (TRAIN_STEPS + 1) for k, v in
-                    path_counts("DAE training", ("mss2d_block_loss",
-                                                 "mss2d_block_loss_grad")).items()}
+                    path_counts("DAE training", ("mss2d_block_loss", "mss2d_block_loss_grad"),
+                                only_routes=(("mss2d_block_loss", "fft"),
+                                             ("mss2d_block_loss_grad", "fft"))).items()}
         print(f"  launches per DAE train step: K5 {per_step['mss2d_block_loss']:g}, "
               f"K6 {per_step['mss2d_block_loss_grad']:g}", flush=True)
 

@@ -41,9 +41,13 @@ SIGNATURES = {
     "dd_fgla_frame_hopper": [_P] * 8 + [_LL, _I, _F, _F, _I, _P],
     "dd_fgla_frame_hopper_plan": [_I, ctypes.POINTER(_I)],
     "dd_ola_reframe": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    "dd_ola_reframe_hopper": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "dd_ola_reframe_hopper_plan": [_I, _I, ctypes.POINTER(_I)],
     "dd_mss2d_fwd": [_P, _P] + [_I] * 7 + [_P] * 6,
     "dd_mss2d_bwd": [_P, _P, _P] + [_I] * 8 + [_P] * 7,
     "dd_mss2d_plan": [_I, ctypes.POINTER(_I)],
+    "dd_mss2d_dft_fwd": [_P, _P] + [_I] * 7 + [_P] * 6,
+    "dd_mss2d_dft_bwd": [_P, _P, _P] + [_I] * 9 + [_P] * 7,
     "dd_flash_attention": [_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _F, _I, _I, _I,
                            _P],
     "dd_flash_attention_wide": [_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _F, _I, _I,

@@ -7,6 +7,23 @@ import contextlib
 import torch
 
 
+class FallbackRoute:
+    """``with <instance>():`` makes a wrapper take its fallback kernel at
+    every shape, so its routes can be compared on one shape; the wrapper
+    reads ``active`` when it plans a call."""
+
+    def __init__(self):
+        self.active = False
+
+    @contextlib.contextmanager
+    def __call__(self):
+        prev, self.active = self.active, True
+        try:
+            yield
+        finally:
+            self.active = prev
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the plain version runs),
     False when every tensor lies on one CUDA device (the kernel runs)."""

@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from .build import library
-from .common import check, on_cpu, ptr, stream_of
+from .common import FallbackRoute, check, on_cpu, ptr, stream_of
 
 #: two buffers of n/2 complex fp32 must fit a block's shared memory (227 KB)
 MAX_N = 227 * 1024 // 8
@@ -73,10 +73,15 @@ HOPPER_PLANS = {3200: (40, 80, 4, (40, 10, 8)), 2048: (32, 64, 4, (32, 8, 8))}
 SMEM_PAD_EVERY = 32
 
 
-def fgla_plan(n: int) -> FglaPlan:
-    """The route and pass schedule K2 takes for n_fft ``n`` (even)."""
+#: ``with stockham_everywhere():`` K2 takes the Stockham kernel at every size
+stockham_everywhere = FallbackRoute()
+
+
+def fgla_plan(n: int, stockham_only: bool = False) -> FglaPlan:
+    """The route and pass schedule K2 takes for n_fft ``n`` (even); the
+    Stockham kernel at every size with ``stockham_only``."""
     m = n // 2
-    if n % 2 == 0 and m in HOPPER_PLANS:
+    if not stockham_only and n % 2 == 0 and m in HOPPER_PLANS:
         points, threads, frames, radices = HOPPER_PLANS[m]
         return FglaPlan("hopper", radices, points, threads, frames)
     return FglaPlan("stockham", tuple(fft_radices(m)))
@@ -153,7 +158,7 @@ def fgla_frame(x: torch.Tensor, r_prev: Optional[torch.Tensor],
     check(twiddle, "twiddle", (torch.float32,), shape=(n, 2))
     if wd not in (torch.float32, torch.bfloat16):
         raise TypeError(f"work dtype {wd} is not float32 or bfloat16")
-    plan = fgla_plan(n)
+    plan = fgla_plan(n, stockham_everywhere.active)
     if plan.route == "hopper":
         # frames move 16 bytes at a time, spectra a complex pair at a time
         pair = 2 * spec.element_size()

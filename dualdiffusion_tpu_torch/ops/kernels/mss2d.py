@@ -6,12 +6,19 @@ Replaces dualdiffusion_tpu/ops/pallas/mss2d.py: ``_mss2d_kernel`` (via
 backward ``_mss2d_block_loss_bwd``. The plain forward is the strip-by-strip
 math of ``_strip_loss_jnp``; the plain gradient is its autograd.
 
-The kernels take the block window as its 1-D factor (the loss's windows are
-separable: ``_window_2d("flat_top", bw)`` is an outer product), and the
-wrappers factor the (bw, bw) window they are given, raising if it is not
-rank 1. The window and weights are numpy constants, as in the JAX package.
-Both kernels run every transform as a bw-point FFT in registers
-(``MSS2D_PLANS``); they take bw 32 and 64 and strides 1 to bw.
+Each wrapper has two routes on the card, chosen by :func:`mss2d_route` from
+the arguments before any launch; ``<wrapper>.routes`` counts the card's
+calls per route, and both routes count as launches.
+
+- "fft" (csrc/mss2d.cu): every transform a bw-point FFT in registers
+  (``MSS2D_PLANS``), for bw 32 and 64, strides 1 to bw and a separable
+  window (``_window_2d("flat_top", bw)`` is an outer product), which the
+  kernels take as its 1-D factor. The DAE training path runs only this one.
+- "dft" (csrc/mss2d_dft.cu): direct DFTs with the whole (bw, bw) window, for
+  every other shape the JAX op takes: bw 1 to 128, any stride >= 1, any
+  window.
+
+The window and weights are numpy constants, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,10 +31,14 @@ import torch
 import torch.nn.functional as F
 
 from .build import library
-from .common import check, on_cpu, stream_of
+from .common import check, on_cpu, ptr, stream_of
 
-#: block widths the kernels take (the trainer sends smaller ones to the unfold path)
+#: block widths the FFT kernels take (the trainer sends smaller ones to the unfold path)
 KERNEL_WIDTHS = (32, 64)
+#: the widest block the direct-DFT kernels take (one TPU lane tile, as in the JAX op)
+MAX_BW = 128
+#: floats of K6 direct-DFT scratch a call allocates at most (one row of positions at least)
+DFT_SCRATCH_FLOATS = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -92,41 +103,53 @@ def mss2d_block_loss_grad_plain(sample, target, g, bw, stride, window, weight,
 _TABLES: Dict[tuple, tuple] = {}
 
 
-def _separable_factor(window: np.ndarray) -> np.ndarray:
-    """w1 with outer(w1, w1) == window, or ValueError."""
+def _rank1_factor(window: np.ndarray):
+    """w1 with outer(w1, w1) == window, or None."""
     w = np.asarray(window, np.float64)
     p = int(np.argmax(np.abs(np.diag(w))))
     if w[p, p] <= 0:
-        raise ValueError("the block window must be a symmetric outer product w1 w1^T")
+        return None
     w1 = w[:, p] / np.sqrt(w[p, p])
     if np.abs(np.outer(w1, w1) - w).max() > 1e-5 * np.abs(w).max():
-        raise ValueError("the block window must be a symmetric outer product w1 w1^T")
+        return None
     return w1
 
 
-def _tables(bw: int, window: np.ndarray, weight: np.ndarray, device) -> tuple:
-    """(E, w1, weight) on ``device``: the FFTs' twiddles E[m] =
-    e^{-2 pi i m / bw} as interleaved fp32 (bw, 2), built in float64."""
-    key = (bw, np.asarray(window, np.float32).tobytes(),
+def mss2d_route(bw: int, stride: int, window: np.ndarray) -> str:
+    """The kernel a call on the card takes: "fft" for bw in
+    ``KERNEL_WIDTHS``, strides 1 to bw and a window that is a symmetric
+    outer product w1 w1^T; "dft" for every other shape."""
+    if bw in KERNEL_WIDTHS and 1 <= stride <= bw and _rank1_factor(window) is not None:
+        return "fft"
+    return "dft"
+
+
+def _tables(bw: int, route: str, window: np.ndarray, weight: np.ndarray, device) -> tuple:
+    """(E, window, weight) on ``device``: the twiddles E[m] =
+    e^{-2 pi i m / bw} as interleaved fp32 (bw, 2), built in float64, and
+    the window as ``route`` takes it (its 1-D factor, or whole)."""
+    key = (bw, route, np.asarray(window, np.float32).tobytes(),
            np.asarray(weight, np.float32).tobytes(), str(device))
     if key not in _TABLES:
-        if np.shape(window) != (bw, bw) or np.shape(weight) != (bw, bw // 2 + 1):
-            raise ValueError(f"window {np.shape(window)} / weight {np.shape(weight)} do not "
-                             f"fit block width {bw}")
         e = np.exp(-2j * np.pi * np.arange(bw) / bw)
-        tabs = (np.stack([e.real, e.imag], -1), _separable_factor(window), weight)
+        tabs = (np.stack([e.real, e.imag], -1),
+                _rank1_factor(window) if route == "fft" else window, weight)
         _TABLES[key] = tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
                              for a in tabs)
     return _TABLES[key]
 
 
-def _check_inputs(sample, target, bw, stride):
-    if bw not in KERNEL_WIDTHS:
-        raise ValueError(f"block width {bw}: the kernels take {KERNEL_WIDTHS}")
-    if not 1 <= stride <= bw:
-        raise ValueError(f"stride {stride}: the kernels take 1 to the block width {bw}")
+def _check_inputs(sample, target, bw, stride, window, weight) -> str:
+    """Checks a call on the card and returns its route (:func:`mss2d_route`)."""
+    if stride < 1 or not 1 <= bw <= MAX_BW:
+        raise ValueError(f"block width {bw} / stride {stride}: the kernels take bw 1 to "
+                         f"{MAX_BW} and strides >= 1")
+    if np.shape(window) != (bw, bw) or np.shape(weight) != (bw, bw // 2 + 1):
+        raise ValueError(f"window {np.shape(window)} / weight {np.shape(weight)} do not "
+                         f"fit block width {bw}")
     check(sample, "sample", (torch.float32,), ndim=3)
     check(target, "target", (torch.float32,), shape=sample.shape)
+    return mss2d_route(bw, stride, window)
 
 
 def mss2d_block_loss(sample: torch.Tensor, target: torch.Tensor, bw: int, stride: int,
@@ -135,18 +158,27 @@ def mss2d_block_loss(sample: torch.Tensor, target: torch.Tensor, bw: int, stride
     CPU tensors take the plain version."""
     if on_cpu(sample, target):
         return mss2d_block_loss_plain(sample, target, bw, stride, window, weight)
-    _check_inputs(sample, target, bw, stride)
+    route = _check_inputs(sample, target, bw, stride, window, weight)
     bc, h, w, n_rows, n_cols = _grid(sample.shape, bw, stride)
-    e, w1, wgt = _tables(bw, window, weight, sample.device)
-    partial = torch.empty((bc, -(-n_cols // MSS2D_PLANS[bw].cols)), device=sample.device)
+    e, win, wgt = _tables(bw, route, window, weight, sample.device)
     out = torch.empty((bc,), device=sample.device)
     lib = library()
     with torch.cuda.device(sample.device):
-        err = lib.lib.dd_mss2d_fwd(sample.data_ptr(), target.data_ptr(), bc, h, w, bw, stride,
-                                   n_rows, n_cols, e.data_ptr(), w1.data_ptr(), wgt.data_ptr(),
-                                   partial.data_ptr(), out.data_ptr(), stream_of(sample))
-    lib.check(err, "mss2d_block_loss")
+        if route == "fft":
+            partial = torch.empty((bc, -(-n_cols // MSS2D_PLANS[bw].cols)), device=sample.device)
+            err = lib.lib.dd_mss2d_fwd(sample.data_ptr(), target.data_ptr(), bc, h, w, bw,
+                                       stride, n_rows, n_cols, e.data_ptr(), win.data_ptr(),
+                                       wgt.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                                       stream_of(sample))
+        else:
+            partial = torch.empty((bc, n_rows * n_cols), device=sample.device)
+            err = lib.lib.dd_mss2d_dft_fwd(sample.data_ptr(), target.data_ptr(), bc, h, w, bw,
+                                           stride, n_rows, n_cols, e.data_ptr(), win.data_ptr(),
+                                           wgt.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                                           stream_of(sample))
+    lib.check(err, f"mss2d_block_loss ({route})")
     mss2d_block_loss.launches += 1
+    mss2d_block_loss.routes[route] += 1
     return out
 
 
@@ -159,27 +191,41 @@ def mss2d_block_loss_grad(sample: torch.Tensor, target: torch.Tensor, g: torch.T
     if on_cpu(sample, target, g):
         return mss2d_block_loss_grad_plain(sample, target, g, bw, stride, window, weight,
                                            need_target)
-    _check_inputs(sample, target, bw, stride)
+    route = _check_inputs(sample, target, bw, stride, window, weight)
     bc, h, w, n_rows, n_cols = _grid(sample.shape, bw, stride)
     check(g, "g", (torch.float32,), shape=(bc,))
-    e, w1, wgt = _tables(bw, window, weight, sample.device)
+    e, win, wgt = _tables(bw, route, window, weight, sample.device)
     n_grad = 2 if need_target else 1
-    q = torch.empty((n_grad, bc, h, n_cols, bw), device=sample.device)   # D_j[y, c]
     ds = torch.empty_like(sample)
     dt = torch.empty_like(target) if need_target else None
     lib = library()
     with torch.cuda.device(sample.device):
-        err = lib.lib.dd_mss2d_bwd(sample.data_ptr(), target.data_ptr(), g.data_ptr(), bc, h, w,
-                                   bw, stride, n_rows, n_cols, n_grad, e.data_ptr(),
-                                   w1.data_ptr(), wgt.data_ptr(), q.data_ptr(), ds.data_ptr(),
-                                   None if dt is None else dt.data_ptr(), stream_of(sample))
-    lib.check(err, "mss2d_block_loss_grad")
+        if route == "fft":
+            q = torch.empty((n_grad, bc, h, n_cols, bw), device=sample.device)   # D_j[y, c]
+            err = lib.lib.dd_mss2d_bwd(sample.data_ptr(), target.data_ptr(), g.data_ptr(), bc, h,
+                                       w, bw, stride, n_rows, n_cols, n_grad, e.data_ptr(),
+                                       win.data_ptr(), wgt.data_ptr(), q.data_ptr(),
+                                       ds.data_ptr(), ptr(dt), stream_of(sample))
+        else:
+            row = n_grad * bc * n_cols * bw * bw          # scratch floats per row of positions
+            chunk = max(1, min(n_rows, DFT_SCRATCH_FLOATS // row))
+            p = torch.empty((n_grad, bc, chunk, n_cols, bw, bw), device=sample.device)
+            err = lib.lib.dd_mss2d_dft_bwd(sample.data_ptr(), target.data_ptr(), g.data_ptr(),
+                                           bc, h, w, bw, stride, n_rows, n_cols, n_grad, chunk,
+                                           e.data_ptr(), win.data_ptr(), wgt.data_ptr(),
+                                           p.data_ptr(), ds.data_ptr(), ptr(dt),
+                                           stream_of(sample))
+    lib.check(err, f"mss2d_block_loss_grad ({route})")
     mss2d_block_loss_grad.launches += 1
+    mss2d_block_loss_grad.routes[route] += 1
     return ds, dt
 
 
 mss2d_block_loss.launches = 0
 mss2d_block_loss_grad.launches = 0
+#: launches per route
+mss2d_block_loss.routes = {"fft": 0, "dft": 0}
+mss2d_block_loss_grad.routes = {"fft": 0, "dft": 0}
 
 
 class Mss2dBlockLossFn(torch.autograd.Function):

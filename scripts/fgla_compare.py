@@ -19,28 +19,22 @@ only). Checks nothing itself: ``chip_smoke.py`` and
 run it in each within one call.
 """
 
+import contextlib
 import ctypes
-import importlib
 import subprocess
 import sys
 from pathlib import Path
-from unittest import mock
 
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from dualdiffusion_tpu_torch.ops.kernels import (build, dft_twiddles, fgla_frame,  # noqa: E402
-                                                 fgla_frame_plain, fgla_plan)
-
-ff = importlib.import_module("dualdiffusion_tpu_torch.ops.kernels.fgla_frame")
-
-
-def stockham(n):
-    return ff.FglaPlan("stockham", tuple(ff.fft_radices(n // 2)))
+                                                 fgla_frame_plain, fgla_plan,
+                                                 stockham_everywhere)
 
 
 def route(name):
-    return mock.patch.object(ff, "fgla_plan", stockham if name == "stockham" else ff.fgla_plan)
+    return stockham_everywhere() if name == "stockham" else contextlib.nullcontext()
 
 
 def time_ms(fn, reps=20):

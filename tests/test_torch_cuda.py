@@ -14,15 +14,17 @@ import pytest
 import torch
 
 from dualdiffusion_tpu_torch.ops.kernels import (GroupedConv3x3Fn, dft_twiddles, dgrad_weights,
-                                                 fgla_frame, fgla_frame_plain, flash_attention,
-                                                 flash_attention_plain, grouped_conv3x3,
+                                                 fgla_frame, fgla_frame_plain, fgla_plan,
+                                                 flash_attention, flash_attention_plain,
+                                                 gather_everywhere, grouped_conv3x3,
                                                  grouped_conv3x3_plain, grouped_conv3x3_wgrad,
                                                  grouped_conv3x3_wgrad_plain, hopper_takes,
                                                  mss2d_block_loss,
                                                  mss2d_block_loss_grad,
                                                  mss2d_block_loss_grad_plain,
                                                  mss2d_block_loss_plain, mss2d_loss_fused,
-                                                 ola_reframe, ola_reframe_plain, prepare_weights)
+                                                 ola_plan, ola_reframe, ola_reframe_plain,
+                                                 prepare_weights, stockham_everywhere)
 from dualdiffusion_tpu_torch.training.losses import _window_2d, product_weights
 
 
@@ -134,17 +136,30 @@ def test_grouped_conv_fn_matches_plain(cuda, b, h, w, groups, cig, cog):
     assert wd.shape == (groups, 9 * cog, cig)
 
 
-def _fgla_module():
-    import importlib
-    return importlib.import_module("dualdiffusion_tpu_torch.ops.kernels.fgla_frame")
+def _k3_routes(n, hop):
+    """(route, context in which K3 takes it): the route ``ola_plan`` chooses
+    and, where that is the Hopper kernel, the gather kernel forced."""
+    import contextlib
+    routes = [(ola_plan(n, hop).route, contextlib.nullcontext())]
+    if routes[0][0] == "hopper":
+        routes.append(("gather", gather_everywhere()))
+    return routes
 
 
-def _forced_stockham():
-    """A context in which K2 takes the Stockham kernel at every size."""
-    from unittest import mock
-    ff = _fgla_module()
-    return mock.patch.object(ff, "fgla_plan",
-                             lambda n: ff.FglaPlan("stockham", tuple(ff.fft_radices(n // 2))))
+def _check_k3(y, win, inv_env, hop, tol):
+    """K3 on every route against the plain version (``tol`` of max); each
+    call counted once, on its route. Returns the chosen route's frames."""
+    out = None
+    for route, ctx in _k3_routes(y.shape[-1], hop):
+        before = ola_reframe.routes[route]
+        with ctx:
+            got = ola_reframe(y, win, inv_env, hop)
+        torch.cuda.synchronize()
+        assert ola_reframe.routes[route] == before + 1
+        assert _rel_err(got.float().cpu(),
+                        ola_reframe_plain(y, win, inv_env, hop).float().cpu()) <= tol, route
+        out = got if out is None else out
+    return out
 
 
 @pytest.mark.cuda
@@ -161,9 +176,10 @@ def test_fgla_kernels_match_plain(cuda, n, hop, dtype, route):
     fp32: relative L2 <= 1e-5 and a max error within twice the plain fp32
     version's own against float64 plus 1e-6 of max (an fp32 transform's
     rounding varies with the inputs, so a fixed bound on the max error
-    passed or failed with the draw); in bf16 2**-6 of max. K3 alongside."""
+    passed or failed with the draw); in bf16 2**-6 of max. K3 alongside,
+    on each of its routes (the Hopper kernel where ``ola_plan`` takes it,
+    and the gather kernel), to 1e-5 of max in fp32 and 2**-6 in bf16."""
     import contextlib
-    fgla_plan = _fgla_module().fgla_plan
     f, bins = 40, n // 2 + 1
     tol = 1e-5 if dtype == torch.float32 else 2 ** -6
     forced = route == "stockham" and fgla_plan(n).route != "stockham"
@@ -172,17 +188,14 @@ def test_fgla_kernels_match_plain(cuda, n, hop, dtype, route):
         y = torch.randn((1, 2, f, n), generator=g, device=cuda).to(dtype)
         win = torch.rand(n, generator=g, device=cuda) + 0.1
         inv_env = torch.rand((f - 1) * hop + n, generator=g, device=cuda) + 0.5
-        frames = ola_reframe(y, win, inv_env, hop)
-        torch.cuda.synchronize()
-        assert _rel_err(frames.float().cpu(),
-                        ola_reframe_plain(y, win, inv_env, hop).float().cpu()) <= tol
+        frames = _check_k3(y, win, inv_env, hop, tol)
         spec = torch.rand((1, 2, f, bins), generator=g, device=cuda).to(dtype)
         merged = spec.float().mean(1, keepdim=True).expand_as(spec).to(dtype).contiguous()
         prev = torch.randn((1, 2, f, bins, 2), generator=g, device=cuda).to(dtype)
         tw = dft_twiddles(n, cuda)
         before = fgla_frame.launches
-        with _forced_stockham() if forced else contextlib.nullcontext():
-            assert _fgla_module().fgla_plan(n).route == route
+        with stockham_everywhere() if forced else contextlib.nullcontext():
+            assert fgla_plan(n, stockham_everywhere.active).route == route
             r, y2 = fgla_frame(frames, prev, spec, merged, 0.3, 0.4975, tw)
         torch.cuda.synchronize()
         assert fgla_frame.launches == before + 1
@@ -202,13 +215,57 @@ def test_fgla_kernels_match_plain(cuda, n, hop, dtype, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,f", [(6400, 14), (4096, 10), (6400, 60), (4096, 40), (1280, 4),
+                                 (1280, 5), (6400, 5504), (384, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ola_reframe_routes_match_plain(cuda, n, f, dtype):
+    """K3 on both routes against the plain version at hop 256 (hop 128 at
+    n_fft 384: the gather kernel only), at the smallest F whose reflect
+    zones nearly meet (14 at 6400, 10 at 4096), at the serving F and in
+    between: 1e-5 of max in fp32 (sums in another order), 2**-6 in bf16 (one
+    rounding of the stored result)."""
+    hop = 128 if n == 384 else 256
+    g = torch.Generator(device=cuda).manual_seed(11)
+    y = torch.randn((2, f, n), generator=g, device=cuda).to(dtype)
+    win = torch.rand(n, generator=g, device=cuda) + 0.1
+    inv_env = torch.rand((f - 1) * hop + n, generator=g, device=cuda) + 0.5
+    _check_k3(y, win, inv_env, hop, 1e-5 if dtype == torch.float32 else 2 ** -6)
+
+
+@pytest.mark.cuda
+def test_ola_reframe_hopper_route(cuda):
+    """The kernel's compiled chunk counts are ``ola_plan``'s; a frame, window
+    or envelope whose data pointer is not 16-byte aligned raises on the
+    Hopper route."""
+    import ctypes
+    from dualdiffusion_tpu_torch.ops.kernels.build import library
+    for n, f in ((6400, 5504), (4096, 5504), (6400, 14), (1280, 4)):
+        plan = ola_plan(n, 256)
+        got = (ctypes.c_int * 6)()
+        assert library().lib.dd_ola_reframe_hopper_plan(n, f, got) == 1
+        assert list(got) == [plan.chunks, plan.edge_chunks, plan.edge_signal_chunks,
+                             plan.interior_chunks(f), 256, 8]
+    assert library().lib.dd_ola_reframe_hopper_plan(1000, 10, (ctypes.c_int * 6)()) == 0
+    n, f = 1280, 6
+    y = torch.randn((2, f, n), device=cuda)
+    win = torch.rand(n, device=cuda) + 0.1
+    inv_env = torch.rand((f - 1) * 256 + n, device=cuda) + 0.5
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view_as(t).copy_(t)
+    for args in ((shifted(y), win, inv_env), (y, shifted(win), inv_env),
+                 (y, win, shifted(inv_env))):
+        with pytest.raises(ValueError, match="16-byte"):
+            ola_reframe(*args, 256)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [6400, 4096])
 def test_fgla_hopper_route(cuda, n):
     """The kernel's compiled plan is fgla_plan's; the seed call (spectrum in)
     and a call without the inverse match the plain version; a frame whose
     data pointer is not 16-byte aligned raises."""
     import ctypes
-    from dualdiffusion_tpu_torch.ops.kernels import fgla_plan
     from dualdiffusion_tpu_torch.ops.kernels.build import library
     plan = fgla_plan(n)
     got = (ctypes.c_int * 6)()
@@ -278,6 +335,46 @@ def test_mss2d_kernels_match_plain(cuda, bw, stride, bc, h, w):
     assert none is None and torch.equal(only_s, ds)
     assert (mss2d_block_loss.launches, mss2d_block_loss_grad.launches) == \
         (before[0] + 1, before[1] + 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw,stride,window", [(16, 2, "flat_top"),
+                                              (32, 4, "flat_top_circular"),
+                                              (32, 33, "flat_top"), (128, 16, "flat_top")])
+def test_mss2d_takes_every_shape_on_the_card(cuda, bw, stride, window):
+    """Block widths other than 32 and 64, windows that are not separable,
+    strides above the block width and the widest block (all of which the
+    JAX op takes) run on the card through the direct-DFT kernels, routed by
+    shape and counted on the "dft" route: the loss, its gradient and the
+    autograd Function against the plain version on CPU copies, 1e-4
+    relative (fp32 sums in another order); two gradient calls bit-equal."""
+    from dualdiffusion_tpu_torch.ops.kernels import Mss2dBlockLossFn
+    g = torch.Generator(device=cuda).manual_seed(12)
+    s = torch.randn((2, 40 + bw, 37 + bw), generator=g, device=cuda)
+    t = torch.randn((2, 40 + bw, 37 + bw), generator=g, device=cuda)
+    gg = torch.randn((2,), generator=g, device=cuda)
+    win, wgt = _window_2d(window, bw), product_weights(bw) / bw
+    launches = mss2d_block_loss.launches, mss2d_block_loss_grad.launches
+    dft = mss2d_block_loss.routes["dft"], mss2d_block_loss_grad.routes["dft"]
+    x = s.clone().requires_grad_()
+    loss = Mss2dBlockLossFn.apply(x, t, bw, stride, win, wgt)
+    (loss * gg).sum().backward()
+    got = (mss2d_block_loss(s, t, bw, stride, win, wgt),
+           *mss2d_block_loss_grad(s, t, gg, bw, stride, win, wgt), loss, x.grad)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], x.grad)
+    cpu = [v.cpu() for v in (s, t, gg)]
+    xc = cpu[0].clone().requires_grad_()
+    loss_c = Mss2dBlockLossFn.apply(xc, cpu[1], bw, stride, win, wgt)
+    (loss_c * cpu[2]).sum().backward()
+    want = (mss2d_block_loss_plain(*cpu[:2], bw, stride, win, wgt),
+            *mss2d_block_loss_grad_plain(*cpu, bw, stride, win, wgt), loss_c, xc.grad)
+    for a, b in zip(got, want):
+        assert _rel_err(a.detach().cpu(), b.detach()) <= 1e-4
+    assert (mss2d_block_loss.launches, mss2d_block_loss_grad.launches) == \
+        (launches[0] + 2, launches[1] + 2)
+    assert (mss2d_block_loss.routes["dft"], mss2d_block_loss_grad.routes["dft"]) == \
+        (dft[0] + 2, dft[1] + 2)
 
 
 @pytest.mark.cuda
@@ -416,12 +513,11 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         grouped_conv3x3(x.bfloat16(), wt.cpu(), 2)          # mixed devices
     s = torch.randn((2, 40, 40), device=cuda)
-    with pytest.raises(ValueError):                          # the kernels take bw 32 and 64
-        mss2d_block_loss(s, s, 16, 2, _window_2d("flat_top", 16), product_weights(16))
-    with pytest.raises(ValueError):                          # a window that is not separable
-        mss2d_block_loss(s, s, 32, 4, _window_2d("flat_top_circular", 32), product_weights(32))
-    with pytest.raises(ValueError):                          # strides 1 to bw
-        mss2d_block_loss(s, s, 32, 33, _window_2d("flat_top", 32), product_weights(32))
+    with pytest.raises(TypeError):                           # fp32 only
+        mss2d_block_loss(s.double(), s.double(), 32, 4, _window_2d("flat_top", 32),
+                         product_weights(32))
+    with pytest.raises(ValueError):                          # mixed devices
+        mss2d_block_loss(s, s.cpu(), 32, 4, _window_2d("flat_top", 32), product_weights(32))
     a = torch.randn((1, 2, 64, 64), device=cuda).half()      # bf16 and fp32 only
     with pytest.raises(TypeError):
         flash_attention(a, a, a)

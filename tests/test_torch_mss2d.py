@@ -18,7 +18,7 @@ from dualdiffusion_tpu.training import losses as jlosses
 from dualdiffusion_tpu_torch.ops.kernels import (Mss2dBlockLossFn, mss2d_block_loss,
                                                  mss2d_block_loss_grad, mss2d_block_loss_plain,
                                                  mss2d_loss_fused)
-from dualdiffusion_tpu_torch.ops.kernels.mss2d import _separable_factor
+from dualdiffusion_tpu_torch.ops.kernels.mss2d import _rank1_factor
 from dualdiffusion_tpu_torch.training.losses import (MSSLoss2D, MSSLoss2DConfig, _window_2d,
                                                      product_weights, unfold_2d)
 
@@ -87,14 +87,13 @@ def test_block_loss_fn_on_cpu_is_the_plain_version():
 
 
 def test_window_factor_is_exact_or_refused():
-    """The kernels take the separable window's 1-D factor; a window that is
-    not an outer product is refused."""
+    """The FFT kernels take the separable window's 1-D factor; a window that
+    is not an outer product has none (and takes the direct-DFT route)."""
     for bw in (32, 64):
         w = _window_2d("flat_top", bw)
-        w1 = _separable_factor(w)
+        w1 = _rank1_factor(w)
         assert np.abs(np.outer(w1, w1) - w).max() <= 1e-6 * np.abs(w).max()
-    with pytest.raises(ValueError):
-        _separable_factor(_window_2d("flat_top_circular", 32))
+    assert _rank1_factor(_window_2d("flat_top_circular", 32)) is None
 
 
 @pytest.mark.parametrize("use_midside", [True, False])

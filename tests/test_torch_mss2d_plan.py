@@ -7,7 +7,10 @@ column, K6's inverse FFTs into the gradient ring, the W adjoint of a
 finished row and K6b's sum over column blocks. The model is held against
 ``numpy.fft`` and against ``mss2d_block_loss_plain`` /
 ``mss2d_block_loss_grad_plain`` in float64 to 1e-9, and its shared-memory
-addresses are counted for bank conflicts. CPU only.
+addresses are counted for bank conflicts. Beside it, a float64 model of
+the direct-DFT route (csrc/mss2d_dft.cu) with its twiddle index maps, its
+gradient scratch walked in chunks of position rows and its gather, for the
+shapes the FFT kernels do not take. CPU only.
 """
 
 import re
@@ -19,11 +22,12 @@ import pytest
 import torch
 
 from dualdiffusion_tpu_torch.ops.kernels import (MSS2D_PLANS, mss2d_block_loss_grad_plain,
-                                                 mss2d_block_loss_plain)
+                                                 mss2d_block_loss_plain, mss2d_route)
 from dualdiffusion_tpu_torch.training.losses import _window_2d, product_weights
 
 WIDTHS = (32, 64)
 SOURCE = Path(__file__).resolve().parents[1] / "dualdiffusion_tpu_torch" / "csrc" / "mss2d.cu"
+DFT_SOURCE = SOURCE.with_name("mss2d_dft.cu")
 
 
 class Shape:
@@ -217,6 +221,18 @@ def test_plan_is_the_compiled_plan(bw):
     assert 8 * p.threads == bw
 
 
+@pytest.mark.parametrize("bw,stride,window,route", [
+    (32, 4, "flat_top", "fft"), (64, 8, "flat_top", "fft"), (32, 1, "flat_top", "fft"),
+    (64, 64, "flat_top", "fft"), (16, 2, "flat_top", "dft"), (128, 16, "flat_top", "dft"),
+    (32, 4, "flat_top_circular", "dft"), (32, 33, "flat_top", "dft"),
+    (64, 100, "flat_top", "dft")])
+def test_route_by_shape(bw, stride, window, route):
+    """The FFT kernels take bw 32 and 64, strides 1 to bw and separable
+    windows; every other shape takes the direct-DFT kernels, chosen before
+    any launch."""
+    assert mss2d_route(bw, stride, _window_2d(window, bw)) == route
+
+
 @pytest.mark.parametrize("bw", WIDTHS)
 def test_plan_fits_the_card(bw):
     """An FFT's threads share a warp, producers fill whole warps, and at the
@@ -364,3 +380,113 @@ def test_shared_accesses_at_most_two_way_conflicted(bw):
     checks["prologue ring writes"] = (np.array(pw), [pjj < sh.jb] * 8)
     found = {name: worst_ways(addr, act) for name, (addr, act) in checks.items()}
     assert all(v <= 2 for v in found.values()), found
+
+
+def dft_model(s, t, bw, stride, win, weight, g=None, n_grad=1, chunk=1):
+    """csrc/mss2d_dft.cu in float64: per position, the row DFT and the
+    column DFT with E[m] = e^{-2 pi i m / bw} indexed by running sums mod
+    bw, then K5's weighted sum (partials per position, then per image) or
+    K6's G, its adjoint transforms into the scratch rows of one chunk and
+    the gather of each pixel's covering positions, chunk after chunk."""
+    n_rows, n_cols = grid(s.shape, bw, stride)
+    bins = bw // 2 + 1
+    e = np.exp(-2j * np.pi * np.arange(bw) / bw)
+    fc = e[np.outer(np.arange(bins), np.arange(bw)) % bw]    # fc[v, c] = E[v c mod bw]
+    fr = e[np.outer(np.arange(bw), np.arange(bw)) % bw]      # fr[u, r] = E[u r mod bw]
+
+    def spectra(x, i, j):       # (BC, bw, bins): X[u, v] = sum_r fr[u, r] Z[r, v]
+        blk = x[:, i * stride:i * stride + bw, j * stride:j * stride + bw] * win
+        return fr @ blk @ fc.T
+
+    if g is None:
+        partial = np.zeros((s.shape[0], n_rows * n_cols))
+        for i in range(n_rows):
+            for j in range(n_cols):
+                d = np.abs(np.abs(spectra(s, i, j)) - np.abs(spectra(t, i, j)))
+                partial[:, i * n_cols + j] = (weight * d).sum(axis=(1, 2))
+        return partial.sum(axis=1)
+    d = np.zeros((n_grad,) + s.shape)
+    writes = np.zeros(s.shape[1:], int)
+    for i0 in range(0, n_rows, chunk):
+        i1 = min(n_rows, i0 + chunk)
+        p = np.zeros((n_grad, s.shape[0], chunk, n_cols, bw, bw))
+        for i in range(i0, i1):
+            for j in range(n_cols):
+                a, b = spectra(s, i, j), spectra(t, i, j)
+                ms, mt = np.abs(a), np.abs(b)
+                c = g[:, None, None] * weight * np.sign(ms - mt)
+                gs = np.where(ms > 0, a * c / np.where(ms > 0, ms, 1), 0)
+                gt = np.where(mt > 0, -b * c / np.where(mt > 0, mt, 1), 0)
+                for tens, gg in enumerate((gs, gt)[:n_grad]):
+                    z = fr.conj().T @ gg                      # Z[r, v] = sum_u G[u, v] conj E[u r]
+                    p[tens, :, i - i0, j] = win * (z @ fc.conj()).real
+        y0, y1 = i0 * stride, min(s.shape[1], (i1 - 1) * stride + bw)
+        y, x = np.arange(y0, y1)[:, None], np.arange(s.shape[2])[None, :]
+        ia = np.maximum(i0, np.where(y >= bw, (y - bw + stride) // stride, 0))
+        ib = np.minimum(i1 - 1, y // stride)
+        ja = np.where(x >= bw, (x - bw + stride) // stride, 0)
+        jb = np.minimum(n_cols - 1, x // stride)
+        for i in range(i0, i1):           # the gather's terms, position by position
+            for j in range(n_cols):
+                take = (ia <= i) & (i <= ib) & (ja <= j) & (j <= jb)
+                yy, xx = np.nonzero(take)
+                d[:, :, y0 + yy, xx] += p[:, :, i - i0, j, y0 + yy - i * stride, xx - j * stride]
+                np.add.at(writes, (y0 + yy, xx), 1)
+    covered = np.zeros(s.shape[1:], int)
+    for i in range(n_rows):
+        for j in range(n_cols):
+            covered[i * stride:i * stride + bw, j * stride:j * stride + bw] += 1
+    assert np.array_equal(writes, covered)   # each (position, pixel) pair gathered once
+    return d
+
+
+def dft_inputs(bw, stride, window, seed):
+    rng = np.random.default_rng(seed)
+    h, w = bw + 2 * stride + 3, bw + 4 * stride + 5
+    s, t = rng.standard_normal((2, 2, h, w))
+    win = _window_2d(window, bw).astype(np.float64)
+    weight = (product_weights(bw) / bw).astype(np.float32).astype(np.float64)
+    return s, t, win, weight
+
+
+DFT_SHAPES = [(16, 2, "flat_top"), (32, 4, "flat_top_circular"), (32, 33, "flat_top"),
+              (7, 3, "hann"), (128, 16, "flat_top")]
+
+
+@pytest.mark.parametrize("bw,stride,window", DFT_SHAPES)
+def test_dft_k5_model_matches_plain(bw, stride, window):
+    """The direct-DFT route's loss against the plain version in float64, at
+    a width the FFT kernels do not take, a window that is not separable, a
+    stride above bw, an odd width and the widest block."""
+    s, t, win, weight = dft_inputs(bw, stride, window, 2)
+    got = dft_model(s, t, bw, stride, win, weight)
+    plain = mss2d_block_loss_plain(torch.from_numpy(s), torch.from_numpy(t), bw, stride, win,
+                                   weight).numpy()
+    assert np.abs(got - plain).max() <= 1e-9 * np.abs(plain).max()
+
+
+@pytest.mark.parametrize("bw,stride,window", DFT_SHAPES[:4])
+@pytest.mark.parametrize("n_grad,chunk", [(1, 1), (2, 2), (2, 100)])
+def test_dft_k6_model_matches_plain_grad(bw, stride, window, n_grad, chunk):
+    """The direct-DFT route's gradients against the plain version's
+    autograd in float64, with the scratch walked one, two or all position
+    rows at a time."""
+    s, t, win, weight = dft_inputs(bw, stride, window, 3)
+    g = np.array([0.7, -1.3])
+    got = dft_model(s, t, bw, stride, win, weight, g=g, n_grad=n_grad, chunk=chunk)
+    want = mss2d_block_loss_grad_plain(torch.from_numpy(s), torch.from_numpy(t),
+                                       torch.from_numpy(g), bw, stride, win, weight,
+                                       need_target=n_grad > 1)
+    for tens in range(n_grad):
+        ref = want[tens].numpy()
+        assert np.abs(got[tens] - ref).max() <= 1e-9 * np.abs(ref).max()
+
+
+def test_dft_kernel_fits_the_card():
+    """The widest block's three spectra and twiddles (the kernel's
+    smem_bytes) fit one block's dynamic shared memory (227 KB) beside K5's
+    eight warp sums, and the source states the widths it takes."""
+    src = DFT_SOURCE.read_text()
+    assert re.search(r"constexpr int kMaxBw = 128;", src)
+    bw = 128
+    assert (bw + 3 * bw * (bw // 2 + 1)) * 8 + 8 * 4 <= 227 * 1024
