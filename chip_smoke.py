@@ -27,8 +27,10 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    head widths 8, 24 and 192), with K7 against the einsum route from L 86
    to 5504 (the crossover);
 4. holds a tiny model's generate slice, the same on the MS-MDCT dual
-   format (its FGLA decode: K2/K3 at n_fft 4096, hop 256), its UNet train
-   steps, a tiny DAE's train steps and a tiny full-attention model's
+   format (its FGLA decode: K2/K3 at n_fft 4096, hop 256), the DDEC decode
+   of a tiny model with a "ddec" module (``decode_mode="auto"``: K1 in the
+   latent UNet, the DDEC's dense convs on cuDNN, no K2/K3/K7), its UNet
+   train steps, a tiny DAE's train steps and a tiny full-attention model's
    generate slice (level-1 L 2048, through K7) on the card against the same
    models on the CPU;
 5. drives the serving path: builds the reference-scale pipeline (356M-param
@@ -39,7 +41,14 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    K7 was not (its "freq" attention
    sees L <= 32); then the same for ``ref_scale_full_attn`` (the same model
    with "full" attention at levels 1, 3 and 4), where K7 must be launched
-   at level 1 (L 5504);
+   at level 1 (L 5504); then DDEC serving: the same UNet and DAE on the
+   edm2_default MS-MDCT dual format with the DDEC of
+   configs/models/edm2_ddec_mclt_b1a, ``generate(decode_mode="auto")``
+   twice (the DDEC samples (1, 256, 5504, 2) MDCT coefficients with the
+   same 100 Heun steps, conditioned on the mel's 2048-row linear PSD; no
+   CFG), printing each stage's seconds and peak memory and checking the
+   audio and that K1 was launched and K2, K3 and K7 were not; then one
+   full-width DDEC forward (ms, analytic GFLOP, TFLOP/s, bf16 bound);
 6. drives the UNet training path: writes a synthetic latent dataset and runs
    ``python -m dualdiffusion_tpu_torch.train``'s entry in-process on that
    model directory for 4 steps, then ``--resume`` for 1 more (device batch
@@ -738,6 +747,91 @@ def slice_phase(kind: str = "freq"):
         raise AssertionError("the slice on the card disagrees with the CPU run")
 
 
+def ddec_slice_phase():
+    """The DDEC decode on a tiny model: format + DAE + UNet (grouped MLP
+    convs, so K1 runs) + DDEC (dense convs, cuDNN) on the MS-MDCT dual
+    format of tests/test_torch_ms_mdct_generate.py (a (1, 32, 64, 2) mel,
+    a (1, 128, 64, 2) linear PSD and (1, 32, 64, 2) MDCT coefficients),
+    ``generate(decode_mode="auto")`` on the card against the CPU, same
+    weights and noise. Latents and mel agree to 5e-2 of max (bf16, as the
+    other slices); the DDEC's coefficients, each device fed the CPU run's
+    mel, to 5e-2 of max; the audio, linear in the coefficients but fed each
+    device's own mel, to 0.1 relative L2. K1 must launch; K2, K3 and K7
+    must not (no Griffin-Lim on this path, "freq" attention at L 4)."""
+    import copy
+    import torch
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    from dualdiffusion_tpu_torch.sampling import SampleParams
+    ucfg = UNetConfig(in_channels=8, out_channels=8, in_channels_emb=1024, model_channels=32,
+                      channel_mult=(1, 2), num_layers_per_block=1, channels_per_head=32,
+                      mlp_multiplier=2, mlp_groups=2, attn_levels=(1,))
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                     num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=8)
+    ddcfg = UNetConfig(in_channels=2, out_channels=2, in_num_freqs=32, in_psd_freqs=128,
+                       sigma_max=20.0, sigma_min=3e-5, model_channels=16, channel_mult=(1, 2),
+                       num_layers_per_block=1, mlp_multiplier=2, double_midblock=True,
+                       add_constant_channel=True)
+    fcfg = MSMDCTDualFormatConfig(ms_num_filters=32, ms_window_length=256, mdct_window_len=64,
+                                  default_raw_length=63 * 32)
+    fmt = MSMDCTDualFormat(fcfg)
+    gen = torch.Generator().manual_seed(4)
+    unet, dae, ddec = (UNet(ucfg).init_weights(gen), DAE(dcfg).init_weights(gen),
+                       UNet(ddcfg).init_weights(gen))
+    with torch.no_grad():
+        unet.core.out_gain.fill_(1.0)
+        ddec.core.out_gain.fill_(1.0)
+    params = SampleParams(steps=2)
+    lat_shape = dae.get_latent_shape(fmt.get_sample_shape(1))
+    mdct_shape = fmt.get_mdct_shape_for_mel_frames(1, fmt.get_sample_shape(1)[2])
+    prompt = torch.randn((1, 1024), generator=gen)
+    noise = {"init_noise": torch.randn(lat_shape, generator=gen),
+             "step_noise": [torch.randn(lat_shape, generator=gen) for _ in range(params.steps)],
+             "ddec_init_noise": torch.randn(mdct_shape, generator=gen),
+             "ddec_step_noise": [torch.randn(mdct_shape, generator=gen)
+                                 for _ in range(params.steps)]}
+
+    def on(dev, v):
+        return [n.to(dev) for n in v] if isinstance(v, list) else v.to(dev)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        pipe = Pipeline({
+            "unet": ModuleHandle("unet", "unet", ucfg, copy.deepcopy(unet).to(dev)),
+            "dae": ModuleHandle("dae", "dae", dcfg, copy.deepcopy(dae).to(dev)),
+            "ddec": ModuleHandle("ddec", "ddec", ddcfg, copy.deepcopy(ddec).to(dev)),
+            "format": ModuleHandle("format", "format:ms_mdct_dual", fcfg, fmt)})
+        before = launch_counts()
+        out = pipe.generate(params, prompt_embedding=prompt.to(dev),
+                            **{k: on(dev, v) for k, v in noise.items()})
+        after = launch_counts()
+        outs[dev] = {k: v.float().cpu() for k, v in out.items()}
+        outs[dev]["coeffs"] = pipe.diffusion_decode(
+            params, mdct_shape, init_noise=noise["ddec_init_noise"].to(dev),
+            step_noise=on(dev, noise["ddec_step_noise"]), module_name="ddec",
+            x_ref=fmt.mel_spec_to_linear(outs["cpu"]["sample"].to(dev))).float().cpu()
+        launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        if dev == "cuda" and (not launched.get("grouped_conv3x3") or
+                              any(launched.get(k) for k in ("fgla_frame", "ola_reframe",
+                                                            "flash_attention"))):
+            raise AssertionError(f"the DDEC slice on the card launched {launched}: K1 and "
+                                 f"nothing of K2, K3, K7 expected")
+    raw_shape = (1, fcfg.num_raw_channels, fmt.get_raw_crop_width())
+    if tuple(outs["cuda"]["raw"].shape) != raw_shape:
+        raise AssertionError(f"audio shape {tuple(outs['cuda']['raw'].shape)}, not {raw_shape}")
+    print(f"DDEC slice on a tiny model (latents {tuple(lat_shape)}, MDCT {mdct_shape}, PSD "
+          f"{(1, ddcfg.in_psd_freqs) + mdct_shape[2:]}, audio {raw_shape}), CUDA (kernels: "
+          f"{launched}) vs CPU (plain versions):", flush=True)
+    for key, tol in (("latents", 5e-2), ("sample", 5e-2), ("coeffs", 5e-2)):
+        check_close(key, outs["cuda"][key], outs["cpu"][key], tol)
+    a, b = outs["cuda"]["raw"], outs["cpu"]["raw"]
+    rel = ((a - b).norm() / b.norm()).item()
+    print(f"  audio: rel L2 {rel:.4g} (tol 0.1) {'ok' if rel < 0.1 else 'FAIL'}", flush=True)
+    if not torch.isfinite(a).all() or not rel < 0.1:
+        raise AssertionError("the DDEC slice on the card disagrees with the CPU run")
+
+
 def train_slice_phase():
     """Two train steps (gradient accumulation 2, AdamW, one EMA) of a tiny
     grouped UNet on the card (K1 forward and dgrad, K4 wgrad) against the
@@ -1116,9 +1210,9 @@ def flash_crossover(gen) -> None:
           f"{FLASH_MIN_SEQ}): {json.dumps(line)}", flush=True)
 
 
-def serving_path(model_dir, fmt, prompt) -> None:
+def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla"):
     """``Pipeline.from_pretrained`` then ``generate`` once per seed, checking
-    the audio's shape, finiteness and loudness."""
+    the audio's shape, finiteness and loudness; returns the pipeline."""
     import torch
     from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline
     from dualdiffusion_tpu_torch.sampling import SampleParams
@@ -1127,19 +1221,21 @@ def serving_path(model_dir, fmt, prompt) -> None:
     print(f"from_pretrained: {time.perf_counter() - t0:.2f} s", flush=True)
     params = SampleParams(steps=SAMPLER_STEPS, cfg_scale=1.5, use_heun=True,
                           num_fgla_iters=100, fgla_phase_init="spsi")
+    decode = ("the DDEC (same steps, no CFG), inverse MDCT" if decode_mode != "fgla"
+              else f"{params.num_fgla_iters} FGLA iters")
     outs = []
     for seed in SEEDS:
         torch.cuda.reset_peak_memory_stats()
         timings = {}
         t0 = time.perf_counter()
         out = pipe.generate(params, torch.Generator(device="cuda").manual_seed(seed),
-                            prompt_embedding=prompt, decode_mode="fgla", timings=timings)
+                            prompt_embedding=prompt, decode_mode=decode_mode, timings=timings)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         raw = out["raw"]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"generate seed {seed}: {params.steps} steps (CFG {params.cfg_scale}, Heun), "
-              f"{params.num_fgla_iters} FGLA iters; "
+        print(f"generate seed {seed} (decode_mode {decode_mode!r}): {params.steps} steps "
+              f"(CFG {params.cfg_scale}, Heun), {decode}; "
               + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
               + f", total {total:.3f} s; peak memory {peak:.2f} GiB", flush=True)
         rms = raw.float().square().mean().sqrt().item()
@@ -1151,6 +1247,54 @@ def serving_path(model_dir, fmt, prompt) -> None:
         outs.append(raw)
     if torch.equal(outs[0], outs[1]):
         raise AssertionError("two seeds gave identical audio")
+    return pipe
+
+
+def ddec_configs():
+    """The DDEC serving path's model: the ref-scale latent UNet and DAE on
+    the edm2_default MS-MDCT dual format, with the DDEC of
+    configs/models/edm2_ddec_mclt_b1a (32 ch x (1, 2, 3, 4), 3 layers a
+    block, mlp x2 dense, 2048 PSD rows folded 8 to a model row)."""
+    from dualdiffusion_tpu_torch.models import UNetConfig
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormatConfig
+    from dualdiffusion_tpu_torch.utils import load_config
+    models = REPO / "configs" / "models"
+    return (load_config(UNetConfig, models / "edm2_ddec_mclt_b1a" / "ddec.json"),
+            load_config(MSMDCTDualFormatConfig, models / "edm2_default" / "format.json"))
+
+
+def ddec_forward(ddec, cfg, mdct_shape, gen) -> None:
+    """One full-width DDEC forward (batch 1, no CFG, as the sampler calls
+    it): device ms (CUDA events after a warm-up), the analytic GFLOP of
+    ``unet_fwd_flops``, the achieved TFLOP/s and the bound at the bf16 peak;
+    then one forward under ``torch.profiler``, its device time by kernel
+    group. Its convs are dense (``groups=1``), so cuDNN runs them, not K1."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dualdiffusion_tpu_torch.utils.perf import unet_fwd_flops
+    b, h, w, _ = mdct_shape
+    x = torch.randn(mdct_shape, generator=gen, device="cuda")
+    ref = torch.randn((b, cfg.in_psd_freqs, w, cfg.in_channels), generator=gen,
+                      device="cuda").abs()
+    sigma = torch.full((b,), 1.0, device="cuda")
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: ddec(x, sigma, None, ref), reps=5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = unet_fwd_flops(cfg, b, h, w)
+    bound_ms = flops / PEAK_FLOPS["bf16"] * 1e3
+    print(f"DDEC forward at {tuple(mdct_shape)} (PSD {tuple(ref.shape)}): {ms:.3f} ms, "
+          f"{flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.1f} TFLOP/s, bound {bound_ms:.3f} ms "
+          f"(operations, bf16 peak; {bound_ms / ms:.1%} of it); peak memory {peak:.2f} GiB",
+          flush=True)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ddec(x, sigma, None, ref)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    print_device_time(prof, "profiled DDEC forward", wall_s, "on the host clock (profiled)",
+                      top=10)
 
 
 def _train_snapshot(trainer) -> dict:
@@ -1334,7 +1478,6 @@ def profile_dae_step(model_dir: Path) -> None:
     steps: the step's wall seconds, the device time its kernels took, and
     the kernels with the most device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from dualdiffusion_tpu_torch import train
     dae_training_path(model_dir, steps=0)
@@ -1348,14 +1491,21 @@ def profile_dae_step(model_dir: Path) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train(max_steps=3)
         torch.cuda.synchronize()
-    step_s = trainer.history[-1]["seconds"]
+    print_device_time(prof, "profiled DAE step", trainer.history[-1]["seconds"],
+                      "on the trainer's clock")
+
+
+def print_device_time(prof, what: str, wall_s: float, clock: str, top: int = 15) -> None:
+    """The device time of a ``torch.profiler`` window's kernels against its
+    wall seconds, by kernel group (PROFILE_GROUPS) and for the ``top``
+    kernels with the most device time."""
+    from torch.autograd import DeviceType
     # the kernels themselves (the operator rows above them repeat their time)
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3
     launches = sum(e.count for e in rows)
-    print(f"profiled DAE step: {step_s:.4f} s on the trainer's clock; kernels {device_ms:.1f} ms "
-          f"of device time in {launches} launches ({device_ms / 1e3 / step_s:.1%} of the step)",
-          flush=True)
+    print(f"{what}: {wall_s:.4f} s {clock}; kernels {device_ms:.1f} ms of device time in "
+          f"{launches} launches ({device_ms / 1e3 / wall_s:.1%} of it)", flush=True)
     groups = {}
     for e in rows:
         name = e.key.lower()
@@ -1364,7 +1514,7 @@ def profile_dae_step(model_dir: Path) -> None:
         groups[group] = (ms + e.self_device_time_total / 1e3, n + e.count)
     for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {group}: {ms:.1f} ms in {n} launches ({ms / device_ms:.1%})", flush=True)
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}",
               flush=True)
 
@@ -1379,7 +1529,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from dualdiffusion_tpu_torch.models import DAE, UNet
-    from dualdiffusion_tpu_torch.models.formats import SpectrogramFormat
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, SpectrogramFormat
     from dualdiffusion_tpu_torch.ops.kernels import (launch_counts, reset_launch_counts,
                                                      route_counts)
     from dualdiffusion_tpu_torch.ops.kernels.build import library
@@ -1422,6 +1572,7 @@ def main() -> int:
     measured.update(kernel_phase_ola(fmt, gen))
     slice_phase()
     slice_phase("ms_mdct_dual")
+    ddec_slice_phase()
     measured["grouped_conv3x3_wgrad"] = kernel_phase_conv_backward(
         unet, ucfg.mlp_groups, lat_shape[1], lat_shape[2], gen)
     train_slice_phase()
@@ -1441,6 +1592,15 @@ def main() -> int:
     full_src = Pipeline({"unet": ModuleHandle("unet", "unet", full_cfg, full_unet),
                          "dae": ModuleHandle("dae", "dae", dcfg, dae),
                          "format": ModuleHandle("format", "format:spectrogram", fcfg, fmt)})
+    ddec_cfg, mfcfg = ddec_configs()
+    mfmt = MSMDCTDualFormat(mfcfg)
+    ddec = UNet(ddec_cfg, device="cuda").init_weights(gen)
+    with torch.no_grad():
+        ddec.core.out_gain.fill_(1.0)
+    ddec_src = Pipeline({"unet": ModuleHandle("unet", "unet", ucfg, unet),
+                         "dae": ModuleHandle("dae", "dae", dcfg, dae),
+                         "ddec": ModuleHandle("ddec", "ddec", ddec_cfg, ddec),
+                         "format": ModuleHandle("format", "format:ms_mdct_dual", mfcfg, mfmt)})
     prompt = torch.randn((1, 1024), generator=gen, device="cuda")
     prompt = prompt / prompt.norm(dim=-1, keepdim=True)
     counts = {}
@@ -1467,11 +1627,13 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="dd_smoke_") as tmp:
         full_dir = Path(tmp) / "ref_scale_full_attn"
+        ddec_dir = Path(tmp) / "ref_scale_ddec"
         t0 = time.perf_counter()
         src.save_pretrained(tmp)
         full_src.save_pretrained(full_dir)
-        print(f"save_pretrained (two pipelines): {time.perf_counter() - t0:.2f} s", flush=True)
-        del src, unet, dae, full_src, full_unet
+        ddec_src.save_pretrained(ddec_dir)
+        print(f"save_pretrained (three pipelines): {time.perf_counter() - t0:.2f} s", flush=True)
+        del src, unet, dae, full_src, full_unet, ddec_src, ddec
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
 
@@ -1493,6 +1655,21 @@ def main() -> int:
         path_counts("full-attention serving", ("flash_attention", "grouped_conv3x3", "fgla_frame",
                                                "ola_reframe"),
                     only_routes=(("ola_reframe", "hopper"),))
+
+        # ---- DDEC serving: the same latent stage on the MS-MDCT dual format,
+        # decoded by the diffusion decoder under decode_mode="auto" -----------
+        torch.cuda.empty_cache()
+        mdct_shape = mfmt.get_mdct_shape_for_mel_frames(1, mfmt.get_sample_shape(1)[2])
+        print(f"DDEC serving: {ddec_cfg.model_channels} ch x {ddec_cfg.channel_mult}, "
+              f"{ddec_cfg.num_layers_per_block} layers a block, mlp x{ddec_cfg.mlp_multiplier} "
+              f"(groups {ddec_cfg.mlp_groups}), PSD {ddec_cfg.in_psd_freqs} rows; mel "
+              f"{mfmt.get_sample_shape(1)}, MDCT {mdct_shape}", flush=True)
+        reset_launch_counts()
+        ddec_pipe = serving_path(ddec_dir, mfmt, prompt, decode_mode="auto")
+        path_counts("DDEC serving", ("grouped_conv3x3",),
+                    absent=("fgla_frame", "ola_reframe", "flash_attention"))
+        ddec_forward(ddec_pipe.modules["ddec"].module, ddec_cfg, mdct_shape, gen)
+        del ddec_pipe
 
         # ---- UNet training path: train 4 steps, --resume 1 more -------------
         torch.cuda.empty_cache()

@@ -13,12 +13,14 @@ src/modules/formats/ms_mdct_dual_2.py:35-381).
   sqrt(mel density), last bin dropped; ``sample_to_raw_fgla`` inverts it to
   magnitudes and runs Griffin-Lim (the decode of a pipeline without DDEC).
 * MDCT: 512-sample window, mel-density normalized, with an optional phase
-  rotation of the complex MCLT coefficients. The JAX package draws the
-  rotation angles inside; here the caller passes them (``theta``, one
-  angle per sample) so a test can replay JAX's draws.
+  rotation of the complex MCLT coefficients, and its phase/psd split. The
+  JAX package draws the rotation angles inside; here the caller passes
+  them (``theta``, one angle per sample) so a test can replay JAX's draws.
+* The DDEC decodes the MDCT grid conditioned on ``mel_spec_to_linear``;
+  the mel and the MDCT share one hop, so the two grids align frame for
+  frame (``get_mdct_shape_for_mel_frames``).
 
 Layouts: mel (B, F=256, T', C); MDCT (B, N=256, frames, C); raw (B, C, T).
-The phase/psd split is not ported.
 """
 
 from __future__ import annotations
@@ -157,6 +159,14 @@ class MSMDCTDualFormat(Format):
         n_bins = self.config.mdct_num_frequencies
         return (bsz, n_bins, w // n_bins + 1, self.config.num_raw_channels)
 
+    def get_mdct_shape_for_mel_frames(self, bsz: int, n_mel_frames: int) -> Tuple[int, ...]:
+        """The MDCT sample shape aligned 1:1 with a mel of ``n_mel_frames``
+        frames: the two hops are the same samples by construction."""
+        cfg = self.config
+        if cfg.ms_hop_length != cfg.mdct_frame_hop_length:
+            raise ValueError("mel and MDCT hops must match for DDEC conditioning alignment")
+        return (bsz, cfg.mdct_num_frequencies, n_mel_frames, cfg.num_raw_channels)
+
     def get_sample_shape(self, bsz: int = 1, raw_length: Optional[int] = None) -> Tuple[int, ...]:
         return self.get_mel_spec_shape(bsz, raw_length)
 
@@ -208,19 +218,24 @@ class MSMDCTDualFormat(Format):
                           phase_init=phase_init or "flat")
 
     # ---- mdct path -------------------------------------------------------------
-    def raw_to_mdct(self, raw: torch.Tensor,
-                    theta: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, C, T) -> (B, N, frames, C) normalized MDCT coefficients;
-        ``theta`` (B,) rotates each sample's MCLT phases first (the JAX
-        ``random_phase_augmentation``, with the angles drawn by the caller)."""
-        cfg = self.config
-        re, im = mdct(raw.float(), cfg.mdct_window_len, window_fn=self.mdct_window_fn,
+    def _mclt(self, raw: torch.Tensor, theta: Optional[torch.Tensor]):
+        """(re, im) of the MCLT, (B, C, N, frames); ``theta`` (B,) rotates
+        each sample's phases (the JAX ``random_phase_augmentation``, with
+        the angles drawn by the caller)."""
+        re, im = mdct(raw.float(), self.config.mdct_window_len, window_fn=self.mdct_window_fn,
                       return_complex=True)
         if theta is not None:
             c = torch.cos(theta)[:, None, None, None]
             s = torch.sin(theta)[:, None, None, None]
-            re = re * c - im * s
-        out = re / self._const(self.mdct_mel_density, re)[:, None] / cfg.raw_to_mdct_scale
+            re, im = re * c - im * s, re * s + im * c
+        return re, im
+
+    def raw_to_mdct(self, raw: torch.Tensor,
+                    theta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, C, T) -> (B, N, frames, C) normalized MDCT coefficients,
+        rotated by ``theta`` first when given."""
+        re, _ = self._mclt(raw, theta)
+        out = re / self._const(self.mdct_mel_density, re)[:, None] / self.config.raw_to_mdct_scale
         return out.permute(0, 2, 3, 1)
 
     def mdct_to_raw(self, coeffs: torch.Tensor) -> torch.Tensor:
@@ -231,3 +246,23 @@ class MSMDCTDualFormat(Format):
         return imdct(x, cfg.mdct_window_len, window_fn=self.mdct_window_fn)
 
     sample_to_raw = mdct_to_raw
+
+    def normalize_psd(self, psd: torch.Tensor) -> torch.Tensor:
+        return (psd + self.config.mdct_psd_offset) / self.config.mdct_psd_scale
+
+    def unnormalize_psd(self, psd: torch.Tensor) -> torch.Tensor:
+        return psd * self.config.mdct_psd_scale - self.config.mdct_psd_offset
+
+    def raw_to_mdct_phase_psd(self, raw: torch.Tensor, theta: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, C, T) -> (phase, psd), each (B, N, frames, C): the MCLT's
+        real part over its magnitude (times sqrt 2) and its mel-density
+        normalized magnitude ** ``mdct_psd_exponent``, rotated by ``theta``
+        first when given."""
+        cfg = self.config
+        re, im = self._mclt(raw, theta)
+        psd = torch.sqrt(re * re + im * im)
+        phase = (re / psd.clamp_min(1e-20)).clamp(-1.0, 1.0) * 2.0 ** 0.5
+        psd = (psd / self._const(self.mdct_mel_density, re)[:, None]) ** cfg.mdct_psd_exponent
+        phase = phase.permute(0, 2, 3, 1) / cfg.mdct_phase_scale
+        return phase, self.normalize_psd(psd.permute(0, 2, 3, 1))

@@ -74,11 +74,47 @@ class UNetConfig:
 
 def _check_supported(cfg: UNetConfig) -> None:
     unported = {"w_pack_channels": 0, "remat_blocks": False, "use_3d": False,
-                "in_psd_freqs": 0, "conv_w_pad": "zeros", "add_constant_channel": False,
-                "add_ln_freqs_channel": False, "dropout": 0.0}
+                "conv_w_pad": "zeros", "add_ln_freqs_channel": False, "dropout": 0.0}
     for name, default in unported.items():
         if getattr(cfg, name) != default:
             raise NotImplementedError(f"UNetConfig.{name}={getattr(cfg, name)!r} is not ported")
+
+
+def build_schedule(cfg: UNetConfig):
+    """(name, kind, level, cin, cout) of each op in execution order (JAX
+    unet.py:389-434). The input conv takes the PSD fold's channels
+    (``in_psd_freqs // in_num_freqs`` per input channel) and the constant
+    and ln-freq channels beside the sample's."""
+    cblock = [cfg.model_channels * m for m in cfg.channel_mult]
+    cout = cfg.in_channels
+    if cfg.in_psd_freqs > 0:
+        cout += (cfg.in_psd_freqs // cfg.in_num_freqs) * cfg.in_channels
+    cout += int(cfg.add_constant_channel) + int(cfg.add_ln_freqs_channel)
+    ops, skip_ch = [], []
+    for level, channels in enumerate(cblock):
+        if level == 0:
+            ops.append(("enc_conv_in", "enc_in", 0, cout, channels))
+            cout = channels
+        else:
+            ops.append((f"enc_b{level}_down", "enc_down", level, cout, cout))
+        skip_ch.append(cout)
+        for idx in range(cfg.num_layers_per_block):
+            ops.append((f"enc_b{level}_l{idx}", "enc_layer", level, cout, channels))
+            cout = channels
+            skip_ch.append(cout)
+    for level, channels in reversed(list(enumerate(cblock))):
+        if level == len(cblock) - 1:
+            ops.append((f"dec_b{level}_in0", "dec_mid", level, cout, cout))
+            if cfg.double_midblock:
+                ops.append((f"dec_b{level}_in1", "dec_mid", level, cout, cout))
+        else:
+            ops.append((f"dec_b{level}_up", "dec_up", level, cout, cout))
+        for idx in range(cfg.num_layers_per_block + 1):
+            sc = skip_ch.pop()
+            ops.append((f"dec_b{level}_l{idx}", "dec_layer", level, cout + sc, channels))
+            cout = channels
+    ops.append(("conv_out", "conv_out", 0, cout, cfg.out_channels))
+    return ops
 
 
 class UNetBlock(nn.Module):
@@ -199,7 +235,7 @@ class UNetCore(nn.Module):
                 else max(cblock)) * cfg.mlp_multiplier
         cnoise = (cfg.model_channels * cfg.channel_mult_noise if cfg.channel_mult_noise
                   else max(cblock))
-        self.schedule = self._build_schedule(cblock)
+        self.schedule = build_schedule(cfg)
         self.emb_fourier = MPFourier(cnoise, device=device)
         self.emb_noise = MPConv(cnoise, cemb, (), device=device)
         for name, kind, level, cin, cout in self.schedule:
@@ -217,43 +253,15 @@ class UNetCore(nn.Module):
             self.add_module(name, mod)
         self.out_gain = nn.Parameter(torch.zeros((), device=device))
 
-    def _build_schedule(self, cblock):
-        """(name, kind, level, cin, cout) in execution order (JAX unet.py:389-434)."""
-        cfg = self.cfg
-        cout = cfg.in_channels
-        ops, skip_ch = [], []
-        for level, channels in enumerate(cblock):
-            if level == 0:
-                ops.append(("enc_conv_in", "enc_in", 0, cout, channels))
-                cout = channels
-            else:
-                ops.append((f"enc_b{level}_down", "enc_down", level, cout, cout))
-            skip_ch.append(cout)
-            for idx in range(cfg.num_layers_per_block):
-                ops.append((f"enc_b{level}_l{idx}", "enc_layer", level, cout, channels))
-                cout = channels
-                skip_ch.append(cout)
-        for level, channels in reversed(list(enumerate(cblock))):
-            if level == len(cblock) - 1:
-                ops.append((f"dec_b{level}_in0", "dec_mid", level, cout, cout))
-                if cfg.double_midblock:
-                    ops.append((f"dec_b{level}_in1", "dec_mid", level, cout, cout))
-            else:
-                ops.append((f"dec_b{level}_up", "dec_up", level, cout, cout))
-            for idx in range(cfg.num_layers_per_block + 1):
-                sc = skip_ch.pop()
-                ops.append((f"dec_b{level}_l{idx}", "dec_layer", level, cout + sc, channels))
-                cout = channels
-        ops.append(("conv_out", "conv_out", 0, cout, cfg.out_channels))
-        return ops
-
     def precondition(self, x_in: torch.Tensor, sigma: torch.Tensor,
-                     embeddings: Optional[torch.Tensor], training: bool = False,
-                     x_perturbed: Optional[torch.Tensor] = None):
-        """EDM2 preconditioning + noise/label embedding.
-        Returns (x, emb, c_skip, c_out). ``x_perturbed`` (training-time input
-        perturbation) replaces ``x_in`` as the network input only; the c_skip
-        path keeps ``x_in`` (JAX unet.py:570)."""
+                     embeddings: Optional[torch.Tensor], x_ref: Optional[torch.Tensor] = None,
+                     training: bool = False, x_perturbed: Optional[torch.Tensor] = None):
+        """EDM2 preconditioning, the PSD fold, the constant channel and the
+        noise/label embedding. Returns (x, emb, c_skip, c_out).
+        ``x_ref`` (B, psd_bins, W, C) is the PSD conditioning of a model with
+        ``in_psd_freqs``. ``x_perturbed`` (training-time input perturbation)
+        replaces ``x_in`` as the network input only; the c_skip path keeps
+        ``x_in`` (JAX unet.py:570)."""
         cfg = self.cfg
         sigma = sigma.reshape(-1, 1, 1, 1).float()
         sd = cfg.sigma_data
@@ -263,13 +271,29 @@ class UNetCore(nn.Module):
         c_noise = torch.log(sigma.reshape(-1)) / 4.0
         net_in = x_in if x_perturbed is None else x_perturbed
         x = (c_in * net_in.float()).to(ACT_DTYPE)
+        if x_ref is not None:
+            if cfg.in_psd_freqs <= 0:
+                raise NotImplementedError("inpainting / img2img reference channels are not "
+                                          "ported")
+            # (B, pbins, W, C) -> (B, pbins / per, W, per * C): the per PSD
+            # rows under each model row become channels, row-major over
+            # (row, C); the row count follows the ref (JAX unet.py:573-582)
+            b, pbins, w, c = x_ref.shape
+            per = cfg.in_psd_freqs // cfg.in_num_freqs
+            r = x_ref.reshape(b, pbins // per, per, w, c).permute(0, 1, 3, 2, 4)
+            r = r.reshape(b, pbins // per, w, per * c)
+            x = mp_cat(x, r.to(ACT_DTYPE), dim=-1, t=cfg.label_balance)
+        if cfg.add_constant_channel:
+            x = torch.cat([x, torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)],
+                          dim=-1)
         emb = self.emb_noise(self.emb_fourier(c_noise), training=training)
         if cfg.in_channels_emb > 0 and embeddings is not None:
             emb = mp_silu(mp_sum(emb, embeddings.to(emb.dtype), t=cfg.label_balance))
         return x, emb.to(ACT_DTYPE), c_skip, c_out
 
     def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
-                embeddings: Optional[torch.Tensor] = None, training: bool = False,
+                embeddings: Optional[torch.Tensor] = None,
+                x_ref: Optional[torch.Tensor] = None, training: bool = False,
                 x_perturbed: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         div = 1 << (len(cfg.channel_mult) - 1)
@@ -277,7 +301,7 @@ class UNetCore(nn.Module):
         if h % div or w % div:
             raise ValueError(f"UNet input H,W=({h},{w}) must be divisible by {div} "
                              f"(2^(levels-1), {len(cfg.channel_mult)} levels)")
-        x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings, training,
+        x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings, x_ref, training,
                                                   x_perturbed)
         skips = []
         for name, kind, _, _, _ in self.schedule:
@@ -328,9 +352,10 @@ class UNet(nn.Module):
         return self
 
     def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
-                embeddings: Optional[torch.Tensor] = None, training: bool = False,
+                embeddings: Optional[torch.Tensor] = None,
+                x_ref: Optional[torch.Tensor] = None, training: bool = False,
                 x_perturbed: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.core(x_in, sigma, embeddings, training, x_perturbed)
+        return self.core(x_in, sigma, embeddings, x_ref, training, x_perturbed)
 
     def get_embeddings(self, emb_in: torch.Tensor, conditioning_mask: torch.Tensor,
                        training: bool = False) -> Optional[torch.Tensor]:

@@ -23,6 +23,7 @@ import torch.nn as nn
 
 from ..models.dae import DAE, DAEConfig
 from ..models.formats.format import _FORMAT_REGISTRY
+from ..models.formats.ms_mdct_dual import MSMDCTDualFormat
 from ..models.unet import UNet, UNetConfig
 from ..sampling import SampleParams, edm_sample
 from ..utils import (config_from_dict, config_to_dict, load_json, load_safetensors,
@@ -32,6 +33,7 @@ from ..weights import load_flat, to_flat
 #: module type -> (factory(config, device), config class)
 MODULE_REGISTRY: Dict[str, Tuple[Callable, type]] = {
     "unet": (lambda cfg, device: UNet(cfg, device=device), UNetConfig),
+    "ddec": (lambda cfg, device: UNet(cfg, device=device), UNetConfig),
     "dae": (lambda cfg, device: DAE(cfg, device=device), DAEConfig),
 }
 for _name, (_cls, _cfg_cls) in _FORMAT_REGISTRY.items():
@@ -183,9 +185,11 @@ class Pipeline:
                          generator: Optional[torch.Generator] = None,
                          init_noise: Optional[torch.Tensor] = None,
                          step_noise: Optional[Sequence[torch.Tensor]] = None,
-                         module_name: str = "unet") -> torch.Tensor:
-        """Latent EDM sampling with the named UNet, CFG-doubled when a prompt
-        embedding is given."""
+                         module_name: str = "unet",
+                         x_ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """EDM sampling with the named UNet, CFG-doubled when a prompt
+        embedding is given. ``x_ref`` is the conditioning of a model with
+        ``in_psd_freqs`` (the DDEC's PSD), doubled with the batch under CFG."""
         h = self.modules[module_name]
         unet, ucfg = h.module, h.config
         if ucfg.in_channels != ucfg.out_channels:
@@ -197,9 +201,17 @@ class Pipeline:
             ones = torch.ones((e.shape[0],), device=device)
             emb2 = torch.cat([unet.get_embeddings(e, ones),
                               unet.get_embeddings(e, torch.zeros_like(ones))], dim=0)
+        ref = None
+        if x_ref is not None:
+            ref = x_ref.to(device)
+            if emb2 is not None:
+                ref = torch.cat([ref, ref], dim=0)
 
+        # the ref rides in the closure: JAX passes it through edm_sample only
+        # so that the seamless-loop roll can move it, which the port's
+        # edm_sample does not take
         def denoise(x, sigma):
-            return unet(x, sigma, emb2)
+            return unet(x, sigma, emb2, ref)
 
         return edm_sample(denoise, sample_shape, params,
                           params.sigma_max or ucfg.sigma_max,
@@ -215,24 +227,41 @@ class Pipeline:
                  inpainting_mask: Optional[torch.Tensor] = None,
                  init_noise: Optional[torch.Tensor] = None,
                  step_noise: Optional[Sequence[torch.Tensor]] = None,
+                 ddec_init_noise: Optional[torch.Tensor] = None,
+                 ddec_step_noise: Optional[Sequence[torch.Tensor]] = None,
                  timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
-        """Latent sampling -> DAE decode -> mel unscale + Griffin-Lim -> audio.
+        """Latent sampling -> DAE decode -> audio.
 
-        ``decode_mode`` "fgla" (or "auto", which is "fgla" until the DDEC
-        is ported). ``input_audio``, ``input_latents`` and
-        ``inpainting_mask`` (img2img, inpainting) raise NotImplementedError. Noise comes from ``generator`` (default: seeded from
-        ``params.seed``, else 0) unless ``init_noise``/``step_noise`` are
-        given. ``timings``, when given, receives per-stage seconds (each
-        stage ends in a device synchronize). Returns dict(raw, sample,
-        latents): raw audio (B, C, T), the mel sample and the latents.
+        ``decode_mode``: "fgla" (mel unscale + Griffin-Lim), "ddec" (the
+        diffusion decoder samples MDCT coefficients conditioned on the mel's
+        linear PSD, then the inverse MDCT; needs a "ddec" module and the
+        ms_mdct_dual format), or "auto": "ddec" when the pipeline has a
+        "ddec" module, else "fgla". The DDEC samples with the same
+        ``params`` and never with CFG: it takes no prompt embedding.
+        ``input_audio``, ``input_latents`` and ``inpainting_mask`` (img2img,
+        inpainting) raise NotImplementedError. Noise comes from
+        ``generator`` (default: seeded from ``params.seed``, else 0), drawn
+        by the latent stage and then the DDEC stage, unless
+        ``init_noise``/``step_noise`` (latent stage) or
+        ``ddec_init_noise``/``ddec_step_noise`` (DDEC stage) are given. ``timings``, when given, receives per-stage seconds (each
+        stage ends in a device synchronize): sampler, dae_decode, then fgla
+        or ddec and mdct_to_raw. Returns dict(raw, sample, latents): raw
+        audio (B, C, T), the mel sample and the latents.
         """
-        if decode_mode not in ("auto", "fgla"):
-            raise NotImplementedError(f"decode_mode={decode_mode!r} is not ported")
+        if decode_mode not in ("auto", "fgla", "ddec"):
+            raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if input_audio is not None or input_latents is not None or inpainting_mask is not None:
             raise NotImplementedError("img2img and inpainting are not ported")
         fmt = self.format
         if fmt is None:
             raise ValueError("pipeline has no format module")
+        if decode_mode == "auto":
+            decode_mode = "ddec" if "ddec" in self.modules else "fgla"
+        if decode_mode == "ddec":
+            if "ddec" not in self.modules:
+                raise KeyError("decode_mode='ddec' needs a 'ddec' module")
+            if not isinstance(fmt, MSMDCTDualFormat):
+                raise TypeError("ddec decode requires the ms_mdct_dual format")
         unet = self.modules["unet"].module
         device = next(unet.parameters()).device
         if generator is None:
@@ -262,6 +291,17 @@ class Pipeline:
             mel = self.diffusion_decode(params, tuple(mel_shape), prompt_embedding, generator,
                                         init_noise, step_noise)
             t0 = mark("sampler", t0)
+        if decode_mode == "ddec":
+            lin = fmt.mel_spec_to_linear(mel)
+            mdct_shape = fmt.get_mdct_shape_for_mel_frames(params.batch_size, lin.shape[2])
+            coeffs = self.diffusion_decode(params, mdct_shape, generator=generator,
+                                           init_noise=ddec_init_noise,
+                                           step_noise=ddec_step_noise,
+                                           module_name="ddec", x_ref=lin)
+            t0 = mark("ddec", t0)
+            raw = fmt.mdct_to_raw(coeffs)
+            mark("mdct_to_raw", t0)
+            return {"raw": raw, "sample": mel, "latents": latents}
         # the format's FGLA decode where it has one (ms_mdct_dual's
         # sample_to_raw is the MDCT inverse); phase_init where it takes one
         decode = getattr(fmt, "sample_to_raw_fgla", fmt.sample_to_raw)

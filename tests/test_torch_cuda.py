@@ -578,6 +578,65 @@ def test_tiny_pipeline_generates_through_the_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_tiny_ddec_generate_on_the_card_matches_cpu(cuda):
+    """``generate(decode_mode="auto")`` on a tiny model with a "ddec" module
+    (the MS-MDCT dual format of tests/test_torch_ms_mdct_generate.py): the
+    card (K1 in the latent UNet, cuDNN in the DDEC) against the CPU, same
+    weights and noise. Both run bf16 trunks that round at different places:
+    latents and mel to 5e-2 of max, the audio to 0.1 relative L2."""
+    import copy
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+    from dualdiffusion_tpu_torch.models.formats import (MSMDCTDualFormat,
+                                                        MSMDCTDualFormatConfig)
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    from dualdiffusion_tpu_torch.sampling import SampleParams
+
+    g = torch.Generator().manual_seed(0)
+    ucfg = UNetConfig(in_channels=8, out_channels=8, in_channels_emb=1024, model_channels=32,
+                      channel_mult=(1, 2), num_layers_per_block=1, channels_per_head=32,
+                      mlp_multiplier=2, mlp_groups=2)
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                     num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=8)
+    ddcfg = UNetConfig(in_channels=2, out_channels=2, in_num_freqs=32, in_psd_freqs=128,
+                       sigma_max=20.0, sigma_min=3e-5, model_channels=16, channel_mult=(1, 2),
+                       num_layers_per_block=1, mlp_multiplier=2, add_constant_channel=True)
+    fcfg = MSMDCTDualFormatConfig(ms_num_filters=32, ms_window_length=256, mdct_window_len=64,
+                                  default_raw_length=63 * 32)
+    modules = {"unet": UNet(ucfg).init_weights(g), "dae": DAE(dcfg).init_weights(g),
+               "ddec": UNet(ddcfg).init_weights(g)}
+    with torch.no_grad():
+        modules["unet"].core.out_gain.fill_(1.0)
+        modules["ddec"].core.out_gain.fill_(1.0)
+    cfgs = {"unet": ucfg, "dae": dcfg, "ddec": ddcfg}
+    params = SampleParams(steps=2)
+    noise = {"init_noise": torch.randn((1, 8, 16, 8), generator=g),
+             "ddec_init_noise": torch.randn((1, 32, 64, 2), generator=g)}
+    noise["step_noise"] = [torch.randn((1, 8, 16, 8), generator=g) for _ in range(2)]
+    noise["ddec_step_noise"] = [torch.randn((1, 32, 64, 2), generator=g) for _ in range(2)]
+    prompt = torch.randn((1, 1024), generator=g)
+    outs = {}
+    for dev in ("cpu", cuda):
+        pipe = Pipeline({n: ModuleHandle(n, n, cfgs[n], copy.deepcopy(m).to(dev))
+                         for n, m in modules.items()})
+        pipe.modules["format"] = ModuleHandle("format", "format:ms_mdct_dual", fcfg,
+                                              MSMDCTDualFormat(fcfg))
+        before = launch_counts()
+        out = pipe.generate(params, prompt_embedding=prompt.to(dev),
+                            **{k: ([t.to(dev) for t in v] if isinstance(v, list) else v.to(dev))
+                               for k, v in noise.items()})
+        after = launch_counts()
+        outs[str(dev)] = {k: v.float().cpu() for k, v in out.items()}
+    assert after["grouped_conv3x3"] > before["grouped_conv3x3"]
+    assert all(after[k] == before[k] for k in ("fgla_frame", "ola_reframe", "flash_attention"))
+    got, want = outs["cuda"], outs["cpu"]
+    assert got["raw"].shape == (1, 2, 63 * 32) and torch.isfinite(got["raw"]).all()
+    assert _rel_err(got["latents"], want["latents"]) < 5e-2
+    assert _rel_err(got["sample"], want["sample"]) < 5e-2
+    assert ((got["raw"] - want["raw"]).norm() / want["raw"].norm()).item() < 0.1
+
+
+@pytest.mark.cuda
 def test_training_forward_raises_without_its_kernel(cuda, monkeypatch):
     """No fallback: when the kernel library cannot be had, a training-mode
     grouped conv on a CUDA tensor raises instead of going to cuDNN."""

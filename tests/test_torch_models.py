@@ -19,8 +19,10 @@ from dualdiffusion_tpu.pipelines.pipeline import _flatten
 from dualdiffusion_tpu.utils import config_from_dict as jax_config_from_dict
 from dualdiffusion_tpu.utils import config_to_dict as jax_config_to_dict
 from dualdiffusion_tpu.utils import load_json
+from dualdiffusion_tpu.utils.perf import unet_fwd_flops as jax_unet_fwd_flops
 from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
 from dualdiffusion_tpu_torch.utils import config_from_dict, config_to_dict
+from dualdiffusion_tpu_torch.utils.perf import unet_fwd_flops
 from dualdiffusion_tpu_torch.weights import load_flat, to_flat
 
 UNET_KW = dict(in_channels=8, out_channels=8, in_channels_emb=1024, model_channels=16,
@@ -137,15 +139,25 @@ CONFIGS = Path(__file__).resolve().parents[1] / "configs" / "models"
 
 
 @pytest.mark.parametrize("path", sorted(str(p) for p in CONFIGS.glob("*/*.json")
-                                        if p.name in ("unet.json", "dae.json")))
+                                        if p.name in ("unet.json", "ddec.json", "dae.json")))
 def test_model_json_loads_into_both_packages(path):
     """The same config JSON hydrates into the JAX and the port dataclasses
     with the same field values."""
     raw = load_json(path)
-    jcls, tcls = ((JaxUNetConfig, UNetConfig) if path.endswith("unet.json")
-                  else (JaxDAEConfig, DAEConfig))
+    jcls, tcls = ((JaxDAEConfig, DAEConfig) if path.endswith("dae.json")
+                  else (JaxUNetConfig, UNetConfig))
     assert config_to_dict(config_from_dict(tcls, raw)) == \
         jax_config_to_dict(jax_config_from_dict(jcls, raw))
+
+
+@pytest.mark.parametrize("path", sorted(str(p) for p in CONFIGS.glob("*/ddec.json")))
+def test_unet_fwd_flops_matches_jax(path):
+    """The port's copy of ``unet_fwd_flops`` counts what JAX's does for each
+    DDEC config at the 45 s MDCT shape (1, 256, 5504, 2), the PSD fold's and
+    the constant channel's input-conv channels included."""
+    raw = load_json(path)
+    want = jax_unet_fwd_flops(jax_config_from_dict(JaxUNetConfig, raw), 1, 256, 5504)
+    assert unet_fwd_flops(config_from_dict(UNetConfig, raw), 1, 256, 5504) == want > 0
 
 
 def test_tpu_only_fields_raise_when_set():

@@ -141,14 +141,13 @@ def test_port_written_model_loads_in_jax(tmp_path):
 
 
 def test_unported_generate_inputs_raise(tmp_path):
-    """img2img / inpainting inputs and the DDEC decode are not ported yet."""
+    """img2img / inpainting inputs are not ported yet."""
     _jax_pipeline().save_pretrained(tmp_path / "model")
     pipe = Pipeline.from_pretrained(tmp_path / "model", device="cpu")
     params = SampleParams(steps=1, num_fgla_iters=1)
     for kw in (dict(input_audio=torch.zeros((2, 63 * 256))),
                dict(input_latents=torch.zeros((1, 16, 16, 8))),
-               dict(inpainting_mask=torch.ones((1, 16, 16, 1))),
-               dict(decode_mode="ddec")):
+               dict(inpainting_mask=torch.ones((1, 16, 16, 1)))):
         with pytest.raises(NotImplementedError):
             pipe.generate(params, **kw)
 
