@@ -49,13 +49,26 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    CFG), printing each stage's seconds and peak memory and checking the
    audio and that K1 was launched and K2, K3 and K7 were not; then one
    full-width DDEC forward (ms, analytic GFLOP, TFLOP/s, bf16 bound);
-6. drives the UNet training path: writes a synthetic latent dataset and runs
+6. drives the options of ``generate`` that ``sample.py`` and the model
+   server use, on a fourth copy of the reference-scale pipeline: img2img
+   from the first serving clip at strength 0.5 (K1 for 50 of the 100 steps)
+   and 0, inpainting 10-20 s on ``convert_unet_to_inpainting``'s UNet (all
+   100 steps, and one full-width forward with a zero reference against the
+   original), the seamless loop under Griffin-Lim and under the DDEC
+   (shifts that change from step to step, the crossfaded length), a
+   chunked preview aborted after 3 chunks of 10 steps, and
+   ``python -m dualdiffusion_tpu_torch.sample`` with every option on a
+   post-hoc EMA (three bf16 archives) and dataset prompt embeddings, whose
+   WAV must read -20 LUFS; K1 is also held against its plain version at the
+   seamless width W 752, and the tiny slices take img2img, inpainting and
+   the seamless loop on the card against the CPU;
+7. drives the UNet training path: writes a synthetic latent dataset and runs
    ``python -m dualdiffusion_tpu_torch.train``'s entry in-process on that
    model directory for 4 steps, then ``--resume`` for 1 more (device batch
    8, gradient accumulation 2, AdamW, one EMA), checking the losses, that
    params and EMA moved, that the checkpoint round-trips and that K1 and K4
    were launched;
-7. drives the DAE training path the same way: the edm2_default DAE
+8. drives the DAE training path the same way: the edm2_default DAE
    (configs/models/edm2_default) on the MS-MDCT dual format, its trainer
    config with the fused MSS2D loss, 32 synthetic stereo WAVs, 5.5 s crops,
    device batch 8 x accumulation 2, 4 steps then 1 after ``--resume``,
@@ -63,7 +76,7 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    version.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
-one full-width DAE train step (step 7's model, data and config).
+one full-width DAE train step (step 8's model, data and config).
 
 Any failure raises, so the exit code is not 0. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -832,6 +845,93 @@ def ddec_slice_phase():
         raise AssertionError("the DDEC slice on the card disagrees with the CPU run")
 
 
+def options_slice_phase():
+    """img2img (from audio, strength 0.5), inpainting (a converted UNet of
+    8 + 8 + 1 inputs under a half mask, the whole schedule) and the seamless
+    loop (shifts given) on a tiny model of a 128-frame mel: the card against
+    the CPU, same weights, noise and shifts. As the other slices: latents
+    and mel to 5e-2 of max, the audio through its own mel spectrogram to 0.2
+    relative L2; K1 must launch on the card. The seamless loop's audio is
+    nearly all crossfade (16,128 of its 16,384 samples), a sum of the clip's
+    two ends whose Griffin-Lim phases follow the mel's few-percent bf16
+    differences apart (measured 0.44 on its mel), so it is held instead
+    against the CPU's decode and crossfade of the card's own mel: 0.05
+    relative L2, the bound of the Griffin-Lim kernels against their plain
+    loop."""
+    import copy
+    import dataclasses
+    import torch
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+    from dualdiffusion_tpu_torch.models.formats import SpectrogramFormat, SpectrogramFormatConfig
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline, loop_hop_length
+    from dualdiffusion_tpu_torch.sampling import SampleParams, seamless_loop_crossfade
+    ucfg = UNetConfig(in_channels=8, out_channels=8, in_channels_emb=1024, model_channels=32,
+                      channel_mult=(1, 2), num_layers_per_block=1, channels_per_head=32,
+                      mlp_multiplier=2, mlp_groups=2, attn_levels=(1,))
+    icfg = dataclasses.replace(ucfg, in_channels=8 + 8 + 1)
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                     num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=8)
+    fcfg = SpectrogramFormatConfig(window_duration_ms=40, padded_duration_ms=40,
+                                   num_frequencies=64, default_raw_length=127 * 256)
+    fmt = SpectrogramFormat(fcfg)
+    gen = torch.Generator().manual_seed(5)
+    modules = {"unet": (ucfg, UNet(ucfg).init_weights(gen)),
+               "unet_inpainting": (icfg, UNet(icfg).init_weights(gen)),
+               "dae": (dcfg, DAE(dcfg).init_weights(gen))}
+    with torch.no_grad():
+        for name in ("unet", "unet_inpainting"):
+            modules[name][1].core.out_gain.fill_(1.0)
+    lat_shape = modules["dae"][1].get_latent_shape(fmt.get_sample_shape(1))
+    prompt = torch.randn((1, 1024), generator=gen)
+    audio = 0.2 * torch.randn((2, fmt.get_raw_crop_width()), generator=gen)
+    mask = torch.zeros((1, 1, lat_shape[2], 1))
+    mask[..., : lat_shape[2] // 2, :] = 1.0
+    init = torch.randn(lat_shape, generator=gen)
+    noise = [torch.randn(lat_shape, generator=gen) for _ in range(2)]
+    base = SampleParams(steps=2, num_fgla_iters=3, img2img_strength=0.5)
+    cases = {"img2img": (base, dict(input_audio=audio), 1),
+             "inpainting": (base, dict(input_audio=audio, inpainting_mask=mask), 2),
+             "seamless": (dataclasses.replace(base, seamless_loop=True),
+                          dict(step_shifts=[3, 17]), 2)}
+    for case, (params, kw, run_steps) in cases.items():
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            pipe = Pipeline({n: ModuleHandle(n, "dae" if n == "dae" else "unet", c,
+                                             copy.deepcopy(m).to(dev))
+                             for n, (c, m) in modules.items()})
+            pipe.modules["format"] = ModuleHandle("format", "format:spectrogram", fcfg, fmt)
+            before = launch_counts()["grouped_conv3x3"]
+            out = pipe.generate(params, prompt_embedding=prompt.to(dev), init_noise=init.to(dev),
+                                step_noise=[n.to(dev) for n in noise[:run_steps]],
+                                **{k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                                   for k, v in kw.items()})
+            launched = launch_counts()["grouped_conv3x3"] - before
+            outs[dev] = {k: v.float().cpu() for k, v in out.items()}
+            outs[dev]["audio_mel"] = fmt.raw_to_sample(outs[dev]["raw"])
+        if not launched:
+            raise AssertionError(f"the {case} slice on the card launched no K1")
+        print(f"{case} slice on a tiny model (latents {tuple(lat_shape)}, audio "
+              f"{tuple(outs['cuda']['raw'].shape)}, {run_steps} steps run, K1 launches "
+              f"{launched}), CUDA vs CPU:", flush=True)
+        for key in ("latents", "sample"):
+            check_close(key, outs["cuda"][key], outs["cpu"][key], 5e-2)
+        if case == "seamless":
+            what, tol, a = "audio against the CPU's decode of the card's mel", 0.05, \
+                outs["cuda"]["raw"]
+            b = seamless_loop_crossfade(
+                fmt.sample_to_raw(outs["cuda"]["sample"], n_fgla_iters=params.num_fgla_iters,
+                                  phase_init=params.fgla_phase_init), loop_hop_length(fcfg))
+        else:
+            what, tol = "audio's mel spectrogram", 0.2
+            a, b = outs["cuda"]["audio_mel"], outs["cpu"]["audio_mel"]
+        rel = ((a - b).norm() / b.norm()).item()
+        print(f"  {what}: rel L2 {rel:.4g} (tol {tol}) {'ok' if rel < tol else 'FAIL'}",
+              flush=True)
+        if not rel < tol:
+            raise AssertionError(f"the {case} slice on the card disagrees with the CPU run")
+
+
 def train_slice_phase():
     """Two train steps (gradient accumulation 2, AdamW, one EMA) of a tiny
     grouped UNet on the card (K1 forward and dgrad, K4 wgrad) against the
@@ -1212,7 +1312,8 @@ def flash_crossover(gen) -> None:
 
 def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla"):
     """``Pipeline.from_pretrained`` then ``generate`` once per seed, checking
-    the audio's shape, finiteness and loudness; returns the pipeline."""
+    the audio's shape, finiteness and loudness; returns the pipeline and the
+    first seed's audio."""
     import torch
     from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline
     from dualdiffusion_tpu_torch.sampling import SampleParams
@@ -1247,7 +1348,7 @@ def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla"):
         outs.append(raw)
     if torch.equal(outs[0], outs[1]):
         raise AssertionError("two seeds gave identical audio")
-    return pipe
+    return pipe, outs[0]
 
 
 def ddec_configs():
@@ -1295,6 +1396,231 @@ def ddec_forward(ddec, cfg, mdct_shape, gen) -> None:
         wall_s = time.perf_counter() - t0
     print_device_time(prof, "profiled DDEC forward", wall_s, "on the host clock (profiled)",
                       top=10)
+
+
+def seamless_conv_check(unet, lat_h: int, lat_w: int, gen) -> None:
+    """K1 against its plain version at every distinct grouped-conv shape of
+    one UNet forward at the seamless loop's width (the latents' W plus
+    2 x LOOP_PAD columns; batch 2 under CFG), with each shape's time and
+    the sum over one forward beside its bound."""
+    import torch
+    from dualdiffusion_tpu_torch.ops.kernels import (grouped_conv3x3, grouped_conv3x3_plain,
+                                                     prepare_weights)
+    from dualdiffusion_tpu_torch.sampling import LOOP_PAD
+    groups = unet.cfg.mlp_groups
+    shapes = grouped_conv_shapes(unet, 2, lat_h, lat_w + 2 * LOOP_PAD)
+    print(f"K1 at the seamless width W {lat_w + 2 * LOOP_PAD} (latents {lat_w} + 2 x {LOOP_PAD}):",
+          flush=True)
+    total_ms = flops = 0.0
+    for (b, h, w, cin, cout), n in {s: shapes.count(s) for s in dict.fromkeys(shapes)}.items():
+        x = torch.randn((b, h, w, cin), generator=gen, device="cuda").bfloat16()
+        wt = prepare_weights(torch.randn((cout, cin // groups, 3, 3), generator=gen, device="cuda")
+                             / (9 * cin // groups) ** 0.5, groups)
+        got = grouped_conv3x3(x, wt, groups)
+        torch.cuda.synchronize()
+        route = conv_route(cin // groups, cout // groups, x, wt, got)
+        ms = time_ms(lambda: grouped_conv3x3(x, wt, groups))
+        check_close(f"({b},{h},{w},{cin}->{cout}) x{n} [{route}] {ms:.4f} ms", got,
+                    grouped_conv3x3_plain(x, wt, groups), 2 ** -7)
+        total_ms += n * ms
+        flops += n * 2 * 9 * cin * cout // groups * b * h * w
+    print(f"  per UNet forward at W {lat_w + 2 * LOOP_PAD}: K1 {total_ms:.3f} ms, bound "
+          f"{bound(flops, 0.0, 'bf16')[0]:.4f} ms ({flops / 1e9:.1f} GFLOP bf16)", flush=True)
+
+
+def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, clip,
+                            k1_per_forward: int, card: str) -> None:
+    """The options of ``generate`` at full width on the reference-scale
+    pipeline (100 Heun steps, CFG 1.5, SPSI + 100 Griffin-Lim iterations):
+    img2img from the first serving clip at strength 0.5 (K1 launched for 50
+    steps, half a clip's latent stage) and 0 (no step: the latents are the
+    input's normalized encoding plus sigma_min's noise, 0.05 relative L2 as
+    tests/test_torch_generate_options.py states); inpainting 10-20 s on the
+    converted UNet (its 4 + 4 + 1 inputs, every forward of all 100 steps);
+    the seamless loop under Griffin-Lim and under the DDEC (shifts that
+    differ from step to step; the audio shorter by the crossfade); the
+    chunked preview with an abort after 3 chunks of 10 steps; and the
+    ``python -m dualdiffusion_tpu_torch.sample`` CLI with every option, whose
+    WAV must read -20 LUFS (0.5 LU). Each run prints its stages' seconds,
+    its peak memory and its K1 launches, after a line naming ``card``."""
+    import dataclasses
+    import torch
+    from dualdiffusion_tpu_torch.models.convert import convert_unet_to_inpainting
+    from dualdiffusion_tpu_torch.models.mp import normalize
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline, loop_hop_length
+    from dualdiffusion_tpu_torch.sample import inpainting_mask
+    from dualdiffusion_tpu_torch.sampling import LOOP_PAD, SampleParams
+    from dualdiffusion_tpu_torch.training.ema import save_ema_archive
+    from dualdiffusion_tpu_torch.utils import (get_audio_loudness, load_audio, save_audio,
+                                               save_safetensors)
+    base = SampleParams(steps=SAMPLER_STEPS, cfg_scale=1.5, use_heun=True, num_fgla_iters=100,
+                        fgla_phase_init="spsi")
+    print(f"generation options on {card}: {SAMPLER_STEPS} steps (CFG 1.5, Heun), SPSI + 100 "
+          f"Griffin-Lim iterations or the DDEC; seed {SEEDS[0]}", flush=True)
+
+    def run(what, pipe, params, want_k1_steps, **kw):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timings, debug = {}, {}
+        before = launch_counts()["grouped_conv3x3"]
+        t0 = time.perf_counter()
+        out = pipe.generate(params, torch.Generator(device="cuda").manual_seed(SEEDS[0]),
+                            prompt_embedding=prompt, timings=timings, debug=debug, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launched = launch_counts()["grouped_conv3x3"] - before
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = 2 * want_k1_steps * k1_per_forward
+        print(f"{what}: " + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+              + f", total {total:.3f} s; peak memory {peak:.2f} GiB; K1 launches {launched} "
+              f"({want_k1_steps} steps x 2 forwards x {k1_per_forward} expected)", flush=True)
+        if launched != want:
+            raise AssertionError(f"{what}: {launched} K1 launches, not {want}")
+        if not torch.isfinite(out["raw"]).all():
+            raise AssertionError(f"{what}: audio not finite")
+        return out, debug
+
+    def expect(what, ok: bool, text: str):
+        print(f"  {what}: {text} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{what}: {text}")
+
+    pipe = Pipeline.from_pretrained(model_dir, device="cuda")
+    sd = pipe.modules["unet"].config.sigma_data
+    audio = clip[0]
+    # ---- img2img at strength 0.5 and 0 ----
+    run("img2img (strength 0.5)", pipe, dataclasses.replace(base, img2img_strength=0.5),
+        SAMPLER_STEPS // 2, input_audio=audio)
+    out, debug = run("img2img (strength 0)", pipe, dataclasses.replace(base, img2img_strength=0.0),
+                     0, input_audio=audio)
+    enc = normalize(pipe.encode_input_audio(audio)) * sd
+    rel = ((out["latents"] - enc).norm() / enc.norm()).item()
+    expect("strength 0: latents against normalize(encode(input))", rel <= 0.05,
+           f"rel L2 {rel:.4g} (tol 0.05)")
+    del pipe
+
+    # ---- inpainting on the converted UNet ----
+    t0 = time.perf_counter()
+    convert_unet_to_inpainting(model_dir)
+    pipe = Pipeline.from_pretrained(model_dir, device="cuda")
+    print(f"convert_unet_to_inpainting + from_pretrained: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    conv, orig = pipe.modules["unet_inpainting"].module, pipe.modules["unet"].module
+    cin = conv.core.enc_conv_in.weight.shape[1]
+    expect("unet_inpainting's enc_conv_in", cin == 4 + 4 + 1, f"{cin} input channels")
+    calls = []
+    hook = conv.register_forward_pre_hook(lambda m, a: calls.append(1))
+    mask = inpainting_mask(pipe, 10.0, 20.0, fmt.config.sample_rate)
+    cols = int(mask.sum())
+    out, debug = run("inpainting 10-20 s", pipe, dataclasses.replace(base, img2img_strength=0.5),
+                     SAMPLER_STEPS, input_audio=audio, inpainting_mask=mask)
+    hook.remove()
+    expect("unet_inpainting forwards", len(calls) == 2 * SAMPLER_STEPS and
+           len(debug["sample_std"]) == SAMPLER_STEPS,
+           f"{len(calls)} forwards, {len(debug['sample_std'])} steps ({cols} of "
+           f"{mask.shape[2]} latent columns regenerated)")
+    lat = out["latents"]
+    x = torch.randn(lat.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda") * 2.0
+    sigma = torch.full((1,), 1.0, device="cuda")
+    zero_ref = torch.zeros(lat.shape[:-1] + (lat.shape[-1] + 1,), device="cuda")
+    with torch.no_grad():
+        y_conv = conv(x, sigma, None, zero_ref)
+        y_orig = orig(x, sigma)
+        scale = (4 / cin) ** 0.5
+        orig.core.enc_conv_in.weight.mul_(scale)     # the inference fan-in divisor's change
+        y_scaled = orig(x, sigma)
+        orig.core.enc_conv_in.weight.div_(scale)
+    for name, want in (("the original UNet", y_orig),
+                       ("the original with enc_conv_in x sqrt(4/9)", y_scaled)):
+        err = ((y_conv - want).abs().max() / want.abs().max()).item()
+        print(f"  full-width forward {tuple(x.shape)} of unet_inpainting with a zero reference "
+              f"against {name}: max err {err:.4g} of max", flush=True)
+    expect("converted forward against the scaled original", err <= 5e-2,
+           f"{err:.4g} of max (tol 5e-2, bf16 trunks)")
+    del pipe, conv, orig
+
+    # ---- the seamless loop under Griffin-Lim and under the DDEC ----
+    for name, d, f, kw in (("Griffin-Lim", model_dir, fmt, {}),
+                           ("DDEC", ddec_dir, mfmt, {"decode_mode": "auto"})):
+        pipe = Pipeline.from_pretrained(d, device="cuda")
+        if name == "Griffin-Lim":
+            pipe.modules.pop("unet_inpainting")
+        out, debug = run(f"seamless loop ({name})", pipe,
+                         dataclasses.replace(base, seamless_loop=True), SAMPLER_STEPS, **kw)
+        hop = loop_hop_length(f.config)
+        want_len = f.get_raw_crop_width() - int((LOOP_PAD - 0.5) * hop) * 2
+        expect("audio length", out["raw"].shape[-1] == want_len,
+               f"{out['raw'].shape[-1]} samples (crop {f.get_raw_crop_width()} less "
+               f"int((32 - 0.5) x {hop}) x 2)")
+        for stage, dbg in (("latent", debug), ("DDEC", debug.get("ddec"))):
+            if dbg is None:
+                continue
+            shifts = dbg["step_shifts"]
+            moved = sum(a != b for a, b in zip(shifts, shifts[1:]))
+            expect(f"{stage} stage's shifts", len(shifts) == SAMPLER_STEPS and
+                   moved >= SAMPLER_STEPS - 5, f"{len(set(shifts))} distinct of "
+                   f"{len(shifts)}, {moved} changes between steps")
+        del pipe
+
+    # ---- the chunked preview, aborted after 3 chunks of 10 steps ----
+    pipe = Pipeline.from_pretrained(model_dir, device="cuda")
+    pipe.modules.pop("unet_inpainting")
+    seen = []
+
+    def preview(done, sample):
+        seen.append((done, bool(torch.isfinite(sample).all())))
+        return done >= 30
+    out, debug = run("chunked preview, aborted", pipe, base, 30, chunk_size=10,
+                     chunk_callback=preview)
+    rms = out["latents"].square().mean().sqrt().item()
+    expect("callbacks and the partial sample", [d for d, _ in seen] == [10, 20, 30] and
+           all(ok for _, ok in seen) and abs(rms - sd) < 1e-2,
+           f"called after {[d for d, _ in seen]} steps; latents rms {rms:.5f}")
+
+    # ---- the CLI with every option, on a post-hoc EMA ----
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    state = pipe.modules["unet"].module.state_dict()
+    for i, (n, std) in enumerate(((4000, 0.05), (8000, 0.05), (8000, 0.1))):
+        save_ema_archive({k: v + 0.01 * torch.randn(v.shape, generator=gen, device="cuda")
+                          for k, v in state.items()},
+                         model_dir / "unet" / "ema_archive" / f"{n}_ema_std{std}.safetensors",
+                         n // 8, n, std)
+    dim = pipe.modules["unet"].config.in_channels_emb
+    rng = torch.Generator().manual_seed(8)
+    save_safetensors({k: torch.randn(dim, generator=rng).numpy()
+                      for k in ("label_a_audio", "label_a_text", "_unconditional_audio")},
+                     model_dir / "dataset_embeddings.safetensors")
+    wav = model_dir / "input.wav"
+    save_audio(audio.float().cpu().numpy(), fmt.config.sample_rate, wav)
+    del pipe, state
+    torch.cuda.empty_cache()
+    print(f"CLI inputs (3 bf16 EMA archives, dataset embeddings, the input WAV): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out_wav = model_dir / "cli" / "out.wav"
+    cmd = [sys.executable, "-m", "dualdiffusion_tpu_torch.sample", "--model_path", str(model_dir),
+           "--prompt", "label_a:1.0", "--load_ema", "phema_0.05", "--img2img", str(wav),
+           "--img2img_strength", "0.6", "--inpaint", "10:20", "--seamless_loop",
+           "--output", str(out_wav)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print(f"python -m dualdiffusion_tpu_torch.sample {' '.join(cmd[3:])}: exit "
+          f"{proc.returncode}, {wall:.2f} s", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], flush=True)
+        raise AssertionError("the sample CLI failed")
+    wav_out, sr = load_audio(out_wav, return_sample_rate=True)
+    lufs = get_audio_loudness(wav_out, sr)
+    want_len = fmt.get_raw_crop_width() - int((LOOP_PAD - 0.5) * loop_hop_length(fmt.config)) * 2
+    expect("CLI output", wav_out.shape == (2, want_len) and abs(lufs + 20.0) <= 0.5,
+           f"{wav_out.shape} at {sr} Hz, {lufs:.3f} LUFS (-20 +- 0.5)")
+    proc = subprocess.run(cmd[:5] + ["--interactive"], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    expect("CLI --interactive", proc.returncode != 0 and "NotImplementedError" in proc.stderr,
+           f"exit {proc.returncode}, NotImplementedError")
 
 
 def _train_snapshot(trainer) -> dict:
@@ -1568,11 +1894,16 @@ def main() -> int:
     # ---- kernel phases and tiny slices, each once -------------------------
     measured = {"grouped_conv3x3": kernel_phase_conv(unet, ucfg.mlp_groups, lat_shape[1],
                                                      lat_shape[2], gen)}
+    # inputs from a generator of their own, so the later phases' draws stay as they were
+    seamless_conv_check(unet, lat_shape[1], lat_shape[2],
+                        torch.Generator(device="cuda").manual_seed(2))
+    k1_per_forward = len(grouped_conv_shapes(unet, 2, lat_shape[1], lat_shape[2]))
     measured.update(kernel_phase_fgla(fmt, gen))
     measured.update(kernel_phase_ola(fmt, gen))
     slice_phase()
     slice_phase("ms_mdct_dual")
     ddec_slice_phase()
+    options_slice_phase()
     measured["grouped_conv3x3_wgrad"] = kernel_phase_conv_backward(
         unet, ucfg.mlp_groups, lat_shape[1], lat_shape[2], gen)
     train_slice_phase()
@@ -1628,11 +1959,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="dd_smoke_") as tmp:
         full_dir = Path(tmp) / "ref_scale_full_attn"
         ddec_dir = Path(tmp) / "ref_scale_ddec"
+        options_dir = Path(tmp) / "ref_scale_options"
         t0 = time.perf_counter()
         src.save_pretrained(tmp)
+        src.save_pretrained(options_dir)
         full_src.save_pretrained(full_dir)
         ddec_src.save_pretrained(ddec_dir)
-        print(f"save_pretrained (three pipelines): {time.perf_counter() - t0:.2f} s", flush=True)
+        print(f"save_pretrained (four pipelines): {time.perf_counter() - t0:.2f} s", flush=True)
         del src, unet, dae, full_src, full_unet, ddec_src, ddec
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -1641,7 +1974,7 @@ def main() -> int:
         reset_launch_counts()
         print(f"serving: FGLA n_fft {fcfg.padded_length}, K2 {fgla_route(fcfg.padded_length)} "
               f"route, K3 {ola_route(fcfg.padded_length, fcfg.hop_length)} route", flush=True)
-        serving_path(tmp, fmt, prompt)
+        first_clip = serving_path(tmp, fmt, prompt)[1]
         path_counts("serving", ("grouped_conv3x3", "fgla_frame", "ola_reframe"),
                     absent=("flash_attention",), only_routes=(("ola_reframe", "hopper"),))
 
@@ -1665,11 +1998,23 @@ def main() -> int:
               f"(groups {ddec_cfg.mlp_groups}), PSD {ddec_cfg.in_psd_freqs} rows; mel "
               f"{mfmt.get_sample_shape(1)}, MDCT {mdct_shape}", flush=True)
         reset_launch_counts()
-        ddec_pipe = serving_path(ddec_dir, mfmt, prompt, decode_mode="auto")
+        ddec_pipe = serving_path(ddec_dir, mfmt, prompt, decode_mode="auto")[0]
         path_counts("DDEC serving", ("grouped_conv3x3",),
                     absent=("fgla_frame", "ola_reframe", "flash_attention"))
         ddec_forward(ddec_pipe.modules["ddec"].module, ddec_cfg, mdct_shape, gen)
         del ddec_pipe
+
+        # ---- generation options: img2img, inpainting, the seamless loop,
+        # the chunked preview and the sample CLI, at full width --------------
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        generation_options_path(options_dir, ddec_dir, fmt, mfmt, prompt, first_clip,
+                                k1_per_forward, smi)
+        print(f"generation options phase: {time.perf_counter() - t0:.2f} s", flush=True)
+        path_counts("generation options", ("grouped_conv3x3", "fgla_frame", "ola_reframe"),
+                    absent=("flash_attention",))
+        del first_clip
 
         # ---- UNet training path: train 4 steps, --resume 1 more -------------
         torch.cuda.empty_cache()

@@ -258,8 +258,9 @@ class UNetCore(nn.Module):
                      training: bool = False, x_perturbed: Optional[torch.Tensor] = None):
         """EDM2 preconditioning, the PSD fold, the constant channel and the
         noise/label embedding. Returns (x, emb, c_skip, c_out).
-        ``x_ref`` (B, psd_bins, W, C) is the PSD conditioning of a model with
-        ``in_psd_freqs``. ``x_perturbed`` (training-time input perturbation)
+        ``x_ref`` is the PSD conditioning (B, psd_bins, W, C) of a model with
+        ``in_psd_freqs``, else the inpainting reference and mask channels
+        (B, H, W, out_channels + 1). ``x_perturbed`` (training-time input perturbation)
         replaces ``x_in`` as the network input only; the c_skip path keeps
         ``x_in`` (JAX unet.py:570)."""
         cfg = self.cfg
@@ -271,10 +272,7 @@ class UNetCore(nn.Module):
         c_noise = torch.log(sigma.reshape(-1)) / 4.0
         net_in = x_in if x_perturbed is None else x_perturbed
         x = (c_in * net_in.float()).to(ACT_DTYPE)
-        if x_ref is not None:
-            if cfg.in_psd_freqs <= 0:
-                raise NotImplementedError("inpainting / img2img reference channels are not "
-                                          "ported")
+        if x_ref is not None and cfg.in_psd_freqs > 0:
             # (B, pbins, W, C) -> (B, pbins / per, W, per * C): the per PSD
             # rows under each model row become channels, row-major over
             # (row, C); the row count follows the ref (JAX unet.py:573-582)
@@ -283,6 +281,10 @@ class UNetCore(nn.Module):
             r = x_ref.reshape(b, pbins // per, per, w, c).permute(0, 1, 3, 2, 4)
             r = r.reshape(b, pbins // per, w, per * c)
             x = mp_cat(x, r.to(ACT_DTYPE), dim=-1, t=cfg.label_balance)
+        elif x_ref is not None:
+            # the inpainting reference and mask as extra input channels (JAX
+            # unet.py:583-587; models/convert.py sizes the input conv)
+            x = torch.cat([x, x_ref.to(ACT_DTYPE)], dim=-1)
         if cfg.add_constant_channel:
             x = torch.cat([x, torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)],
                           dim=-1)

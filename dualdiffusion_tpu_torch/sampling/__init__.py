@@ -1,1 +1,1 @@
-from .sampler import SampleParams, edm_sample
+from .sampler import LOOP_PAD, SampleParams, edm_sample, seamless_loop_crossfade

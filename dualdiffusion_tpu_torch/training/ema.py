@@ -1,6 +1,6 @@
 """Multi-profile EMA bank with power-function profiles, feedback and switch
-EMA, and bf16 archive snapshots (JAX: dualdiffusion_tpu/training/ema.py:38-270,
-418-429; reference: src/training/ema.py).
+EMA, bf16 archive snapshots and post-hoc reconstruction from them (JAX:
+dualdiffusion_tpu/training/ema.py:38-270, 418-459; reference: src/training/ema.py).
 
 A profile is a dict name -> tensor beside the model's parameters and
 persistent buffers (the DAE's latent stats: the JAX bank averages every
@@ -45,6 +45,63 @@ def power_function_beta(std: float, t_next: float, t_delta: float) -> float:
     """Per-step beta tracking a power-function profile (eq. 127)."""
     exp = float(std_to_exp(np.array(std)))
     return (1.0 - t_delta / t_next) ** (exp + 1.0)
+
+
+def power_function_correlation(a_ofs, a_std, b_ofs, b_std) -> np.ndarray:
+    a_exp = std_to_exp(a_std)
+    b_exp = std_to_exp(b_std)
+    t_ratio = a_ofs / b_ofs
+    t_exp = np.where(a_ofs < b_ofs, b_exp, -a_exp)
+    t_max = np.maximum(a_ofs, b_ofs)
+    num = (a_exp + 1) * (b_exp + 1) * t_ratio ** t_exp
+    den = (a_exp + b_exp + 1) * t_max
+    return num / den
+
+
+def solve_posthoc_coefficients(in_ofs, in_std, out_ofs, out_std) -> np.ndarray:
+    """Least-squares mixing coefficients (alg. 3), normalized to sum to 1."""
+    in_ofs, in_std = np.broadcast_arrays(in_ofs, in_std)
+    out_ofs, out_std = np.broadcast_arrays(out_ofs, out_std)
+    rv = lambda x: np.asarray(x, np.float64).reshape(-1, 1)  # noqa: E731
+    cv = lambda x: np.asarray(x, np.float64).reshape(1, -1)  # noqa: E731
+    a = power_function_correlation(rv(in_ofs), rv(in_std), cv(in_ofs), cv(in_std))
+    b = power_function_correlation(rv(in_ofs), rv(in_std), cv(out_ofs), cv(out_std))
+    x = np.linalg.solve(a, b)
+    return x / np.sum(x, axis=0)
+
+
+def reconstruct_phema(out_std: float, phema_path) -> Dict[str, np.ndarray]:
+    """Post-hoc EMA (JAX ema.py:432-459; reference: ema.py:147-191): the
+    least-squares combination, at the archives' latest sample count, of the
+    bf16 snapshots in ``phema_path`` (as ``save_ema_archive`` of either
+    package writes them), accumulated in float64. Returns the archives' flat
+    dict in fp32, under their keys: the port writes 0-d leaves as (1,) under
+    a ``#0d`` key, the JAX package as (1,) under the bare key."""
+    from safetensors import safe_open
+    emas = []
+    for f in sorted(Path(phema_path).iterdir()):
+        if not f.name.lower().endswith(".safetensors"):
+            continue
+        with safe_open(str(f), framework="pt") as h:
+            meta = h.metadata() or {}
+        emas.append({"path": f, "std": float(meta["std"]),
+                     "n_processed": int(meta["total_samples_processed"])})
+    if not emas:
+        raise FileNotFoundError(f"no ema archives in {phema_path}")
+    emas.sort(key=lambda e: (e["n_processed"], e["std"]))
+    out_n = max(e["n_processed"] for e in emas)
+    coefs = solve_posthoc_coefficients(
+        np.array([e["n_processed"] for e in emas]), np.array([e["std"] for e in emas]),
+        np.array([out_n]), np.array([out_std]))
+    state: Optional[Dict[str, torch.Tensor]] = None
+    for i, e in enumerate(emas):
+        with safe_open(str(e["path"]), framework="pt") as h:
+            sd = {k: h.get_tensor(k) for k in h.keys()}
+        if state is None:
+            state = {k: torch.zeros(v.shape, dtype=torch.float64) for k, v in sd.items()}
+        for k in state:
+            state[k] += sd[k].double() * float(coefs[i, 0])
+    return {k: v.float().numpy() for k, v in state.items()}
 
 
 @dataclass

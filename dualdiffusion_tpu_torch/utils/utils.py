@@ -1,56 +1,177 @@
-# Audio and safetensors io copied from dualdiffusion_tpu/utils/utils.py: WAV only, no loudness normalization.
-"""WAV audio io through scipy, and safetensors io (numpy-backed, atomic
-writes). Reference semantics: src/utils/dual_diffusion_utils.py:236-496.
-FLAC and loudness normalization are not ported.
+# Audio, loudness and safetensors io copied from dualdiffusion_tpu/utils/utils.py:39-231.
+"""Audio io (WAV through scipy; FLAC through a ``flac`` or ``ffmpeg`` binary
+on PATH, when there is one), ITU-R BS.1770-4 integrated loudness and its
+normalization in numpy, and safetensors io (numpy-backed, atomic writes).
+Reference semantics: src/utils/dual_diffusion_utils.py:236-496.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import shutil
+import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 
+logger = logging.getLogger(__name__)
 
-def load_audio(path: Union[str, Path], start: int = 0, count: int = -1) -> np.ndarray:
-    """Load ``count`` samples (all with -1) from ``start`` of a WAV file as a
-    float32 (channels, samples) array."""
+
+def load_audio(path: Union[str, Path], start: int = 0, count: int = -1,
+               return_sample_rate: bool = False):
+    """Load ``count`` samples (all with -1) from ``start`` of a WAV or FLAC
+    file as a float32 (channels, samples) array; with
+    ``return_sample_rate``, (array, sample rate)."""
     path = Path(path)
-    if path.suffix.lower() != ".wav":
-        raise NotImplementedError(f"audio format {path.suffix!r} is not ported (WAV only)")
-    from scipy.io import wavfile
-    _, data = wavfile.read(str(path))
-    if data.dtype == np.int16:
-        data = data.astype(np.float32) / 32768.0
-    elif data.dtype == np.int32:
-        data = data.astype(np.float32) / 2147483648.0
-    elif data.dtype == np.uint8:
-        data = (data.astype(np.float32) - 128.0) / 128.0
+    suffix = path.suffix.lower()
+    if suffix == ".wav":
+        from scipy.io import wavfile
+        sr, data = wavfile.read(str(path))
+        if data.dtype == np.int16:
+            data = data.astype(np.float32) / 32768.0
+        elif data.dtype == np.int32:
+            data = data.astype(np.float32) / 2147483648.0
+        elif data.dtype == np.uint8:
+            data = (data.astype(np.float32) - 128.0) / 128.0
+        else:
+            data = data.astype(np.float32)
+        if data.ndim == 1:
+            data = data[:, None]
+        data = data.T
+    elif suffix == ".flac":
+        data, sr = _load_flac(path)
     else:
-        data = data.astype(np.float32)
-    if data.ndim == 1:
-        data = data[:, None]
-    data = data.T
+        raise ValueError(f"unsupported audio format: {suffix}")
     if start > 0 or count >= 0:
         end = start + count if count >= 0 else data.shape[-1]
         data = data[:, start:end]
+    if return_sample_rate:
+        return data, sr
     return data
 
 
-def save_audio(audio: np.ndarray, sample_rate: int, path: Union[str, Path]) -> None:
-    """Save (channels, samples) float audio as 16-bit PCM WAV."""
-    path = Path(path)
-    if path.suffix.lower() != ".wav":
-        raise NotImplementedError(f"audio format {path.suffix!r} is not ported (WAV only)")
+def _flac_binary() -> Optional[str]:
+    for name in ("flac", "ffmpeg"):
+        b = shutil.which(name)
+        if b:
+            return b
+    return None
+
+
+def _load_flac(path: Path) -> Tuple[np.ndarray, int]:
+    binary = _flac_binary()
+    if binary is None:
+        raise RuntimeError("FLAC decoding requires the 'flac' or 'ffmpeg' binary on PATH")
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = Path(tmp) / "out.wav"
+        if binary.endswith("ffmpeg"):
+            cmd = [binary, "-y", "-i", str(path), str(wav)]
+        else:
+            cmd = [binary, "-d", "-f", "-o", str(wav), str(path)]
+        subprocess.run(cmd, check=True, capture_output=True)
+        return load_audio(wav, return_sample_rate=True)
+
+
+def save_audio(audio: np.ndarray, sample_rate: int, path: Union[str, Path],
+               target_lufs: Optional[float] = None) -> None:
+    """Save (channels, samples) float audio as 16-bit PCM, gained to
+    ``target_lufs`` integrated loudness when given. WAV through scipy; FLAC
+    through a ``flac``/``ffmpeg`` binary, or, without one, a WAV beside the
+    path asked for (with a warning)."""
     audio = np.asarray(audio, dtype=np.float32)
     if audio.ndim == 1:
         audio = audio[None]
+    if target_lufs is not None:
+        audio = normalize_lufs(audio, sample_rate, target_lufs)
+    path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     from scipy.io import wavfile
     pcm16 = (np.clip(audio.T, -1.0, 1.0) * 32767.0).astype(np.int16)
-    wavfile.write(str(path), sample_rate, pcm16)
+    if path.suffix.lower() == ".wav":
+        wavfile.write(str(path), sample_rate, pcm16)
+        return
+    if path.suffix.lower() == ".flac":
+        binary = _flac_binary()
+        if binary is None:
+            wav_path = path.with_suffix(".wav")
+            logger.warning("no flac encoder available; wrote %s instead", wav_path)
+            wavfile.write(str(wav_path), sample_rate, pcm16)
+            return
+        with tempfile.TemporaryDirectory() as tmp:
+            wav = Path(tmp) / "in.wav"
+            wavfile.write(str(wav), sample_rate, pcm16)
+            if binary.endswith("ffmpeg"):
+                cmd = [binary, "-y", "-i", str(wav), str(path)]
+            else:
+                cmd = [binary, "-f", "-o", str(path), str(wav)]
+            subprocess.run(cmd, check=True, capture_output=True)
+        return
+    raise ValueError(f"unsupported audio format: {path.suffix}")
+
+
+def _k_weighting_coeffs(sr: float):
+    """Pre-filter (shelving) + RLB high-pass biquads per BS.1770-4 annex 1."""
+    f0, G, Q = 1681.974450955533, 3.999843853973347, 0.7071752369554196
+    K = np.tan(np.pi * f0 / sr)
+    Vh = 10.0 ** (G / 20.0)
+    Vb = Vh ** 0.4996667741545416
+    a0 = 1.0 + K / Q + K * K
+    b_shelf = np.array([(Vh + Vb * K / Q + K * K) / a0,
+                        2.0 * (K * K - Vh) / a0,
+                        (Vh - Vb * K / Q + K * K) / a0])
+    a_shelf = np.array([1.0, 2.0 * (K * K - 1.0) / a0, (1.0 - K / Q + K * K) / a0])
+    f0, Q = 38.13547087602444, 0.5003270373238773
+    K = np.tan(np.pi * f0 / sr)
+    a_hp = np.array([1.0, 2.0 * (K * K - 1.0) / (1.0 + K / Q + K * K),
+                     (1.0 - K / Q + K * K) / (1.0 + K / Q + K * K)])
+    b_hp = np.array([1.0, -2.0, 1.0])
+    return (b_shelf, a_shelf), (b_hp, a_hp)
+
+
+def get_audio_loudness(audio: np.ndarray, sample_rate: int) -> float:
+    """Integrated loudness (LUFS) of (channels, samples) audio, BS.1770-4:
+    K-weighting, 400 ms blocks at 75 % overlap, the -70 LUFS absolute gate
+    and the -10 LU relative gate."""
+    from scipy.signal import lfilter
+    audio = np.atleast_2d(np.asarray(audio, dtype=np.float64))
+    (b1, a1), (b2, a2) = _k_weighting_coeffs(sample_rate)
+    y = lfilter(b2, a2, lfilter(b1, a1, audio, axis=-1), axis=-1)
+    block = int(round(0.4 * sample_rate))
+    step = max(1, int(round(0.1 * sample_rate)))
+    n = y.shape[-1]
+    if n < block:
+        z = np.mean(y ** 2, axis=-1).sum()
+        return float(-0.691 + 10.0 * np.log10(max(z, 1e-12)))
+    starts = np.arange(0, n - block + 1, step)
+    csum = np.concatenate([np.zeros((y.shape[0], 1)), np.cumsum(y ** 2, axis=-1)], axis=-1)
+    zblk = (csum[:, starts + block] - csum[:, starts]) / block  # (C, blocks)
+    zsum = zblk.sum(axis=0)  # channel weights 1.0 for L/R
+    lblk = -0.691 + 10.0 * np.log10(np.maximum(zsum, 1e-12))
+    mask = lblk > -70.0
+    if not mask.any():
+        return -70.0
+    rel_thresh = -0.691 + 10.0 * np.log10(np.maximum(zsum[mask].mean(), 1e-12)) - 10.0
+    mask &= lblk > rel_thresh
+    if not mask.any():
+        return -70.0
+    return float(-0.691 + 10.0 * np.log10(np.maximum(zsum[mask].mean(), 1e-12)))
+
+
+def normalize_lufs(audio: np.ndarray, sample_rate: int,
+                   target_lufs: float = -20.0, max_clip: float = 0.15) -> np.ndarray:
+    """Gain audio to ``target_lufs`` integrated loudness, then scale down so
+    that no peak exceeds 1 + ``max_clip``."""
+    loudness = get_audio_loudness(audio, sample_rate)
+    gain = 10.0 ** ((target_lufs - loudness) / 20.0)
+    out = np.asarray(audio, dtype=np.float32) * gain
+    peak = np.abs(out).max() if out.size else 0.0
+    limit = 1.0 + max_clip
+    if peak > limit:
+        out = out * (limit / peak)
+    return out
 
 
 def load_safetensors(path: Union[str, Path]) -> Dict[str, np.ndarray]:

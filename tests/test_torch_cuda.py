@@ -546,6 +546,55 @@ def test_griffinlim_kernel_loop_matches_plain_loop(cuda, phase_init, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cig,cog", [(32, 64), (64, 32)])
+def test_grouped_conv_kernel_at_the_seamless_width(cuda, cig, cog):
+    """The seamless loop pads the 688 latent columns of a 45 s clip by 32 on
+    each side: K1 at level 0 of the reference UNet at W 752, batch 2 (CFG),
+    both MLP convs, against the plain version to one bf16 ulp of max."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((2, 32, 752, 8 * cig), generator=g, device=cuda).bfloat16()
+    wt = prepare_weights(torch.randn((8 * cog, cig, 3, 3), generator=g, device=cuda)
+                         / (9 * cig) ** 0.5, 8)
+    assert hopper_takes(cig, cog, x.data_ptr(), wt.data_ptr())
+    before = grouped_conv3x3.launches
+    got = grouped_conv3x3(x, wt, 8)
+    torch.cuda.synchronize()
+    assert grouped_conv3x3.launches == before + 1
+    assert _rel_err(got.float().cpu(), grouped_conv3x3_plain(x, wt, 8).float().cpu()) <= 2 ** -7
+
+
+@pytest.mark.cuda
+def test_inpainting_unet_forward_on_the_card_matches_cpu(cuda):
+    """A UNet with the inpainting reference and mask channels (4 + 4 + 1
+    inputs, grouped MLP convs on K1) fed a reference and a half mask, on the
+    card against the CPU: bf16 trunks that round at different places, 5e-2
+    of max."""
+    import copy
+    from dualdiffusion_tpu_torch.models import UNet, UNetConfig
+
+    g = torch.Generator().manual_seed(13)
+    cfg = UNetConfig(in_channels=9, out_channels=4, model_channels=32, channel_mult=(1, 2),
+                     num_layers_per_block=1, channels_per_head=32, mlp_multiplier=2,
+                     mlp_groups=2)
+    unet = UNet(cfg).init_weights(g).eval()
+    with torch.no_grad():
+        unet.core.out_gain.fill_(1.0)
+    x = torch.randn((2, 8, 32, 4), generator=g)
+    mask = torch.zeros((2, 8, 32, 1))
+    mask[:, :, :16] = 1.0
+    ref = torch.cat([torch.randn((2, 8, 32, 4), generator=g) * (1 - mask), mask], dim=-1)
+    sigma = torch.tensor([3.0, 0.5])
+    before = grouped_conv3x3.launches
+    with torch.no_grad():
+        want = unet(x, sigma, None, ref)
+        got = copy.deepcopy(unet).to(cuda)(x.to(cuda), sigma.to(cuda), None, ref.to(cuda))
+    torch.cuda.synchronize()
+    assert grouped_conv3x3.launches > before
+    assert torch.isfinite(got).all()
+    assert _rel_err(got.float().cpu(), want) < 5e-2
+
+
+@pytest.mark.cuda
 def test_tiny_pipeline_generates_through_the_kernels(cuda):
     """A tiny model (grouped MLP convs) generates finite audio on the card
     and every kernel is launched on the way."""

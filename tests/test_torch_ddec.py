@@ -226,8 +226,9 @@ def test_ddec_forward_with_psd_matches_jax(monkeypatch, trunk, tol):
 def test_ddec_weights_round_trip_and_ref_needs_psd():
     """The weight bridge carries a DDEC's parameters: the input conv takes
     2 + 4 x 2 + 1 channels and JAX flat -> port -> flat is the identity.
-    An ``x_ref`` given to a UNet without ``in_psd_freqs`` (inpainting) is
-    not ported."""
+    An ``x_ref`` given to a UNet without ``in_psd_freqs`` is the inpainting
+    reference, concatenated as input channels (JAX unet.py:583-587): without
+    the PSD fold a 128-row reference does not fit the sample's 32 rows."""
     flat = _flatten(_jax_ddec_vars())
     tunet = UNet(UNetConfig(**DDEC_KW))
     load_flat(tunet, flat)
@@ -236,7 +237,7 @@ def test_ddec_weights_round_trip_and_ref_needs_psd():
     assert sorted(back) == sorted(flat)
     assert all(np.array_equal(back[k], flat[k]) for k in flat)
     plain = UNet(UNetConfig(**dict(DDEC_KW, in_psd_freqs=0, add_constant_channel=False)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError):
         plain(torch.zeros(MDCT_SHAPE), torch.ones(1), None, torch.zeros(LIN_SHAPE))
 
 

@@ -140,16 +140,25 @@ def test_port_written_model_loads_in_jax(tmp_path):
             assert all(np.array_equal(fa[k], fb[k]) for k in fa), name
 
 
-def test_unported_generate_inputs_raise(tmp_path):
-    """img2img / inpainting inputs are not ported yet."""
-    _jax_pipeline().save_pretrained(tmp_path / "model")
+def test_generate_refuses_an_init_sample_of_another_shape(tmp_path):
+    """``input_latents`` must have the latent shape (JAX pipeline.py:586-589
+    asserts it; the port raises ValueError before it samples): here the
+    (1, 16, 16, 8) latents of the 64-frame mel, not (1, 16, 8, 8) or
+    (1, 16, 16, 4)."""
+    jpipe = _jax_pipeline()
+    jpipe.save_pretrained(tmp_path / "model")
     pipe = Pipeline.from_pretrained(tmp_path / "model", device="cpu")
     params = SampleParams(steps=1, num_fgla_iters=1)
-    for kw in (dict(input_audio=torch.zeros((2, 63 * 256))),
-               dict(input_latents=torch.zeros((1, 16, 16, 8))),
-               dict(inpainting_mask=torch.ones((1, 16, 16, 1)))):
-        with pytest.raises(NotImplementedError):
-            pipe.generate(params, **kw)
+    for shape in ((1, 16, 8, 8), (1, 16, 16, 4)):
+        with pytest.raises(AssertionError):
+            jpipe.generate(JaxSampleParams(steps=1, num_fgla_iters=1), jax.random.PRNGKey(0),
+                           input_latents=jnp.zeros(shape))
+        with pytest.raises(ValueError, match="latent shape"):
+            pipe.generate(params, torch.Generator().manual_seed(0),
+                          input_latents=torch.zeros(shape))
+    out = pipe.generate(params, torch.Generator().manual_seed(0),
+                        input_latents=torch.zeros((1, 16, 16, 8)))
+    assert out["latents"].shape == (1, 16, 16, 8)
 
 
 def test_from_pretrained_defaults_to_the_card(tmp_path, monkeypatch):

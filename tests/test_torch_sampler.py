@@ -76,13 +76,21 @@ def test_edm_sample_draws_from_the_generator():
     assert a.shape == SHAPE and torch.isfinite(a).all()
 
 
-def test_unported_sampler_options_raise():
-    with pytest.raises(NotImplementedError):
-        edm_sample(lambda x, s: x, SHAPE, SampleParams(steps=1, seamless_loop=True),
-                   200.0, 0.03, 1.0, generator=torch.Generator())
-    with pytest.raises(NotImplementedError):
-        edm_sample(lambda x, s: x, SHAPE, SampleParams(steps=1), 200.0, 0.03, 1.0,
-                   generator=torch.Generator(), init_sample=torch.zeros(SHAPE))
+def test_injected_draws_must_cover_the_steps_run():
+    """``step_noise`` and ``step_shifts`` hold one draw for each step run:
+    ``steps`` from noise, ``round(steps * strength)`` from an init sample."""
+    init = torch.zeros(SHAPE)
+    noise = [torch.zeros(SHAPE)] * 4
+    params = SampleParams(steps=4, img2img_strength=0.5, seamless_loop=True)
+    with pytest.raises(ValueError, match="step_noise holds 4 draws for 2 steps"):
+        edm_sample(lambda x, s: x, SHAPE, params, 200.0, 0.03, 1.0, init_sample=init,
+                   init_noise=init, step_noise=noise)
+    with pytest.raises(ValueError, match="step_shifts holds 4 draws for 2 steps"):
+        edm_sample(lambda x, s: x, SHAPE, params, 200.0, 0.03, 1.0, init_sample=init,
+                   init_noise=init, step_shifts=[0] * 4)
+    out = edm_sample(lambda x, s: x, SHAPE, params, 200.0, 0.03, 1.0, init_sample=init + 1.0,
+                     init_noise=init, step_noise=noise[:2], step_shifts=[1, 2])
+    assert out.shape == SHAPE and torch.isfinite(out).all()
 
 
 def test_edm_sample_draws_on_the_device_of_its_inputs(monkeypatch):
