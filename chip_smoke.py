@@ -62,13 +62,25 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    WAV must read -20 LUFS; K1 is also held against its plain version at the
    seamless width W 752, and the tiny slices take img2img, inpainting and
    the seamless loop on the card against the CPU;
-7. drives the UNet training path: writes a synthetic latent dataset and runs
+7. drives the web UI's user flow on the DDEC serving model:
+   ``python -m dualdiffusion_tpu_torch.create_new_model`` writes it from a
+   seed on the card; ``serving.launch(device="cuda")`` spawns the model
+   server, which loads it and warms up (``compile_model``); the UI's handlers
+   behind a local HTTP server take a plain request (45 s, 100 Heun steps, CFG
+   1.5, the DDEC decode; its preview, WAV and spectrogram), an editor inpaint
+   of 10-20 s, an editor append, a request aborted after its first preview,
+   and a rating and a save, each timed against the same clip in-process;
+   ``python -m dualdiffusion_tpu_torch.sample --interactive`` then answers on
+   its own port; one request through an in-process ``ModelServer`` under
+   ``decode_mode="fgla"`` must launch K1 exactly 68 x 2 x 100 times, K2 and
+   K3 (on their Hopper routes), and no K7;
+8. drives the UNet training path: writes a synthetic latent dataset and runs
    ``python -m dualdiffusion_tpu_torch.train``'s entry in-process on that
    model directory for 4 steps, then ``--resume`` for 1 more (device batch
    8, gradient accumulation 2, AdamW, one EMA), checking the losses, that
    params and EMA moved, that the checkpoint round-trips and that K1 and K4
    were launched;
-8. drives the DAE training path the same way: the edm2_default DAE
+9. drives the DAE training path the same way: the edm2_default DAE
    (configs/models/edm2_default) on the MS-MDCT dual format, its trainer
    config with the fused MSS2D loss, 32 synthetic stereo WAVs, 5.5 s crops,
    device batch 8 x accumulation 2, 4 steps then 1 after ``--resume``,
@@ -76,7 +88,7 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    version.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
-one full-width DAE train step (step 8's model, data and config).
+one full-width DAE train step (step 9's model, data and config).
 
 Any failure raises, so the exit code is not 0. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -86,6 +98,7 @@ The script imports no JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -183,6 +196,13 @@ def result(err, ms, plain_ms, flops, nbytes, kind, library_ms=None) -> dict:
           f"{nbytes / 1e6:.1f} MB)", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": library_ms}
+
+
+def expect(what: str, ok: bool, text: str) -> None:
+    """Print ``text`` with ok or FAIL; raise on FAIL."""
+    print(f"  {what}: {text} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{what}: {text}")
 
 
 def check_close(name: str, got, want, rel_tol: float) -> float:
@@ -1312,8 +1332,8 @@ def flash_crossover(gen) -> None:
 
 def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla"):
     """``Pipeline.from_pretrained`` then ``generate`` once per seed, checking
-    the audio's shape, finiteness and loudness; returns the pipeline and the
-    first seed's audio."""
+    the audio's shape, finiteness and loudness; returns the pipeline, the
+    first seed's audio and {seed: seconds of its generate}."""
     import torch
     from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline
     from dualdiffusion_tpu_torch.sampling import SampleParams
@@ -1324,7 +1344,7 @@ def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla"):
                           num_fgla_iters=100, fgla_phase_init="spsi")
     decode = ("the DDEC (same steps, no CFG), inverse MDCT" if decode_mode != "fgla"
               else f"{params.num_fgla_iters} FGLA iters")
-    outs = []
+    outs, totals = [], {}
     for seed in SEEDS:
         torch.cuda.reset_peak_memory_stats()
         timings = {}
@@ -1332,7 +1352,7 @@ def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla"):
         out = pipe.generate(params, torch.Generator(device="cuda").manual_seed(seed),
                             prompt_embedding=prompt, decode_mode=decode_mode, timings=timings)
         torch.cuda.synchronize()
-        total = time.perf_counter() - t0
+        total = totals[seed] = time.perf_counter() - t0
         raw = out["raw"]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"generate seed {seed} (decode_mode {decode_mode!r}): {params.steps} steps "
@@ -1348,7 +1368,7 @@ def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla"):
         outs.append(raw)
     if torch.equal(outs[0], outs[1]):
         raise AssertionError("two seeds gave identical audio")
-    return pipe, outs[0]
+    return pipe, outs[0], totals
 
 
 def ddec_configs():
@@ -1481,11 +1501,6 @@ def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, 
             raise AssertionError(f"{what}: audio not finite")
         return out, debug
 
-    def expect(what, ok: bool, text: str):
-        print(f"  {what}: {text} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise AssertionError(f"{what}: {text}")
-
     pipe = Pipeline.from_pretrained(model_dir, device="cuda")
     sd = pipe.modules["unet"].config.sigma_data
     audio = clip[0]
@@ -1617,10 +1632,287 @@ def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, 
     want_len = fmt.get_raw_crop_width() - int((LOOP_PAD - 0.5) * loop_hop_length(fmt.config)) * 2
     expect("CLI output", wav_out.shape == (2, want_len) and abs(lufs + 20.0) <= 0.5,
            f"{wav_out.shape} at {sr} Hz, {lufs:.3f} LUFS (-20 +- 0.5)")
-    proc = subprocess.run(cmd[:5] + ["--interactive"], cwd=REPO, capture_output=True, text=True,
-                          timeout=120)
-    expect("CLI --interactive", proc.returncode != 0 and "NotImplementedError" in proc.stderr,
-           f"exit {proc.returncode}, NotImplementedError")
+
+
+def http(url: str, body=None, timeout: float = 60):
+    """GET (POST with a JSON ``body``) ``url``: JSON as a dict, else bytes."""
+    import urllib.request
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        data = r.read()
+        ctype = r.headers.get("Content-Type", "")
+    return json.loads(data) if ctype.startswith("application/json") else data
+
+
+def wait_cmd(state, what: str, timeout: float = 600) -> float:
+    """Seconds until the model server has taken its command; raises on its
+    error or after ``timeout``."""
+    t0 = time.perf_counter()
+    while state.get("cmd") is not None:
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"{what}: the model server did not answer in {timeout} s")
+        time.sleep(0.02)
+    if state.get("error"):
+        raise AssertionError(f"{what}: {state['error']}")
+    return time.perf_counter() - t0
+
+
+def webui_model_configs(root: Path, ucfg, dcfg) -> Path:
+    """A config root for ``create_new_model``, ``<root>/configs/ref_scale_ddec/``:
+    configs/models/edm2_default's model_index.json and format.json, the DDEC
+    of configs/models/edm2_ddec_mclt_b1a, and the reference-scale UNet and DAE
+    of ``ref_scale_configs`` (the DDEC serving path's model: edm2_default's
+    dae.json has 8 latent channels, the ref-scale UNet takes 4)."""
+    from dualdiffusion_tpu_torch.utils import config_to_dict, save_json
+    models = REPO / "configs" / "models"
+    d = root / "configs" / "ref_scale_ddec"
+    d.mkdir(parents=True)
+    for name, src in (("model_index", "edm2_default"), ("format", "edm2_default"),
+                      ("ddec", "edm2_ddec_mclt_b1a")):
+        (d / f"{name}.json").write_text((models / src / f"{name}.json").read_text())
+    save_json(config_to_dict(ucfg), d / "unet.json")
+    save_json(config_to_dict(dcfg), d / "dae.json")
+    return d.parent
+
+
+def web_ui_serving_path(root: Path, ucfg, dcfg, raw_len: int, clip_s: dict, card: str):
+    """The web UI's user flow on the card: ``python -m
+    dualdiffusion_tpu_torch.create_new_model`` writes the DDEC serving model
+    (ref-scale UNet and DAE, the edm2_default MS-MDCT dual format, the
+    edm2_ddec_mclt_b1a DDEC) from a seed; ``launch(device="cuda")`` spawns the
+    model server, which loads it and runs ``compile_model``; the port's UI
+    handlers behind a port-0 HTTP server take, at full width (45 s, batch 1,
+    100 Heun steps, CFG 1.5, decoded by the DDEC under "auto"), (a) a plain
+    request (its preview PNG, WAV and spectrogram PNG), (b) an editor inpaint
+    of 10-20 s of output 0, (c) an editor append, (d) a request aborted after
+    its first preview and (e) a rating and a save, each checked to have come
+    from that request with no server error; then ``python -m
+    dualdiffusion_tpu_torch.sample --interactive --port <free port>`` answers
+    while it runs. Prints the load, warm-up, request, first-preview and abort
+    seconds, each request's seconds over ``clip_s`` (the same clip
+    in-process), and the server's device memory (the card's free memory as
+    ``torch.cuda.mem_get_info`` reports it, against its value before
+    ``launch``). Returns the model directory and the request parameters."""
+    import io
+    import signal
+    import socket
+    import threading
+    import urllib.error
+    from http.server import ThreadingHTTPServer
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from dualdiffusion_tpu_torch.serving import launch
+    from dualdiffusion_tpu_torch.serving.webui import UIState, _make_handler
+    from dualdiffusion_tpu_torch.utils import get_audio_metadata, save_safetensors
+
+    print(f"web UI serving on {card}", flush=True)
+    cfg_root = webui_model_configs(root, ucfg, dcfg)
+    cmd = [sys.executable, "-m", "dualdiffusion_tpu_torch.create_new_model", "--name",
+           "ref_scale_ddec", "--config_path", str(cfg_root), "--output_path", str(root / "models")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], flush=True)
+        raise AssertionError("create_new_model failed")
+    counts = [l.strip() for l in proc.stderr.splitlines() if "params" in l]
+    print(f"python -m dualdiffusion_tpu_torch.create_new_model (on the card): {wall:.2f} s; "
+          + "; ".join(counts), flush=True)
+    model_dir = root / "models" / "ref_scale_ddec"
+    # prompt embeddings, so that requests run CFG as the in-process clips did
+    rng = torch.Generator().manual_seed(8)
+    save_safetensors({k: torch.randn(ucfg.in_channels_emb, generator=rng).numpy()
+                      for k in ("label_a_audio", "_unconditional_audio")},
+                     model_dir / "dataset_embeddings.safetensors")
+    body = {"steps": SAMPLER_STEPS, "cfg_scale": 1.5, "use_heun": True, "num_fgla_iters": 100,
+            "fgla_phase_init": "spsi", "seed": SEEDS[0], "prompt": {"label_a": 1.0}}
+
+    # the server's device memory: the card's free memory as this process sees
+    # it (torch.cuda.mem_get_info), which holds its own allocations still while
+    # the server runs, so every change is the server's
+    free0 = torch.cuda.mem_get_info()[0]
+    least_free = [free0]
+
+    def mib_used(free: int) -> str:
+        return f"{(free0 - free) / 2 ** 20:.0f} MiB"
+
+    t0 = time.perf_counter()
+    server, state = launch(str(model_dir), device="cuda")
+    httpd = None
+    try:
+        wait_cmd(state, "load_model")
+        load_s = time.perf_counter() - t0
+        state["sample_params"] = body
+        state["cmd"] = "compile_model"
+        compile_s = wait_cmd(state, "compile_model")
+        state["cmd"] = "get_available_devices"
+        wait_cmd(state, "get_available_devices")
+        warm_free = torch.cuda.mem_get_info()[0]
+        print(f"server process {server.pid}: launch to loaded model {load_s:.2f} s, "
+              f"compile_model {compile_s:.2f} s; devices {state['available_devices']}; "
+              f"modules {state['model_modules']}, prompt labels {state['prompt_labels']}; "
+              f"device memory after load and warm-up {mib_used(warm_free)}", flush=True)
+        expect("error after load and warm-up", state.get("error") is None, "None")
+        expect("available devices", "cuda:0" in state["available_devices"], "cuda:0 listed")
+        ui = UIState(state, model_dir / "presets")
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(ui))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        in_process = min(clip_s.values())
+
+        def generated() -> int:
+            return sum("generated output" in l for l in ui.log_lines)
+
+        def request(what, extra, abort: bool = False):
+            n0, g0 = len(ui.outputs), generated()
+            t0 = time.perf_counter()
+            r = http(f"{base}/api/generate", dict(body, **extra))
+            expect(f"{what}: POST /api/generate", bool(r.get("ok")), str(r))
+            first = aborted = None
+            while True:
+                st = http(f"{base}/api/status")
+                now = time.perf_counter()
+                least_free[0] = min(least_free[0], torch.cuda.mem_get_info()[0])
+                if first is None and st["preview"]:
+                    first = now - t0
+                    try:
+                        png = http(f"{base}/api/preview.png")
+                        expect(f"{what}: preview after {first:.2f} s ({st['status']})",
+                               png[:8] == b"\x89PNG\r\n\x1a\n", f"PNG of {len(png)} bytes")
+                    except urllib.error.HTTPError as e:   # the run ended between the two GETs
+                        print(f"  {what}: preview gone ({e.code})", flush=True)
+                    if abort:
+                        http(f"{base}/api/abort", {})
+                        aborted = time.perf_counter()
+                if not st["busy"]:
+                    break
+                if now - t0 > 600:
+                    raise TimeoutError(f"{what} did not finish")
+                time.sleep(0.1)
+            wall = time.perf_counter() - t0
+            line = (f"{what}: {wall:.3f} s from POST to idle, first preview after "
+                    + ("none" if first is None else f"{first:.3f} s"))
+            if abort:
+                line += f", abort to idle {time.perf_counter() - aborted:.3f} s"
+            else:
+                line += (f"; in-process clip {in_process:.3f} s (serving phase, best of "
+                         f"{len(clip_s)}), overhead {wall - in_process:+.3f} s")
+            print(line, flush=True)
+            want = n0 if abort else n0 + 1
+            expect(f"{what}: server error", state.get("error") is None, str(state.get("error")))
+            expect(f"{what}: outputs", len(ui.outputs) == want and generated() == g0 + want - n0,
+                   f"{len(ui.outputs)} (want {want}), {generated() - g0} generated")
+            if not abort:
+                raw = ui.outputs[0]["raw"]
+                expect(f"{what}: audio", raw.shape == (1, 2, raw_len) and
+                       bool(np.isfinite(raw).all()), f"{raw.shape} {raw.dtype}")
+            return wall
+
+        request("(a) plain request", {})
+        print(f"server device memory after request (a) {mib_used(torch.cuda.mem_get_info()[0])},"
+              f" at most {mib_used(least_free[0])} while it ran (polled every 0.1 s)",
+              flush=True)
+        sr, pcm = wavfile.read(io.BytesIO(http(f"{base}/api/output/0/audio.wav")))
+        rms = float(np.sqrt(np.mean((pcm.astype(np.float64) / 32767) ** 2)))
+        expect("(a) audio.wav", pcm.shape == (raw_len, 2) and rms > 0,
+               f"RIFF, {pcm.shape[0] / sr:.3f} s at {sr} Hz, {pcm.shape[1]} channels, rms {rms:.5f}")
+        spec = http(f"{base}/api/output/0/spec.png")
+        expect("(a) spec.png", spec[:8] == b"\x89PNG\r\n\x1a\n", f"PNG of {len(spec)} bytes")
+        request("(b) editor inpaint 10-20 s of output 0",
+                {"input_output_id": 0, "inpaint_start": 10.0, "inpaint_end": 20.0})
+        request("(c) editor extend (append) of output 0",
+                {"input_output_id": 0, "extend": "append"})
+        request("(d) aborted request", {"seed": SEEDS[1]}, abort=True)
+        st = http(f"{base}/api/status")
+        expect("(d) after the abort", st["status"] == "idle" and not st["busy"] and
+               state.get("generate_output") is None, f"status {st['status']!r}, no output")
+        r = http(f"{base}/api/output/0/rate", {"rating": 4})
+        saved = http(f"{base}/api/output/0/save", {})
+        tags = get_audio_metadata(saved["path"])
+        expect("(e) rate and save", r.get("rating") == 4 and tags.get("RATING") == ["4"],
+               f"{saved['path']}, RATING {tags.get('RATING')}")
+        apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                               "--format=csv,noheader"], capture_output=True, text=True).stdout
+        mine = [l for l in apps.splitlines() if l.split(",")[0].strip() == str(server.pid)]
+        print(f"server device memory (mem_get_info, over requests (a)-(e)): at most "
+              f"{mib_used(least_free[0])}, now {mib_used(torch.cuda.mem_get_info()[0])}; "
+              f"nvidia-smi --query-compute-apps, pid {server.pid}: {mine or 'not listed'}; "
+              f"this process: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+              flush=True)
+    finally:
+        state["cmd"] = "shutdown"
+        server.join(timeout=60)
+        if server.is_alive():
+            server.terminate()
+            server.join(timeout=30)
+        if httpd is not None:
+            httpd.shutdown()
+
+    # the CLI: python -m dualdiffusion_tpu_torch.sample --interactive, on a port
+    # that was free a moment ago; only an answer while the CLI still runs counts
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cli_base = f"http://127.0.0.1:{port}"
+    cli = [sys.executable, "-m", "dualdiffusion_tpu_torch.sample", "--model_path", str(model_dir),
+           "--interactive", "--port", str(port)]
+    with open(root / "interactive.log", "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cli, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            info = None
+            while info is None and proc.poll() is None and time.perf_counter() - t0 < 300:
+                try:
+                    info = http(f"{cli_base}/api/info", timeout=5)
+                except OSError:
+                    time.sleep(0.5)
+            wall = time.perf_counter() - t0
+            st = http(f"{cli_base}/api/status") if info is not None else {}
+            alive = proc.poll() is None
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGINT)    # the UI and its server exit cleanly
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+    if info is None:
+        print((root / "interactive.log").read_text()[-4000:], flush=True)
+    expect(f"python -m dualdiffusion_tpu_torch.sample --interactive ({wall:.2f} s to answer)",
+           alive and info is not None and "unet" in info["modules"] and st.get("status") == "idle",
+           f"port {port}, /api/info modules {None if info is None else info['modules']}, status "
+           f"{st.get('status')!r}, CLI running {alive}")
+    return model_dir, body
+
+
+def serving_launch_count(model_dir: Path, body: dict, raw_len: int) -> None:
+    """One request through an in-process ``ModelServer`` over a plain dict,
+    run in a thread (launch counts live in the process that launches), with
+    ``decode_mode`` "fgla": the latent stage and the format's Griffin-Lim
+    decode, whose kernels the caller counts."""
+    import threading
+    import numpy as np
+    from dualdiffusion_tpu_torch.serving import ModelServer
+    state = {"model_name": str(model_dir), "cmd": "load_model", "decode_mode": "fgla",
+             "sample_params": body}
+    thread = threading.Thread(target=ModelServer(state, "cuda").run, daemon=True)
+    thread.start()
+    try:
+        load_s = wait_cmd(state, "load_model (in-process)")
+        state["cmd"] = "generate"
+        gen_s = wait_cmd(state, "generate (in-process, fgla)")
+        raw = state["generate_output"]["raw"]
+        print(f"in-process ModelServer: load {load_s:.2f} s, one request under decode_mode "
+              f"'fgla' {gen_s:.3f} s, audio {raw.shape}", flush=True)
+        if raw.shape != (1, 2, raw_len) or not np.isfinite(raw).all():
+            raise AssertionError(f"in-process request: audio {raw.shape} not finite or cut")
+    finally:
+        state["cmd"] = "shutdown"
+        thread.join(timeout=60)
 
 
 def _train_snapshot(trainer) -> dict:
@@ -1998,7 +2290,7 @@ def main() -> int:
               f"(groups {ddec_cfg.mlp_groups}), PSD {ddec_cfg.in_psd_freqs} rows; mel "
               f"{mfmt.get_sample_shape(1)}, MDCT {mdct_shape}", flush=True)
         reset_launch_counts()
-        ddec_pipe = serving_path(ddec_dir, mfmt, prompt, decode_mode="auto")[0]
+        ddec_pipe, _, ddec_totals = serving_path(ddec_dir, mfmt, prompt, decode_mode="auto")
         path_counts("DDEC serving", ("grouped_conv3x3",),
                     absent=("fgla_frame", "ola_reframe", "flash_attention"))
         ddec_forward(ddec_pipe.modules["ddec"].module, ddec_cfg, mdct_shape, gen)
@@ -2015,6 +2307,29 @@ def main() -> int:
         path_counts("generation options", ("grouped_conv3x3", "fgla_frame", "ola_reframe"),
                     absent=("flash_attention",))
         del first_clip
+
+        # ---- web UI serving: create_new_model, the model server in its own
+        # process and the UI's requests over HTTP; then one request through an
+        # in-process ModelServer, whose kernel launches this process counts ----
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        webui_dir, body = web_ui_serving_path(Path(tmp) / "webui", ucfg, dcfg,
+                                              mfmt.get_raw_crop_width(), ddec_totals, smi)
+        print(f"web UI serving phase: {time.perf_counter() - t0:.2f} s", flush=True)
+        n_fft = mfcfg.ms_window_length
+        print(f"counted request (decode_mode 'fgla'): FGLA n_fft {n_fft}, K2 {fgla_route(n_fft)} "
+              f"route, K3 {ola_route(n_fft, 256)} route", flush=True)
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        serving_launch_count(webui_dir, body, mfmt.get_raw_crop_width())
+        c = path_counts("web UI serving", ("grouped_conv3x3", "fgla_frame", "ola_reframe"),
+                        absent=("flash_attention",), only_routes=(("ola_reframe", "hopper"),))
+        want = 2 * SAMPLER_STEPS * k1_per_forward
+        if c["grouped_conv3x3"] != want or fgla_route(n_fft) != "hopper":
+            raise AssertionError(f"web UI serving: {c['grouped_conv3x3']} K1 launches (want "
+                                 f"{want}), K2 route {fgla_route(n_fft)}")
+        print(f"  K1 launches {c['grouped_conv3x3']} = {SAMPLER_STEPS} steps x 2 forwards x "
+              f"{k1_per_forward} ok", flush=True)
 
         # ---- UNet training path: train 4 steps, --resume 1 more -------------
         torch.cuda.empty_cache()

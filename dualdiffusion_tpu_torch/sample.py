@@ -4,7 +4,7 @@
         [--prompt label:1.0 ...] [--steps 100] [--seed N] [--load_ema NAME] \
         [--img2img AUDIO [--img2img_strength S] [--inpaint START:END]] \
         [--seamless_loop] [--decode_mode auto|fgla|ddec] [--output out.wav] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--interactive [--port 8080]]
 
 Generates one batch of audio and writes it, normalized to -20 LUFS, to
 ``--output`` (``out_<i>.wav`` for each clip of a batch). ``--load_ema``
@@ -12,8 +12,10 @@ takes an EMA name or ``phema_<std>``; ``--img2img`` an input WAV (or FLAC,
 with a ``flac``/``ffmpeg`` binary) at the model's sample rate;
 ``--inpaint`` regenerates that range of seconds of it and keeps the rest.
 ``--device`` defaults to ``cuda`` and never falls back: without a GPU,
-sampling on the CPU takes ``--device cpu``. The web UI (``--interactive``)
-and tensor-parallel serving (``--tp``) are not ported.
+sampling on the CPU takes ``--device cpu``. ``--interactive`` starts the
+model-server process on ``--device`` and serves the web UI at
+http://127.0.0.1 on ``--port`` (8080 by default) instead. Tensor-parallel
+serving (``--tp``) is not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m dualdiffusion_tpu_torch.sample")
     ap.add_argument("--model_path", required=True)
     ap.add_argument("--interactive", action="store_true")
+    ap.add_argument("--port", type=int, default=8080, help="the web UI's port (--interactive)")
     ap.add_argument("--prompt", nargs="*", default=None, help="label:weight entries")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--cfg_scale", type=float, default=1.5)
@@ -90,8 +93,9 @@ def inpainting_mask(pipeline, start_s: float, end_s: float, sample_rate: int,
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
     if args.interactive:
-        raise NotImplementedError("--interactive (the web UI and its model server) is not "
-                                  "ported: ROADMAP.md §1 item 5")
+        from .serving.webui import run_app
+        run_app(args.model_path, port=args.port, device=args.device)
+        return
     if args.tp != 1:
         raise NotImplementedError("--tp (tensor-parallel serving) is not ported: "
                                   "ROADMAP.md §1 item 6")

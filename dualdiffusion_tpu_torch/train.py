@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
 from typing import Optional, Sequence
 
 logger = logging.getLogger("dualdiffusion_tpu_torch.train")
@@ -47,7 +46,7 @@ def build_trainer(args: argparse.Namespace):
     from .pipelines.pipeline import Pipeline
     from .training import builders  # noqa: F401 (registers the module trainers)
     from .training.trainer import Trainer, TrainerConfig, get_module_trainer
-    from .utils import load_config
+    from .utils import DATASET_PATH, load_config
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -62,7 +61,7 @@ def build_trainer(args: argparse.Namespace):
     builder = get_module_trainer(tconf.module_trainer)
     step, state, export_fn, ema_bank, batch_adapter = builder(pipeline, tconf, generator)
 
-    data_dir = args.dataset_path or os.environ.get("DATASET_PATH")
+    data_dir = args.dataset_path or DATASET_PATH
     if not data_dir:
         raise ValueError("set --dataset_path or DATASET_PATH")
     dl = tconf.dataloader

@@ -1,5 +1,5 @@
-# Copied from dualdiffusion_tpu/utils/config.py without its environment-path section.
-"""Config substrate: JSON -> nested-dataclass hydration.
+# Copied from dualdiffusion_tpu/utils/config.py.
+"""Config substrate: JSON -> nested-dataclass hydration + environment paths.
 
 Capability parity with the reference's config system
 (reference: src/utils/config.py:87-194) redesigned for this framework:
@@ -11,6 +11,9 @@ Capability parity with the reference's config system
   * ``save_config(obj, path)`` writes a dataclass back to JSON (copy-on-write:
     writes to a temp file then atomically renames, so an interrupt can never
     leave a truncated config on disk — reference: src/utils/config.py:55-70).
+  * Environment constants (CONFIG_PATH, MODELS_PATH, DATASET_PATH, DEBUG_PATH,
+    CACHE_PATH) loaded from the process environment or an optional ``.env``
+    file at the repo root.
 
 JSON5 is accepted when ``pyjson5`` is importable; otherwise a small
 comment-stripping fallback handles the ``//``-comment subset the project uses.
@@ -48,6 +51,32 @@ except Exception:  # pragma: no cover - depends on env
         text = _COMMENT_RE.sub(lambda m: m.group(1) or "", text)
         text = _TRAILING_COMMA_RE.sub(r"\1", text)
         return json.loads(text)
+
+
+# ---------------------------------------------------------------------------
+# environment paths
+# ---------------------------------------------------------------------------
+
+def _load_dotenv() -> None:
+    env_file = Path(os.environ.get("DUALDIFFUSION_ENV_FILE", Path.cwd() / ".env"))
+    if not env_file.is_file():
+        return
+    for line in env_file.read_text().splitlines():
+        line = line.strip()
+        if not line or line.startswith("#") or "=" not in line:
+            continue
+        key, _, val = line.partition("=")
+        os.environ.setdefault(key.strip(), val.strip().strip('"').strip("'"))
+
+
+_load_dotenv()
+
+CONFIG_PATH: Optional[str] = os.environ.get("CONFIG_PATH")
+MODELS_PATH: Optional[str] = os.environ.get("MODELS_PATH")
+DATASET_PATH: Optional[str] = os.environ.get("DATASET_PATH")
+DEBUG_PATH: Optional[str] = os.environ.get("DEBUG_PATH")
+CACHE_PATH: Optional[str] = os.environ.get("CACHE_PATH")
+NO_GUI: bool = os.environ.get("NO_GUI", "0") == "1"
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-# Audio, loudness and safetensors io copied from dualdiffusion_tpu/utils/utils.py:39-231.
+# Audio, loudness and safetensors io and tensor_to_img copied from
+# dualdiffusion_tpu/utils/utils.py:39-258; the PNG encoder is the port's own.
 """Audio io (WAV through scipy; FLAC through a ``flac`` or ``ffmpeg`` binary
 on PATH, when there is one), ITU-R BS.1770-4 integrated loudness and its
-normalization in numpy, and safetensors io (numpy-backed, atomic writes).
+normalization in numpy, safetensors io (numpy-backed, atomic writes), and
+previews: ``tensor_to_img`` and an 8-bit RGB PNG encoder on ``zlib`` (no PIL).
 Reference semantics: src/utils/dual_diffusion_utils.py:236-496.
 """
 
@@ -9,9 +11,11 @@ from __future__ import annotations
 
 import logging
 import os
+import struct
 import shutil
 import subprocess
 import tempfile
+import zlib
 from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
 
@@ -195,3 +199,49 @@ def save_safetensors(tensors: Dict[str, np.ndarray], path: Union[str, Path],
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+
+
+# ---------------------------------------------------------------------------
+# visualisation
+# ---------------------------------------------------------------------------
+
+def tensor_to_img(x, flip_y: bool = True, colormap: bool = True) -> np.ndarray:
+    """Map a 2D/3D tensor to a uint8 image (H, W, 3) for previews.
+
+    Multi-channel inputs are tiled vertically. Reference semantics:
+    src/utils/dual_diffusion_utils.py (tensor_to_img).
+    """
+    x = np.asarray(x, dtype=np.float32)
+    while x.ndim > 3:
+        x = x.reshape((-1,) + x.shape[-2:]) if x.shape[0] != 1 else x[0]
+    if x.ndim == 3:
+        x = np.concatenate(list(x), axis=0)
+    lo, hi = np.nanmin(x), np.nanmax(x)
+    x = (x - lo) / (hi - lo + 1e-8)
+    if flip_y:
+        x = x[::-1]
+    if colormap:
+        from .roseus import ROSEUS_LUT
+        idx = np.clip((x * 255.0).astype(np.int32), 0, 255)
+        return (ROSEUS_LUT[idx] * 255.0).astype(np.uint8)
+    g = (x * 255.0).astype(np.uint8)
+    return np.stack([g, g, g], axis=-1)
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """A uint8 (H, W, 3) image as PNG file bytes: 8-bit RGB, no interlace,
+    one IDAT chunk of zlib-deflated rows, each behind filter byte 0."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected a uint8 (H, W, 3) image, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+    return (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))

@@ -627,6 +627,58 @@ def test_tiny_pipeline_generates_through_the_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_model_server_serves_on_the_card(cuda, tmp_path):
+    """``launch(device="cuda")``: a spawned model server loads a tiny model
+    (made by the port, grouped MLP convs) onto the card, lists ``cuda:0``
+    and answers one 2-step request with finite numpy output."""
+    import time
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+    from dualdiffusion_tpu_torch.models.formats import (SpectrogramFormat,
+                                                        SpectrogramFormatConfig)
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    from dualdiffusion_tpu_torch.serving import launch
+
+    g = torch.Generator().manual_seed(0)
+    ucfg = UNetConfig(in_channels=8, out_channels=8, in_channels_emb=16, model_channels=32,
+                      channel_mult=(1, 2), num_layers_per_block=1, channels_per_head=32,
+                      mlp_multiplier=2, mlp_groups=2)
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                     num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=8)
+    fcfg = SpectrogramFormatConfig(window_duration_ms=40, padded_duration_ms=40,
+                                   num_frequencies=64, default_raw_length=63 * 256)
+    Pipeline({"unet": ModuleHandle("unet", "unet", ucfg, UNet(ucfg).init_weights(g)),
+              "dae": ModuleHandle("dae", "dae", dcfg, DAE(dcfg).init_weights(g)),
+              "format": ModuleHandle("format", "format:spectrogram", fcfg,
+                                     SpectrogramFormat(fcfg))}).save_pretrained(tmp_path / "m")
+
+    def wait(state, timeout=300):
+        t0 = time.time()
+        while state.get("cmd") is not None:
+            assert time.time() - t0 < timeout, state.get("cmd")
+            time.sleep(0.05)
+        assert state.get("error") is None, state.get("error")
+
+    proc, state = launch(str(tmp_path / "m"), device="cuda")
+    try:
+        wait(state)
+        state["cmd"] = "get_available_devices"
+        wait(state)
+        assert "cuda:0" in state["available_devices"]
+        state["sample_params"] = {"steps": 2, "num_fgla_iters": 3, "seed": 5}
+        state["cmd"] = "generate"
+        wait(state)
+        out = state["generate_output"]
+        assert isinstance(out["raw"], np.ndarray) and out["raw"].shape == (1, 2, 63 * 256)
+        assert np.isfinite(out["raw"]).all() and np.isfinite(out["latents"]).all()
+        assert out["seed"] == 5
+    finally:
+        state["cmd"] = "shutdown"
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.terminate()
+
+
+@pytest.mark.cuda
 def test_tiny_ddec_generate_on_the_card_matches_cpu(cuda):
     """``generate(decode_mode="auto")`` on a tiny model with a "ddec" module
     (the MS-MDCT dual format of tests/test_torch_ms_mdct_generate.py): the

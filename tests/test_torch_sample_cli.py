@@ -1,9 +1,10 @@
 """The port's sampling entry point, ``python -m dualdiffusion_tpu_torch.sample``,
 and the audio io it writes through: every option on a tiny model on the CPU
 (a WAV at -20 LUFS), the ``--inpaint`` mask against the JAX ``sample.py``'s
-inline computation, the refusals (no card without ``--device cpu``; the web
-UI and tensor parallelism are not ported), and loudness normalization and
-the FLAC gate against the JAX package's ``utils/utils.py``.
+inline computation, the refusals (no card without ``--device cpu``; tensor
+parallelism is not ported), ``--interactive`` handing over to the web UI,
+and loudness normalization and the FLAC gate against the JAX package's
+``utils/utils.py``.
 """
 
 import logging
@@ -171,14 +172,29 @@ def test_inpaint_mask_matches_sample_py(tmp_path):
 
 def test_sample_cli_refuses_what_it_does_not_take(tmp_path, monkeypatch):
     """Without a card ``--device cuda`` (the default) raises instead of
-    sampling on the CPU; ``--interactive`` (the web UI) and ``--tp`` (tensor
-    parallelism) are not ported and raise before anything loads."""
-    for flags in (["--interactive"], ["--tp", "2"]):
-        with pytest.raises(NotImplementedError):
-            sample.main(["--model_path", str(tmp_path / "nowhere")] + flags)
+    sampling on the CPU; ``--tp`` (tensor parallelism) is not ported and
+    raises before anything loads."""
+    with pytest.raises(NotImplementedError):
+        sample.main(["--model_path", str(tmp_path / "nowhere"), "--tp", "2"])
     d, _ = _model_dir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample.main(["--model_path", str(d), "--steps", "1", "--output",
                      str(tmp_path / "x.wav")])
+    assert not (tmp_path / "x.wav").exists()
+
+
+@pytest.mark.parametrize("device,port", [(None, None), ("cpu", None), (None, 8123)])
+def test_interactive_starts_the_web_ui(tmp_path, monkeypatch, device, port):
+    """``--interactive`` hands the model path, ``--port`` (8080 by default)
+    and ``--device`` (cuda by default) to the web UI's ``run_app`` and
+    samples nothing itself, as JAX ``sample.py:68-71`` does."""
+    from dualdiffusion_tpu_torch.serving import webui
+    calls = []
+    monkeypatch.setattr(webui, "run_app", lambda *a, **kw: calls.append((a, kw)))
+    flags = ["--interactive", "--output", str(tmp_path / "x.wav")]
+    sample.main(["--model_path", str(tmp_path / "m")] + flags
+                + ([] if device is None else ["--device", device])
+                + ([] if port is None else ["--port", str(port)]))
+    assert calls == [((str(tmp_path / "m"),), {"port": port or 8080, "device": device or "cuda"})]
     assert not (tmp_path / "x.wav").exists()
