@@ -30,9 +30,10 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    format (its FGLA decode: K2/K3 at n_fft 4096, hop 256), the DDEC decode
    of a tiny model with a "ddec" module (``decode_mode="auto"``: K1 in the
    latent UNet, the DDEC's dense convs on cuDNN, no K2/K3/K7), its UNet
-   train steps, a tiny DAE's train steps and a tiny full-attention model's
-   generate slice (level-1 L 2048, through K7) on the card against the same
-   models on the CPU;
+   train steps, a tiny DAE's train steps, the DDEC, joint DAE + DDEC and
+   label-conditioned DAE train steps on a tiny supersampled DAE (no kernel
+   launched) and a tiny full-attention model's generate slice (level-1 L
+   2048, through K7) on the card against the same models on the CPU;
 5. drives the serving path: builds the reference-scale pipeline (356M-param
    UNet, 64-ch DAE, 256-bin mel format) from a seed, saves it, loads it with
    ``Pipeline.from_pretrained`` and calls ``generate`` twice (45 s, batch 1,
@@ -85,7 +86,19 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    config with the fused MSS2D loss, 32 synthetic stereo WAVs, 5.5 s crops,
    device batch 8 x accumulation 2, 4 steps then 1 after ``--resume``,
    checking that K5 and K6 were launched and no call went to the plain
-   version.
+   version;
+10. drives DDEC training: ``python -m dualdiffusion_tpu_torch.create_new_model``
+   writes configs/models/edm2_ddec_mclt_b1a from a seed on the card (the
+   d3-series supersampled, label-conditioned DAE and the 14.49M-parameter
+   DDEC), 32 synthetic stereo WAVs get embedding files, and the training
+   entry runs b1a's ddec_train.json (device batch 8 x accumulation 2, 5.5 s
+   crops, both EMAs with archives) for 4 steps then 1 after ``--resume``,
+   checking that the teacher DAE is bit for bit unchanged and that no kernel
+   of K1-K7 launched; one DDEC training microbatch at the full 45 s length;
+   then the joint DAE + DDEC trainer the same way on a fresh copy of that
+   directory (its ``dae`` section from edm2_dae_d3a's dae_train.json),
+   checking that both modules and the DAE's stats moved and that the
+   checkpoint's modules load with ``from_pretrained``.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
 one full-width DAE train step (step 9's model, data and config).
@@ -113,6 +126,7 @@ TRAIN_ACCUM = 2          # gradient accumulation steps
 TRAIN_STEPS = 4          # then one more after --resume
 TRAIN_SAMPLES = 32       # synthetic latents / WAVs in the datasets
 DAE_RAW_CROP = 176128    # 5.5 s: a (8, 256, 680, 2) mel after crop and alignment
+JOINT_BATCH = 8          # device batch of the joint DAE + DDEC path (predicted under 70 GiB)
 #: the card's published peaks (H100 SXM data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -1000,14 +1014,26 @@ def train_slice_phase():
             raise AssertionError(f"the train steps on the card skipped a kernel: {before} {after}")
         out[dev] = ([float(g["loss"]) for g in logs], [float(g["grad_norm"]) for g in logs],
                     to_flat(model), state_to_flat(state.ema_state["std0.05"]))
-    print("2 train steps of a tiny model, CUDA (kernels) vs CPU (plain versions):", flush=True)
+    check_train_agreement("2 train steps of a tiny model, CUDA (kernels) vs CPU (plain "
+                          "versions)", out, lr)
+
+
+def check_train_agreement(what: str, out: dict, lr: float) -> None:
+    """``out[dev]`` = (losses, grad norms, flat params, flat EMA) of the same
+    steps on "cuda" and "cpu". Both run bf16 trunks and round at different
+    places: loss and grad norm agree to 2e-2 relative. AdamW's first updates
+    are about +-lr per element whatever the gradient's size, so a bf16-level
+    difference on a near-zero gradient flips an element's update: params and
+    EMA agree to 6 lr per element, and no more than 2% of the elements
+    differ by more than lr/2."""
+    print(f"{what}:", flush=True)
     (lc, gc, pc, ec), (lg, gg, pg, eg) = out["cpu"], out["cuda"]
     for name, a, b in (("loss", lg, lc), ("grad norm", gg, gc)):
         rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
         ok = rel <= 2e-2
         print(f"  {name} {a} vs {b}: rel {rel:.3g} (tol 2e-2) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"train step {name} on the card disagrees with the CPU run")
+            raise AssertionError(f"{what}: {name} on the card disagrees with the CPU run")
     worst, far, total = 0.0, 0, 0
     for got, want in ((pg, pc), (eg, ec)):
         for k in want:
@@ -1019,7 +1045,7 @@ def train_slice_phase():
     print(f"  params and EMA: max abs diff {worst:.3g} (tol {6 * lr:g}), {far} of {total} "
           f"elements beyond lr/2 (tol 2%) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError("train step params on the card disagree with the CPU run")
+        raise AssertionError(f"{what}: params on the card disagree with the CPU run")
 
 
 def mss2d_dft_route_check(gen) -> None:
@@ -1240,6 +1266,113 @@ def dae_train_slice_phase():
         print(f"  {name} {a} vs {b}: rel {rel:.3g} (tol 2e-2) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"DAE train step {name} on the card disagrees with the CPU run")
+
+
+def ddec_train_slice_phase():
+    """Two train steps each, card against CPU with the same weights, audio
+    and draws, of: the DDEC trainer (a tiny DDEC on the frozen tiny
+    supersampled, label-conditioned DAE of tests/test_torch_ddec_training.py,
+    audio embeddings in the batch), the joint DAE + DDEC trainer, and the
+    DAE trainer on that DAE with audio embeddings. Gradient accumulation 2,
+    AdamW, one EMA; the tolerances of ``check_train_agreement``. Their convs
+    are dense (cuDNN): no kernel of K1-K7 may launch. The DDEC's teacher
+    stays bit for bit as it was."""
+    import copy
+    import math
+
+    import torch
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.training import (
+        DAETrainConfig, DDECTrainConfig, EMABank, EMAConfig, JointDAEDDECConfig, SigmaSampler,
+        SigmaSamplerConfig, build_optimizer, ddec_sample_shape, draw_dae_step, draw_joint_step,
+        draw_unet_step, init_train_state, make_dae_train_step, make_ddec_train_step,
+        make_joint_dae_ddec_train_step)
+    from dualdiffusion_tpu_torch.training.losses import MSSLoss2DConfig
+    from dualdiffusion_tpu_torch.training.module_trainers import ddec_prepare_drawer
+    from dualdiffusion_tpu_torch.weights import state_to_flat, to_flat
+    fcfg = MSMDCTDualFormatConfig(ms_num_filters=32, ms_window_length=256, mdct_window_len=64,
+                                  default_raw_length=63 * 32)
+    fmt = MSMDCTDualFormat(fcfg)
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1,), channel_mult_dec=(1, 2),
+                     num_enc_layers_per_block=2, num_dec_layers_per_block=1, latent_channels=4,
+                     in_channels_emb=64, supersampled=True)
+    ddcfg = UNetConfig(in_channels=2, out_channels=2, in_num_freqs=32, in_psd_freqs=128,
+                       sigma_max=20.0, sigma_min=3e-5, model_channels=16, channel_mult=(1, 2),
+                       num_layers_per_block=1, mlp_multiplier=2, double_midblock=True,
+                       add_constant_channel=True)
+    lr, n, length = 1e-3, 4, 63 * 32
+    gen = torch.Generator().manual_seed(6)
+    dae = DAE(dcfg).init_weights(gen)
+    ddec = UNet(ddcfg).init_weights(gen)
+    with torch.no_grad():
+        ddec.core.out_gain.fill_(1.0)      # a zero out_gain stops every other gradient
+        for b in list(dae.enc) + list(dae.dec):
+            b.emb_gain.fill_(1.0)          # a zero gain mutes the label embedding
+    t = torch.arange(length) / 32000
+    batches = []
+    for _ in range(2):
+        f0 = torch.rand((n, 2, 1), generator=gen) * 2000 + 100
+        batches.append({"audio": 0.3 * torch.sin(2 * math.pi * f0 * t)
+                        + 0.05 * torch.randn((n, 2, length), generator=gen),
+                        "audio_embeddings": torch.randn((n, 64), generator=gen)})
+    ddec_tc = DDECTrainConfig()
+    ddec_tc.unet.grad_accum_steps = 2
+    joint_tc = JointDAEDDECConfig(dae=DAETrainConfig(
+        kl_warmup_steps=4, mss2d=MSSLoss2DConfig(block_widths=(8, 16, 32))), grad_accum_steps=2)
+    dae_tc = DAETrainConfig(grad_accum_steps=2, kl_warmup_steps=4, point_loss_warmup_steps=4,
+                            latents_regularization_warmup_steps=4,
+                            mss2d=MSSLoss2DConfig(block_widths=(8, 16, 32)))
+    shape = ddec_sample_shape(fmt, dae, ddec_tc, (n // 2, 2, length))
+    draws = {
+        "ddec": [draw_unet_step(gen, SigmaSampler(ddec_tc.unet.sigma), ddec_tc.unet, n, shape,
+                                True, 0, ddec_prepare_drawer(ddec_tc)) for _ in batches],
+        "joint": [draw_joint_step(gen, joint_tc, n, shape) for _ in batches],
+        "dae": [draw_dae_step(gen, dae_tc, n // 2) for _ in batches]}
+
+    def run(kind: str, dev: str):
+        teacher = copy.deepcopy(dae).to(dev).requires_grad_(False)
+        if kind == "ddec":
+            model = copy.deepcopy(ddec).to(dev)
+        elif kind == "joint":
+            model = torch.nn.ModuleDict({"dae": copy.deepcopy(dae), "ddec": copy.deepcopy(ddec)}
+                                        ).to(dev)
+        else:
+            model = copy.deepcopy(dae).to(dev)
+        opt = build_optimizer("adamw", model.parameters(), lr)
+        bank = EMABank([EMAConfig(name="std0.05", std=0.05)])
+        if kind == "ddec":
+            step = make_ddec_train_step(fmt, teacher, opt, bank, ddec_tc, n)
+            sigma = ddec_tc.unet.sigma
+        elif kind == "joint":
+            step = make_joint_dae_ddec_train_step(fmt, opt, bank, joint_tc, n)
+            sigma = joint_tc.ddec.unet.sigma
+        else:
+            step = make_dae_train_step(fmt, opt, bank, dae_tc, n)
+            sigma = SigmaSamplerConfig()
+        state = init_train_state(model, opt, bank, sigma, torch.Generator(device=dev))
+        logs = []
+        for b, d in zip(batches, draws[kind]):
+            d = [x.to(dev) for x in d] if isinstance(d, list) else d.to(dev)
+            logs.append(step(state, {k: v.to(dev) for k, v in b.items()}, d))
+        if kind == "ddec" and not all(torch.equal(v.cpu(), dae.state_dict()[k])
+                                      for k, v in teacher.state_dict().items()):
+            raise AssertionError("the DDEC train steps moved the teacher DAE")
+        return ([float(g["loss"]) for g in logs], [float(g["grad_norm"]) for g in logs],
+                to_flat(model), state_to_flat(state.ema_state["std0.05"]))
+
+    for kind, what in (("ddec", "2 DDEC train steps (tiny DDEC, frozen tiny d3 DAE)"),
+                       ("joint", "2 joint DAE + DDEC train steps"),
+                       ("dae", "2 DAE train steps of a tiny supersampled, label-conditioned "
+                               "DAE with audio embeddings")):
+        before = launch_counts()
+        out = {dev: run(kind, dev) for dev in ("cpu", "cuda")}
+        after = launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        if launched:
+            raise AssertionError(f"{what} launched {launched}; no kernel of K1-K7 expected")
+        check_train_agreement(f"{what}, CUDA vs CPU (no kernel launched)", out, lr)
 
 
 def visible_pairs(seq_len: int, window, causal: bool) -> int:
@@ -1941,12 +2074,14 @@ def _same(a, b) -> bool:
 
 
 def run_training(model_dir: Path, data_dir: Path, config: dict, device: str,
-                 steps: int = TRAIN_STEPS) -> dict:
+                 steps: int = TRAIN_STEPS, after=None) -> dict:
     """The port's training entry on ``model_dir`` (a pipeline model
     directory) with the TrainerConfig ``config``: ``steps`` steps, then
-    ``--resume`` for one more. Checks finite losses, that params and the
-    EMA moved, and that the resumed state is the saved one exactly. Returns
-    step seconds (after the first), samples/s and peak memory."""
+    ``--resume`` for one more. Checks finite losses, that params and every
+    EMA moved, and that the resumed state is the saved one exactly;
+    ``after(trainer, saved)`` checks more on the resumed trainer and the
+    snapshot of the state before its step. Returns step seconds (after the
+    first), samples/s and peak memory."""
     import gc
     import numpy as np
     import torch
@@ -1955,7 +2090,6 @@ def run_training(model_dir: Path, data_dir: Path, config: dict, device: str,
     path.write_text(json.dumps(config))
     argv = ["--model_path", str(model_dir), "--train_config_path", str(path),
             "--dataset_path", str(data_dir), "--device", device]
-    ema_name = next(iter(config["emas"]))
     batch = config["device_batch_size"] * config["gradient_accumulation_steps"]
     cuda = device == "cuda"
     if cuda:
@@ -1990,11 +2124,13 @@ def run_training(model_dir: Path, data_dir: Path, config: dict, device: str,
         return max(float((now[k].detach().float().cpu() - before[k].float()).abs().max())
                    for k in before)
     params_moved = moved(final.module.state_dict(), saved["params"])
-    ema_moved = moved(final.ema_state[ema_name], saved["ema"][ema_name])
+    ema_moved = min(moved(final.ema_state[name], saved["ema"][name]) for name in config["emas"])
     print(f"  losses {[round(x, 5) for x in losses]}; in the resumed step params moved by up to "
-          f"{params_moved:.4g} and the EMA by up to {ema_moved:.4g}", flush=True)
+          f"{params_moved:.4g} and each EMA by up to at least {ema_moved:.4g}", flush=True)
     if not (params_moved > 0 and ema_moved > 0):
-        raise AssertionError("params or EMA did not move")
+        raise AssertionError("params or an EMA did not move")
+    if after is not None:
+        after(resumed, saved)
     step_s = [h["seconds"] for h in history[1:steps]]
     stats = {"step_s": float(np.mean(step_s)), "samples_per_s": batch / np.mean(step_s),
              "peak_gib": peak, "wall_s": wall}
@@ -2075,6 +2211,164 @@ def dae_training_path(model_dir: Path, device: str = "cuda", steps: int = TRAIN_
         (model_dir / "dae_train_config.json").write_text(json.dumps(config))
         return None
     return run_training(model_dir, data_dir, config, device, steps)
+
+
+def ddec_training_path(root: Path, smi: str) -> Path:
+    """DDEC training at full width: ``python -m
+    dualdiffusion_tpu_torch.create_new_model`` writes
+    configs/models/edm2_ddec_mclt_b1a from a seed on the card (the default
+    MS-MDCT dual format, the d3-series supersampled, label-conditioned DAE,
+    the 14.49M-parameter DDEC); 32 synthetic stereo WAVs with embedding
+    files; the training entry with b1a's own ddec_train.json (its lr
+    schedule, clip, both EMAs), 4 steps then 1 after ``--resume``. Cut:
+    accumulation 2 (the config's 12), 5.5 s crops (the dataloader's 45 s),
+    EMA archives every 4 steps (the config's 10,000); device batch 8, as in
+    the config. Checks the teacher DAE is bit for bit unchanged and absent
+    from the checkpoint. Then one DDEC training microbatch (forward and
+    backward) at the full 45 s length. Returns a pristine copy of the model
+    directory for the joint phase."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from dualdiffusion_tpu_torch.dataset import write_audio_dataset
+    from dualdiffusion_tpu_torch.utils import load_json, load_safetensors
+    from dualdiffusion_tpu_torch.weights import to_flat
+    name = "edm2_ddec_mclt_b1a"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "dualdiffusion_tpu_torch.create_new_model",
+                    "--name", name, "--config_path", str(REPO / "configs" / "models"),
+                    "--output_path", str(root), "--seed", "7"], check=True, cwd=REPO)
+    model_dir = root / name
+    print(f"create_new_model {name} on the card: {time.perf_counter() - t0:.2f} s", flush=True)
+    pristine = root / f"{name}_pristine"
+    shutil.copytree(model_dir, pristine)
+    dae_cfg = load_json(model_dir / "dae" / "dae.json")
+    data_dir = root / "audio"
+    t0 = time.perf_counter()
+    write_audio_dataset(data_dir, TRAIN_SAMPLES, 2, DAE_RAW_CROP + 8192, seed=8,
+                        emb_dim=dae_cfg["in_channels_emb"])
+    tjson = load_json(REPO / "configs" / "models" / name / "ddec_train.json")
+    config = {**tjson, "gradient_accumulation_steps": TRAIN_ACCUM,
+              "emas": {k: {**v, "num_archive_steps": TRAIN_STEPS}
+                       for k, v in tjson["emas"].items()},
+              "dataloader": {**tjson["dataloader"], "raw_crop_width": DAE_RAW_CROP}}
+    print(f"DDEC training: {name}; trainer config {json.dumps(config)}; {TRAIN_SAMPLES} "
+          f"synthetic stereo WAVs with {dae_cfg['in_channels_emb']}-dim embedding files written "
+          f"in {time.perf_counter() - t0:.1f} s; cut: device batch "
+          f"{config['device_batch_size']} x accumulation {TRAIN_ACCUM} (the config's "
+          f"{tjson['gradient_accumulation_steps']}), crop 5.5 s (the dataloader's 45 s), EMA "
+          f"archives every {TRAIN_STEPS} steps (the config's 10000), {TRAIN_STEPS} steps then "
+          f"--resume for 1; {smi}", flush=True)
+    teacher_file = load_safetensors(model_dir / "dae" / "dae.safetensors")
+
+    def after(trainer, saved):
+        teacher = trainer.train_step.teacher
+        got = to_flat(teacher)
+        if any(p.requires_grad for p in teacher.parameters()) or not all(
+                np.array_equal(got[k], v) for k, v in teacher_file.items()):
+            raise AssertionError("the teacher DAE changed or is trainable")
+        ckpt = sorted(model_dir.glob("ddec_checkpoint-*"))[-1]
+        if sorted(p.name for p in ckpt.iterdir() if p.is_dir()) != ["ddec"]:
+            raise AssertionError(f"the DDEC checkpoint holds {list(ckpt.iterdir())}")
+        archives = sorted(p.name for p in (model_dir / "ddec_ema_archive").iterdir())
+        print(f"  teacher DAE bit for bit unchanged; checkpoint {ckpt.name} holds the DDEC "
+              f"only; EMA archives {archives}", flush=True)
+        if len(archives) != len(config["emas"]):
+            raise AssertionError("EMA archives missing")
+    run_training(model_dir, data_dir, config, "cuda", after=after)
+    ddec_microbatch_45s(model_dir)
+    return pristine
+
+
+def ddec_microbatch_45s(model_dir: Path) -> None:
+    """One DDEC training microbatch, forward and backward, at the full 45 s
+    length: (1, 256, 5504, 2) MDCT coefficients, the (1, 2048, 5504, 2)
+    PSD, the EDM2-weighted loss with the learned logvar. Device ms (CUDA
+    events after a warm-up) and peak memory, for sizing a DDEC training
+    cell."""
+    import torch
+    from dualdiffusion_tpu_torch.pipelines.pipeline import load_module
+    _, cfg, ddec = load_module(model_dir, "ddec", "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shape = (1, cfg.in_num_freqs, 5504, cfg.in_channels)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    ref = torch.randn((1, cfg.in_psd_freqs, 5504, cfg.in_channels), generator=gen,
+                      device="cuda").abs()
+    sigma = torch.full((1,), 0.5, device="cuda")
+
+    def step():
+        ddec.zero_grad(set_to_none=True)
+        sig = sigma.reshape(-1, 1, 1, 1)
+        denoised = ddec(x + x * sig, sigma, None, ref, training=True)
+        weight = (sig ** 2 + 1) / sig ** 2
+        loss = ((denoised - x) ** 2 * weight).mean(dim=(1, 2, 3))
+        lv = ddec.get_sigma_loss_logvar(sigma).reshape(-1)
+        (loss / torch.exp(lv) + lv).mean().backward()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(step, reps=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"DDEC training microbatch at {shape} (PSD {tuple(ref.shape)}), forward + backward: "
+          f"{ms:.2f} ms, peak memory {peak:.2f} GiB", flush=True)
+    del ddec
+    torch.cuda.empty_cache()
+
+
+def joint_training_path(root: Path, model_dir: Path, batch: int) -> None:
+    """Joint DAE + DDEC training on a fresh copy of the b1a model directory:
+    ``"module_trainer": "dae_ddec"``, the ``ddec`` section from b1a's
+    ddec_train.json (the rest of the trainer config too) and the ``dae``
+    section from configs/models/edm2_dae_d3a/dae_train.json (no joint config
+    exists in configs/). Cut: accumulation 2, 5.5 s crops, EMA archives
+    every 4 steps; device batch ``batch``. Checks that both modules' params
+    and the DAE's stats moved, and that the checkpoint holds both modules
+    and ``from_pretrained`` loads them."""
+    import numpy as np
+    import torch
+    from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline
+    from dualdiffusion_tpu_torch.utils import load_json
+    from dualdiffusion_tpu_torch.weights import to_flat
+    models = REPO / "configs" / "models"
+    tjson = load_json(models / "edm2_ddec_mclt_b1a" / "ddec_train.json")
+    dae_json = load_json(models / "edm2_dae_d3a" / "dae_train.json")
+    config = {**tjson, "module_trainer": "dae_ddec", "device_batch_size": batch,
+              "gradient_accumulation_steps": TRAIN_ACCUM,
+              "module_trainer_config": {"ddec": tjson.get("module_trainer_config", {}),
+                                        "dae": dae_json["module_trainer_config"]},
+              "emas": {k: {**v, "num_archive_steps": TRAIN_STEPS}
+                       for k, v in tjson["emas"].items()},
+              "dataloader": {**tjson["dataloader"], "raw_crop_width": DAE_RAW_CROP}}
+    print(f"joint DAE + DDEC training: {model_dir.name}; trainer config {json.dumps(config)}; "
+          f"cut: device batch {batch} x accumulation {TRAIN_ACCUM}, crop 5.5 s, EMA archives "
+          f"every {TRAIN_STEPS} steps, {TRAIN_STEPS} steps then --resume for 1", flush=True)
+
+    def after(trainer, saved):
+        state = trainer.state.module.state_dict()
+        for name in ("dae", "ddec"):
+            moved = max(float((state[k].float().cpu() - v.float()).abs().max())
+                        for k, v in saved["params"].items()
+                        if k.startswith(name + ".") and "latents_" not in k)
+            print(f"  {name} params moved by up to {moved:.4g} in the resumed step", flush=True)
+            if not moved > 0:
+                raise AssertionError(f"the {name} params did not move")
+        stats = state["dae.latents_var"].cpu()
+        if torch.equal(stats, saved["params"]["dae.latents_var"]):
+            raise AssertionError("the DAE's latent stats did not move")
+        ckpt = sorted(model_dir.glob("ddec_checkpoint-*"))[-1]
+        pipe = Pipeline.from_pretrained(model_dir, device="cuda",
+                                        load_checkpoints={"dae": ckpt.name, "ddec": "latest"})
+        for name in ("dae", "ddec"):
+            got, want = to_flat(pipe.modules[name].module), to_flat(trainer.state.module[name])
+            if sorted(got) != sorted(want) or not all(np.array_equal(got[k], want[k])
+                                                      for k in want):
+                raise AssertionError(f"the checkpoint's {name} does not load as trained")
+        print(f"  checkpoint {ckpt.name} holds {sorted(p.name for p in ckpt.iterdir())}; "
+              f"from_pretrained loads its dae and ddec as trained; EMA archives in "
+              f"{sorted(p.name for p in model_dir.glob('*_ema_archive'))}", flush=True)
+        del pipe
+    run_training(model_dir, root / "audio", config, "cuda", after=after)
 
 
 #: kernel groups of the profile, by substrings of the kernel's name (first match)
@@ -2201,6 +2495,7 @@ def main() -> int:
     train_slice_phase()
     measured.update(kernel_phase_mss2d(gen))
     dae_train_slice_phase()
+    ddec_train_slice_phase()
     measured["flash_attention"] = kernel_phase_flash(gen)
     flash_crossover(gen)
     slice_phase("full")
@@ -2349,6 +2644,22 @@ def main() -> int:
                                              ("mss2d_block_loss_grad", "fft"))).items()}
         print(f"  launches per DAE train step: K5 {per_step['mss2d_block_loss']:g}, "
               f"K6 {per_step['mss2d_block_loss_grad']:g}", flush=True)
+
+    # ---- DDEC training, then joint DAE + DDEC training, at full width -------
+    no_kernels = tuple(name for name, *_ in KERNEL_INFO)
+    with tempfile.TemporaryDirectory(prefix="dd_smoke_ddec_") as tmp:
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        pristine = ddec_training_path(Path(tmp), smi)
+        print(f"DDEC training phase: {time.perf_counter() - t0:.2f} s", flush=True)
+        path_counts("DDEC training", (), absent=no_kernels)
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        joint_training_path(Path(tmp), pristine, JOINT_BATCH)
+        print(f"joint training phase: {time.perf_counter() - t0:.2f} s", flush=True)
+        path_counts("joint DAE + DDEC training", (), absent=no_kernels)
 
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": sum(c[name] for c in counts.values()), **measured[name]}

@@ -4,15 +4,18 @@ src/modules/daes/dae_edm2_q4.py:91-405).
 
 The latent stats tracker (the flax "stats" collection) is four buffers,
 moved in place by a training-mode ``encode``. ``training`` re-normalizes
-every MP weight in the forward, as the JAX package does. Supersampled and
-label-conditioned DAEs, latent noise injection and ``tiled_encode`` are not
-ported.
+every MP weight in the forward, as the JAX package does. A supersampled
+(d3-series) DAE keeps its encoder at full resolution and pools the latent
+projection by the decoder's downsample ratio; a label-conditioned one
+(``in_channels_emb > 0``) modulates every block by its embedding. The
+training forward adds latent noise (``latents_sigma`` times a noise tensor
+the caller draws). ``tiled_encode`` is not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Set, Tuple
 
 import torch
 import torch.nn as nn
@@ -102,22 +105,26 @@ class DAE(nn.Module):
         super().__init__()
         if cfg.w_pack_channels != 0:
             raise NotImplementedError("DAEConfig.w_pack_channels is TPU-only; use 0")
-        if cfg.supersampled or cfg.in_channels_emb > 0:
-            raise NotImplementedError("supersampled / label-conditioned DAEs are not ported")
         self.cfg = cfg
         enc_ch = [cfg.model_channels * m for m in cfg.channel_mult_enc]
         dec_ch = [cfg.model_channels * m for m in cfg.channel_mult_dec]
-        if len(enc_ch) != len(dec_ch):
+        if not cfg.supersampled and len(enc_ch) != len(dec_ch):
             raise ValueError("asymmetric enc/dec levels require supersampled=True")
+        cemb = (cfg.model_channels * cfg.channel_mult_emb * cfg.mlp_multiplier
+                if cfg.in_channels_emb > 0 else 0)
+        if cemb:
+            self.emb_label = MPConv(cfg.in_channels_emb, cemb, (), device=device)
 
         self.conv_in = MPConv(cfg.in_channels, enc_ch[0], (5, 5), use_bias=True, device=device)
         enc = []
         cin = enc_ch[0]
+        # a supersampled encoder's levels all keep the full resolution
+        down = "keep" if cfg.supersampled else "down"
         for level, cout in enumerate(enc_ch):
             if level > 0:
-                enc.append(DAEBlock(cfg, cin, cout, 0, "enc", "down", device=device))
+                enc.append(DAEBlock(cfg, cin, cout, cemb, "enc", down, device=device))
             for _ in range(cfg.num_enc_layers_per_block):
-                enc.append(DAEBlock(cfg, cout, cout, 0, "enc", device=device))
+                enc.append(DAEBlock(cfg, cout, cout, cemb, "enc", device=device))
             cin = cout
         self.enc = nn.ModuleList(enc)
         self.conv_latents_out = MPConv(enc_ch[-1], cfg.latent_channels, (3, 3), device=device)
@@ -128,9 +135,9 @@ class DAE(nn.Module):
         for level in reversed(range(len(dec_ch))):
             cout = dec_ch[level]
             mode = "keep" if level == len(dec_ch) - 1 else "up"
-            dec.append(DAEBlock(cfg, cin, cout, 0, "dec", mode, device=device))
+            dec.append(DAEBlock(cfg, cin, cout, cemb, "dec", mode, device=device))
             for _ in range(cfg.num_dec_layers_per_block):
-                dec.append(DAEBlock(cfg, cout, cout, 0, "dec", device=device))
+                dec.append(DAEBlock(cfg, cout, cout, cemb, "dec", device=device))
             cin = cout
         self.dec = nn.ModuleList(dec)
         self.conv_out = MPConv(dec_ch[0], cfg.out_channels, (5, 5), device=device)
@@ -158,6 +165,33 @@ class DAE(nn.Module):
                 m.init_weights(generator)
         return self
 
+    def label_embedding_keys(self) -> Set[str]:
+        """The state keys of the label conditioning (``emb_label`` and every
+        block's ``emb_gain`` and ``emb_linear``). The JAX package creates
+        these parameters only when its init runs them, so a DAE that JAX's
+        ``create_new_model`` wrote has none of them."""
+        return {k for k in self.state_dict()
+                if k.startswith("emb_label.") or ".emb_gain" in k or ".emb_linear." in k}
+
+    @torch.no_grad()
+    def init_label_embedding(self, generator: torch.Generator) -> None:
+        """Fresh label conditioning: normalized N(0, 1) weights and zero
+        block gains, under which an embedding leaves every block as it is."""
+        for name, m in self.named_modules():
+            if name == "emb_label" or name.endswith(".emb_linear"):
+                m.init_weights(generator)
+                m.weight.copy_(normalize(m.weight))
+            elif isinstance(m, DAEBlock) and m.emb_channels > 0:
+                m.emb_gain.zero_()
+
+    def get_embeddings(self, emb_in: torch.Tensor,
+                       training: bool = False) -> Optional[torch.Tensor]:
+        """The blocks' conditioning from a label embedding (B, in_channels_emb);
+        None for a DAE without label conditioning."""
+        if self.cfg.in_channels_emb <= 0:
+            return None
+        return mp_silu(self.emb_label(normalize(emb_in, dim=-1), training=training))
+
     def get_latent_shape(self, sample_shape: Sequence[int]) -> Tuple[int, ...]:
         b, h, w, _ = sample_shape
         ds = self.downsample_ratio
@@ -175,14 +209,18 @@ class DAE(nn.Module):
         std = torch.sqrt(self.latents_var + eps)
         return (latents * std + self.latents_mean).to(latents.dtype)
 
-    def encode(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, embeddings: Optional[torch.Tensor] = None,
+               training: bool = False) -> torch.Tensor:
         """(B, H, W, in_channels) -> (B, H/ds, W/ds, latent_channels) fp32.
         ``training`` also moves the latent stats buffers."""
         x = x.to(getattr(torch, self.cfg.compute_dtype))
         x = self.conv_in(x, training=training)
         for block in self.enc:
-            x = block(x, training=training)
+            x = block(x, embeddings, training=training)
         latents = self.conv_latents_out(x, training=training).float()
+        if self.cfg.supersampled and self.downsample_ratio > 1:
+            # pool after the projection (reference dae_edm2_d3.py:349)
+            latents = resample_2d(latents, "down", ratio=self.downsample_ratio)
         if training:
             self._track_stats(latents)
         return latents
@@ -200,19 +238,24 @@ class DAE(nn.Module):
                          (self.latents_global_var, lx.var(correction=1))):
             buf.copy_(buf * m + new * (1 - m))
 
-    def decode(self, latents: torch.Tensor, training: bool = False) -> torch.Tensor:
+    def decode(self, latents: torch.Tensor, embeddings: Optional[torch.Tensor] = None,
+               training: bool = False) -> torch.Tensor:
         """(B, h, w, latent_channels) -> (B, h*ds, w*ds, out_channels) fp32."""
         x = latents.to(getattr(torch, self.cfg.compute_dtype))
         x = self.conv_latents_in(x, training=training)
         for block in self.dec:
-            x = block(x, training=training)
+            x = block(x, embeddings, training=training)
         return self.conv_out(x, gain=self.out_gain, training=training).float()
 
-    def forward(self, samples: torch.Tensor, latents_sigma: Optional[torch.Tensor] = None,
-                training: bool = True):
-        """Training forward: (latents, reconstruction, pre-norm latents)."""
-        if latents_sigma is not None:
-            raise NotImplementedError("latent noise injection is not ported")
-        pre_norm = self.encode(samples, training=training)
-        recon = self.decode(pre_norm, training=training)
-        return pre_norm, recon, pre_norm
+    def forward(self, samples: torch.Tensor, embeddings: Optional[torch.Tensor] = None,
+                latents_sigma: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None, training: bool = True):
+        """Training forward: (latents, reconstruction, pre-norm latents). With
+        ``latents_sigma`` and ``noise`` (N(0, 1), the latents' shape) the
+        decoder sees the latents plus ``latents_sigma * noise``."""
+        pre_norm = self.encode(samples, embeddings, training=training)
+        latents = pre_norm
+        if latents_sigma is not None and noise is not None:
+            latents = latents + latents_sigma * noise.to(latents.dtype)
+        recon = self.decode(latents, embeddings, training=training)
+        return latents, recon, pre_norm

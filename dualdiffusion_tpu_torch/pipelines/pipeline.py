@@ -153,7 +153,9 @@ class Pipeline:
 
         ``load_checkpoints``: False loads the model root; True each module's
         latest ``<module>_checkpoint-<step>/``; a dict maps module name to
-        "latest", "root", a step number or a checkpoint directory name.
+        "latest", "root", a step number or a checkpoint directory name (its
+        own, or another module's that holds it, as the joint DAE + DDEC
+        trainer's ``ddec_checkpoint-<step>/`` holds the DAE).
         ``load_emas`` maps module name -> EMA name: ``ema_<name>.safetensors``
         where it exists, else for ``phema_<std>`` the post-hoc EMA of that
         std reconstructed from ``<module>/ema_archive/``. The prompt
@@ -184,7 +186,11 @@ class Pipeline:
             ckpts = cls.get_checkpoints(model_path, name)
             return ckpts[-1] if ckpts else None
         cand = f"{name}_checkpoint-{sel}" if sel.isdigit() else sel
-        if not re.fullmatch(rf"{re.escape(name)}_checkpoint-\d+", cand):
+        # a joint trainer's checkpoint (``ddec_checkpoint-<step>/``) holds the
+        # other module it trains beside its own
+        joint = (re.fullmatch(r"\w+_checkpoint-\d+", cand) is not None
+                 and (model_path / cand / name).is_dir())
+        if not (joint or re.fullmatch(rf"{re.escape(name)}_checkpoint-\d+", cand)):
             raise ValueError(f"invalid checkpoint selection {sel!r} for module '{name}'")
         if not (model_path / cand).is_dir():
             raise FileNotFoundError(f"no checkpoint '{sel}' for module '{name}' in {model_path}")

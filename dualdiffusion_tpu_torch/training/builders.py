@@ -1,6 +1,8 @@
 """Wiring: TrainerConfig + Pipeline -> (train step, TrainState, export fn,
 EMA bank, batch adapter), selected by the module-trainer registry
-(JAX: dualdiffusion_tpu/training/builders.py:29-125)."""
+(JAX: dualdiffusion_tpu/training/builders.py): "unet", "dae", "ddec" (the
+pipeline's DAE a frozen teacher) and "dae_ddec" (both trained, the state's
+module an ``nn.ModuleDict`` of "dae" and "ddec")."""
 
 from __future__ import annotations
 
@@ -10,7 +12,9 @@ import torch
 
 from ..utils import config_from_dict
 from .ema import EMABank, EMAConfig
-from .module_trainers import DAETrainConfig, make_dae_train_step
+from .module_trainers import (DAETrainConfig, DDECTrainConfig, JointDAEDDECConfig,
+                              make_dae_train_step, make_ddec_train_step,
+                              make_joint_dae_ddec_train_step)
 from .optim import Optimizer, build_optimizer, lr_schedule
 from .sigma_sampler import SigmaSamplerConfig
 from .train_state import UNetTrainConfig, init_train_state, make_unet_train_step
@@ -81,18 +85,68 @@ def build_dae_trainer(pipeline, tconf: TrainerConfig, generator: torch.Generator
                                tconf.device_batch_size * tconf.gradient_accumulation_steps)
     state = init_train_state(model, opt, bank, SigmaSamplerConfig(), generator)
     device = next(model.parameters()).device
-
-    def batch_adapter(batch):
-        return {"audio": torch.as_tensor(batch["audio"], dtype=torch.float32).to(device)}
-
-    return step, state, export_fn(pipeline, tconf.module_name), bank, batch_adapter
+    return (step, state, export_fn(pipeline, tconf.module_name), bank,
+            audio_batch_adapter(device))
 
 
-def _not_ported(name: str):
-    def build(pipeline, tconf, generator):
-        raise NotImplementedError(f"module trainer '{name}' is not ported")
-    return build
+def audio_batch_adapter(device):
+    """Audio, and the audio embeddings where the batch has them, on ``device``."""
+    def adapt(batch):
+        out = {"audio": torch.as_tensor(batch["audio"], dtype=torch.float32).to(device)}
+        if "audio_embeddings" in batch:
+            out["audio_embeddings"] = torch.as_tensor(batch["audio_embeddings"],
+                                                      dtype=torch.float32).to(device)
+        return out
+    return adapt
 
 
-for _name in ("ddec", "dae_ddec"):
-    register_module_trainer(_name)(_not_ported(_name))
+def _dae_of(pipeline, what: str):
+    if "dae" not in pipeline.modules:
+        raise ValueError(f"{what} needs a 'dae' module in the pipeline")
+    return pipeline.modules["dae"]
+
+
+@register_module_trainer("ddec")
+def build_ddec_trainer(pipeline, tconf: TrainerConfig, generator: torch.Generator):
+    """DDEC training on raw audio; the pipeline's DAE is a frozen teacher,
+    in neither the optimizer, the EMA nor the export."""
+    model = pipeline.modules[tconf.module_name].module
+    dae = _dae_of(pipeline, "ddec training").module
+    dae.eval().requires_grad_(False)
+    cfg = config_from_dict(DDECTrainConfig, dict(tconf.module_trainer_config))
+    cfg.unet.grad_accum_steps = tconf.gradient_accumulation_steps
+    opt = make_optimizer(tconf, model.parameters())
+    bank = make_ema_bank(tconf)
+    step = make_ddec_train_step(pipeline.format, dae, opt, bank, cfg,
+                                tconf.device_batch_size * tconf.gradient_accumulation_steps)
+    step.teacher = dae          # the frozen DAE, for checks that it stays so
+    state = init_train_state(model, opt, bank, cfg.unet.sigma, generator)
+    device = next(model.parameters()).device
+    return (step, state, export_fn(pipeline, tconf.module_name), bank,
+            audio_batch_adapter(device))
+
+
+@register_module_trainer("dae_ddec")
+def build_joint_dae_ddec_trainer(pipeline, tconf: TrainerConfig, generator: torch.Generator):
+    """Joint DAE + DDEC training: ``module_name`` names the DDEC, the DAE is
+    the pipeline's "dae"; the checkpoints export both modules."""
+    from ..pipelines.pipeline import save_module
+    ddec_h = pipeline.modules[tconf.module_name]
+    dae_h = _dae_of(pipeline, "joint training")
+    module = torch.nn.ModuleDict({"dae": dae_h.module, "ddec": ddec_h.module})
+    cfg = config_from_dict(JointDAEDDECConfig, dict(tconf.module_trainer_config))
+    cfg.grad_accum_steps = tconf.gradient_accumulation_steps
+    opt = make_optimizer(tconf, module.parameters())
+    bank = make_ema_bank(tconf)
+    step = make_joint_dae_ddec_train_step(
+        pipeline.format, opt, bank, cfg,
+        tconf.device_batch_size * tconf.gradient_accumulation_steps)
+    state = init_train_state(module, opt, bank, cfg.ddec.unet.sigma, generator)
+    device = next(module.parameters()).device
+
+    def export(ckpt_dir, module, global_step: int = 0):
+        for h in (dae_h, ddec_h):
+            save_module(ckpt_dir, h.name, h.module_type, h.config, module[h.name],
+                        global_step)
+
+    return step, state, export, bank, audio_batch_adapter(device)

@@ -1,37 +1,54 @@
-"""The DAE trainer (JAX: dualdiffusion_tpu/training/module_trainers.py:45-50,
-127-342; reference: src/training/module_trainers/dae_p1_trainer.py:228-431).
+"""The DAE, DDEC and joint DAE + DDEC trainers (JAX:
+dualdiffusion_tpu/training/module_trainers.py; reference:
+src/training/module_trainers/dae_p1_trainer.py:228-431,
+ddec_q4_trainer.py:46-145, trainer.py:204-209).
 
-One step, as the JAX step: per microbatch, a random stereo flip, the mel
-spectrogram (cropped by ``crop_edges`` and cut to a multiple of the DAE's
-downsample ratio), the DAE's training forward (which moves its latent stats),
-the recon loss (MSS2D, fused through K5/K6 with ``use_fused_mss2d``) plus a
-decaying point L1, its NLL under the learned logvar, the phase-invariance
-term (a second encode, with ``training=False``, of the mel of a phase-rotated
-MDCT view of the same audio), optional dispersion, and KL-to-unit-variance on
-the pre-norm latents; then the summed gradients / accum -> clip -> AdamW ->
-forced MP weight norm -> EMA of the parameters and the stats buffers.
+The DAE step, as the JAX step: per microbatch, a random stereo flip, the
+label embedding of the batch's ``audio_embeddings`` where it has them, the
+mel spectrogram (cropped by ``crop_edges`` and cut to a multiple of the
+DAE's downsample ratio), the DAE's training forward (which moves its latent
+stats), the recon loss (MSS2D, fused through K5/K6 with
+``use_fused_mss2d``) plus a decaying point L1, its NLL under the learned
+logvar, the phase-invariance term (a second encode, with
+``training=False``, of the mel of a phase-rotated MDCT view of the same
+audio), optional dispersion, and KL-to-unit-variance on the pre-norm
+latents; then the summed gradients / accum -> clip -> AdamW -> forced MP
+weight norm -> EMA of the parameters and the stats buffers.
 
-The step's random draws (``DAEMicroDraws``: the stereo flips and the phase
-angles) are made apart from its arithmetic, from the state's
-``torch.Generator``, so a test can pass in the draws of JAX's key splits.
-The MDCT-domain variant, the randomized-prime MSS, the 1-D prime MSS and the
-equivariance loss are not ported, nor the DDEC and joint trainers.
+The DDEC step is the UNet diffusion step over a prepare stage that uses the
+frozen DAE as its teacher: stereo flip, MDCT with a per-sample phase
+rotation, back to raw, the mel, the DAE's reconstruction, the edge crop,
+``mel_spec_to_linear`` as the conditioning and the MDCT as the target. The
+joint step trains both modules under one optimizer, the DDEC conditioned on
+the live DAE reconstruction.
+
+Each step's random draws (stereo flips, phase angles, noise) are made apart
+from its arithmetic, from the state's ``torch.Generator``, so a test can
+pass in the draws of JAX's key splits. The JAX phase rotation lines its (B,)
+angles up with the channel axis (per sample only at B = 1, an error at B > 2
+unless B = C); the port rotates each sample by its own angle. The DAE's
+MDCT-domain variant, the randomized-prime MSS, the 1-D prime MSS and the
+equivariance loss are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models.mp import normalize
 from ..ops.kernels import mss2d_loss_fused
 from .ema import EMABank
 from .losses import (MSSLoss2D, MSSLoss2DConfig, latents_dispersion_loss,
                      phase_invariance_loss)
 from .optim import Optimizer, normalize_mp_weights
-from .train_state import TrainState
+from .sigma_sampler import SigmaSampler
+from .train_state import (TrainState, UNetTrainConfig, make_unet_eval_step,
+                          make_unet_train_step)
 
 
 def random_stereo_augmentation(audio: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
@@ -67,25 +84,27 @@ class DAETrainConfig:
 class DAEMicroDraws:
     """One microbatch's random draws (None where the option is off)."""
     stereo_flip: Optional[torch.Tensor]   # (b,) bool
-    phase_theta: Optional[torch.Tensor]   # (b,) MDCT rotation angles of the second view
+    phase_theta: Optional[torch.Tensor]   # (b,) MDCT rotation angles
 
     def to(self, device) -> "DAEMicroDraws":
         return DAEMicroDraws(*(None if t is None else t.to(device)
                                for t in (self.stereo_flip, self.phase_theta)))
 
 
+def _draw_flip_theta(generator: torch.Generator, b: int, flip: bool,
+                     theta: bool) -> DAEMicroDraws:
+    dev = generator.device
+    return DAEMicroDraws(
+        torch.rand((b,), generator=generator, device=dev) < 0.5 if flip else None,
+        torch.rand((b,), generator=generator, device=dev) * (2 * np.pi) if theta else None)
+
+
 def draw_dae_step(generator: torch.Generator, config: DAETrainConfig,
                   micro_batch: int) -> List[DAEMicroDraws]:
     """Every random number one DAE train step uses, from ``generator``."""
-    dev = generator.device
-    out = []
-    for _ in range(config.grad_accum_steps):
-        flip = (torch.rand((micro_batch,), generator=generator, device=dev) < 0.5
-                if config.random_stereo_augmentation else None)
-        theta = (torch.rand((micro_batch,), generator=generator, device=dev) * (2 * np.pi)
-                 if config.phase_invariance_loss_weight > 0 else None)
-        out.append(DAEMicroDraws(flip, theta))
-    return out
+    return [_draw_flip_theta(generator, micro_batch, config.random_stereo_augmentation,
+                             config.phase_invariance_loss_weight > 0)
+            for _ in range(config.grad_accum_steps)]
 
 
 def _check_ported(cfg: DAETrainConfig) -> None:
@@ -104,7 +123,8 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
                         config: DAETrainConfig, total_batch_size: int):
     """Build ``train_step(state, batch, draws=None) -> logs`` over
     ``state.module``, a DAE; it updates ``state`` in place. ``batch``:
-    {"audio": (B, C, T)}, B = device batch x grad_accum_steps."""
+    {"audio": (B, C, T), "audio_embeddings": (B, E) optional}, B = device
+    batch x grad_accum_steps."""
     cfg = config
     _check_ported(cfg)
     mss = MSSLoss2D(cfg.mss2d)
@@ -123,13 +143,16 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
         ds = model.downsample_ratio
         return mel[:, :, : mel.shape[2] // ds * ds]
 
-    def loss_fn(model, audio: torch.Tensor, draws: DAEMicroDraws, step: int):
+    def loss_fn(model, audio: torch.Tensor, emb_in: Optional[torch.Tensor],
+                draws: DAEMicroDraws, step: int):
         audio = audio.float()
         if cfg.random_stereo_augmentation:
             audio = random_stereo_augmentation(audio, draws.stereo_flip)
+        dae_emb = (model.get_embeddings(normalize(emb_in.float(), dim=-1))
+                   if emb_in is not None else None)
         with torch.no_grad():
             samples = mel_view(model, audio)
-        latents, recon, pre_norm = model(samples, training=True)
+        latents, recon, pre_norm = model(samples, dae_emb, training=True)
 
         s_cf = samples.permute(0, 3, 1, 2)
         r_cf = recon.float().permute(0, 3, 1, 2)
@@ -153,7 +176,7 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
         if cfg.phase_invariance_loss_weight > 0:
             with torch.no_grad():
                 alt = mel_view(model, fmt.mdct_to_raw(fmt.raw_to_mdct(audio, draws.phase_theta)))
-            latents2 = model.encode(alt, training=False)
+            latents2 = model.encode(alt, dae_emb, training=False)
             pi = phase_invariance_loss(latents, latents2.float()) / 2.0
             total = total + pi.mean() * cfg.phase_invariance_loss_weight * reg_w
             logs["loss_phase_invariance"] = pi.mean()
@@ -175,6 +198,7 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
                    draws: Optional[List[DAEMicroDraws]] = None) -> Dict[str, Any]:
         model = state.module
         audio = batch["audio"]
+        emb = batch.get("audio_embeddings")
         n = audio.shape[0]
         if n % accum:
             raise ValueError(f"batch of {n} does not split into {accum} microbatches")
@@ -186,8 +210,9 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
         logs_seq: Dict[str, List[torch.Tensor]] = {}
         sample_losses = []
         for i in range(accum):
-            loss, logs, per_sample = loss_fn(model, audio[i * mb:(i + 1) * mb], draws[i],
-                                             state.global_step)
+            sl = slice(i * mb, (i + 1) * mb)
+            loss, logs, per_sample = loss_fn(model, audio[sl], None if emb is None else emb[sl],
+                                             draws[i], state.global_step)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             for k, v in logs.items():
@@ -208,5 +233,257 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
         out.update(loss=loss_sum / accum, grad_norm=optimizer.clip.last_grad_norm,
                    sample_losses=torch.cat(sample_losses))
         return out
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# the DDEC trainer (JAX module_trainers.py:56-120)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DDECTrainConfig:
+    """Field names and defaults of the JAX DDECTrainConfig."""
+    unet: UNetTrainConfig = field(default_factory=UNetTrainConfig)
+    random_stereo_augmentation: bool = True
+    random_phase_augmentation: bool = True
+    crop_edges: int = 4
+    #: the ddecmp_p4 variant: condition on the ground-truth mel, not the DAE's
+    condition_on_ground_truth: bool = False
+
+
+#: the DDEC prepare stage's draws for one microbatch: the DAE step's two
+DDECPrepareDraws = DAEMicroDraws
+
+
+def ddec_prepare_drawer(config: DDECTrainConfig):
+    """``draw(generator, b) -> DDECPrepareDraws`` for ``config``."""
+    def draw(generator: torch.Generator, b: int) -> DDECPrepareDraws:
+        return _draw_flip_theta(generator, b, config.random_stereo_augmentation,
+                                config.random_phase_augmentation)
+    return draw
+
+
+def make_ddec_prepare(fmt, dae, config: DDECTrainConfig):
+    """``prepare(batch, draws) -> {"samples", "ref_samples", "embeddings"?}``:
+    the DDEC's training target (the MDCT, cropped) and conditioning (the
+    linear PSD of the frozen DAE's reconstruction of the mel), both (b, bins,
+    frames, C). Run it without gradients. The DAE gets no label embedding, as
+    JAX `build_ddec_trainer` passes none."""
+    c = config.crop_edges
+
+    def prepare(batch: Dict[str, Any], draws: DDECPrepareDraws) -> Dict[str, Any]:
+        audio = batch["audio"].float()
+        if config.random_stereo_augmentation:
+            audio = random_stereo_augmentation(audio, draws.stereo_flip)
+        # back to raw from the rotated MDCT, so the target and the
+        # conditioning share the same phases
+        mdct = fmt.raw_to_mdct(audio, draws.phase_theta
+                               if config.random_phase_augmentation else None)
+        mel = fmt.raw_to_mel_spec(fmt.mdct_to_raw(mdct))
+        ds = dae.downsample_ratio
+        mel = mel[:, :, : mel.shape[2] // ds * ds]
+        recon = mel if config.condition_on_ground_truth else dae(mel, training=False)[1]
+        recon = recon[:, :, c:-c] if c > 0 else recon
+        lin = fmt.mel_spec_to_linear(recon.float())
+        target = mdct[:, :, c:-c] if c > 0 else mdct
+        out = {"samples": target[:, :, : lin.shape[2]], "ref_samples": lin}
+        if batch.get("audio_embeddings") is not None:
+            out["embeddings"] = batch["audio_embeddings"]
+        return out
+    return prepare
+
+
+def no_embeddings(model, emb_in, mask) -> None:
+    """The DDEC has no label embedding (JAX module_trainers.py:115-116)."""
+    return None
+
+
+def _ddec_unet_config(config: DDECTrainConfig) -> UNetTrainConfig:
+    # cropping happens in the prepare stage
+    return dataclasses.replace(config.unet, crop_edges=0)
+
+
+def make_ddec_train_step(fmt, dae, optimizer: Optimizer, ema_bank: Optional[EMABank],
+                         config: DDECTrainConfig, total_batch_size: int):
+    """The UNet diffusion step over ``state.module``, a DDEC, on the frozen
+    ``dae``'s prepare stage. ``batch``: {"audio": (B, C, T),
+    "audio_embeddings": optional}; ``draws`` a ``StepDraws`` whose
+    microbatches carry ``DDECPrepareDraws``."""
+    return make_unet_train_step(optimizer, ema_bank, _ddec_unet_config(config),
+                                total_batch_size, prepare_fn=make_ddec_prepare(fmt, dae, config),
+                                draw_prepare=ddec_prepare_drawer(config),
+                                get_embeddings=no_embeddings)
+
+
+def make_ddec_eval_step(fmt, dae, config: DDECTrainConfig):
+    """The validation loss of a DDEC on the frozen ``dae``'s prepare stage."""
+    return make_unet_eval_step(_ddec_unet_config(config), make_ddec_prepare(fmt, dae, config),
+                               ddec_prepare_drawer(config), no_embeddings)
+
+
+@torch.no_grad()
+def ddec_sample_shape(fmt, dae, config: DDECTrainConfig, audio_shape) -> Tuple[int, ...]:
+    """The prepared samples' shape (b, bins, frames, C) for audio of
+    ``audio_shape`` (b, C, T), found by running the format on one silent
+    clip on the CPU."""
+    b, ch, t = audio_shape
+    mdct = fmt.raw_to_mdct(torch.zeros((1, ch, t)))
+    mel = fmt.raw_to_mel_spec(fmt.mdct_to_raw(mdct))
+    c, ds = config.crop_edges, dae.downsample_ratio
+    width = min(mel.shape[2] // ds * ds, mdct.shape[2]) - 2 * c
+    return (b, mdct.shape[1], width, mdct.shape[3])
+
+
+# ---------------------------------------------------------------------------
+# joint DAE + DDEC training (JAX module_trainers.py:350-480)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class JointDAEDDECConfig:
+    """Field names and defaults of the JAX JointDAEDDECConfig."""
+    dae: DAETrainConfig = field(default_factory=DAETrainConfig)
+    ddec: DDECTrainConfig = field(default_factory=DDECTrainConfig)
+    dae_loss_weight: float = 1.0
+    ddec_loss_weight: float = 1.0
+    grad_accum_steps: int = 1
+
+
+@dataclass
+class JointMicroDraws:
+    """One joint microbatch's draws (None where off or not drawn yet)."""
+    stereo_flip: Optional[torch.Tensor]   # (b,) bool
+    phase_theta: Optional[torch.Tensor]   # (b,) MDCT rotation angles
+    noise: Optional[torch.Tensor]         # N(0, 1), the DDEC target's shape
+
+    def to(self, device) -> "JointMicroDraws":
+        return JointMicroDraws(*(None if t is None else t.to(device)
+                                 for t in (self.stereo_flip, self.phase_theta, self.noise)))
+
+
+@dataclass
+class JointStepDraws:
+    quantiles: torch.Tensor               # (total_batch,), permuted
+    micro: List[JointMicroDraws]
+
+    def to(self, device) -> "JointStepDraws":
+        return JointStepDraws(self.quantiles.to(device), [m.to(device) for m in self.micro])
+
+
+def draw_joint_step(generator: torch.Generator, config: JointDAEDDECConfig,
+                    total_batch_size: int, noise_shape) -> JointStepDraws:
+    """Every random number one joint step uses, from ``generator``, in the
+    order the step draws them itself; ``noise_shape`` is a microbatch's DDEC
+    target shape (``ddec_sample_shape``)."""
+    sampler = SigmaSampler(config.ddec.unet.sigma)
+    q = sampler.draw_quantiles(generator, total_batch_size)
+    draw = ddec_prepare_drawer(config.ddec)
+    micro = []
+    for _ in range(config.grad_accum_steps):
+        d = draw(generator, noise_shape[0])
+        noise = torch.randn(tuple(noise_shape), generator=generator, device=generator.device)
+        micro.append(JointMicroDraws(d.stereo_flip, d.phase_theta, noise))
+    return JointStepDraws(q, micro)
+
+
+def make_joint_dae_ddec_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
+                                   config: JointDAEDDECConfig, total_batch_size: int):
+    """Build ``train_step(state, batch, draws=None) -> logs`` over
+    ``state.module``, an ``nn.ModuleDict`` of "dae" and "ddec"; it updates
+    ``state`` in place. One optimizer, one gradient clip, the forced MP
+    weight norm and the EMA cover both modules (the EMA the DAE's stats
+    too). The DAE's losses are its recon NLL (the unfolded MSS2D) and KL;
+    the DDEC's diffusion loss is conditioned on the DAE's live
+    reconstruction, so its gradient reaches the DAE. The sigmas come from
+    the state's pdf, which the joint step never updates (as in JAX).
+    ``batch``: {"audio": (B, C, T)}."""
+    cfg = config
+    dae_cfg, ddec_cfg = cfg.dae, cfg.ddec
+    mss = MSSLoss2D(dae_cfg.mss2d)
+    sampler = SigmaSampler(ddec_cfg.unet.sigma)
+    draw_prepare = ddec_prepare_drawer(ddec_cfg)
+    c = ddec_cfg.crop_edges
+    sd = ddec_cfg.unet.sigma.sigma_data
+    accum = cfg.grad_accum_steps
+
+    def loss_fn(dae, ddec, audio: torch.Tensor, sigma: torch.Tensor, d: JointMicroDraws,
+                step: int, generator: torch.Generator):
+        audio = audio.float()
+        if ddec_cfg.random_stereo_augmentation:
+            audio = random_stereo_augmentation(audio, d.stereo_flip)
+        mdct = fmt.raw_to_mdct(audio, d.phase_theta
+                               if ddec_cfg.random_phase_augmentation else None)
+        with torch.no_grad():
+            mel = fmt.raw_to_mel_spec(fmt.mdct_to_raw(mdct))
+            ds = dae.downsample_ratio
+            mel = mel[:, :, : mel.shape[2] // ds * ds]
+        _, recon_mel, pre_norm = dae(mel, training=True)
+
+        recon_loss = mss(recon_mel.float().permute(0, 3, 1, 2), mel.permute(0, 3, 1, 2))
+        logvar = dae.get_recon_loss_logvar()
+        dae_loss = (recon_loss / torch.exp(logvar) + logvar).mean()
+        var = pre_norm.float().square().mean(dim=(0, 1, 2)) + 1e-20
+        kl = (var - 1.0 - torch.log(var)).mean()
+        dae_loss = dae_loss + kl * (dae_cfg.kl_loss_weight
+                                    * min(step / max(dae_cfg.kl_warmup_steps, 1), 1.0))
+
+        recon_c = recon_mel[:, :, c:-c] if c > 0 else recon_mel
+        lin = fmt.mel_spec_to_linear(recon_c.float())
+        target = (mdct[:, :, c:-c] if c > 0 else mdct)[:, :, : lin.shape[2]].detach()
+        noise = d.noise
+        if noise is None:
+            noise = torch.randn(target.shape, generator=generator, device=generator.device)
+        sig = sigma.reshape(-1, 1, 1, 1)
+        denoised = ddec(target + noise.to(target.device) * sig, sigma, None, lin, training=True)
+        weight = (sig ** 2 + sd ** 2) / (sig * sd) ** 2
+        w_loss = ((denoised - target) ** 2 * weight).mean(dim=(1, 2, 3))
+        dd_logvar = ddec.get_sigma_loss_logvar(sigma).reshape(-1)
+        ddec_loss = (w_loss / torch.exp(dd_logvar) + dd_logvar).mean()
+        total = dae_loss * cfg.dae_loss_weight + ddec_loss * cfg.ddec_loss_weight
+        return total, dae_loss.detach(), ddec_loss.detach()
+
+    def train_step(state: TrainState, batch: Dict[str, Any],
+                   draws: Optional[JointStepDraws] = None) -> Dict[str, Any]:
+        module = state.module
+        dae, ddec = module["dae"], module["ddec"]
+        audio = batch["audio"]
+        n = audio.shape[0]
+        if n % accum:
+            raise ValueError(f"batch of {n} does not split into {accum} microbatches")
+        mb = n // accum
+        gen = state.generator
+        quantiles = (draws.quantiles if draws is not None
+                     else sampler.draw_quantiles(gen, total_batch_size))
+        sigma_all = sampler.sample(quantiles, state.sigma_pdf)[:n]
+        optimizer.zero_grad()
+        loss_sum = 0.0
+        dae_losses, ddec_losses = [], []
+        for i in range(accum):
+            if draws is not None:
+                d = draws.micro[i]
+            else:
+                p = draw_prepare(gen, mb)
+                d = JointMicroDraws(p.stereo_flip, p.phase_theta, None)
+            sl = slice(i * mb, (i + 1) * mb)
+            loss, ld, ldd = loss_fn(dae, ddec, audio[sl], sigma_all[sl], d, state.global_step,
+                                    gen)
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+            dae_losses.append(ld)
+            ddec_losses.append(ldd)
+        with torch.no_grad():
+            for p in optimizer.params:
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        optimizer.step(state.global_step)
+        normalize_mp_weights(module)
+        if ema_bank is not None:
+            ema_bank.update(state.ema_state, module, state.total_samples_processed,
+                            total_batch_size, state.global_step)
+        state.global_step += 1
+        state.total_samples_processed += total_batch_size
+        return {"loss": loss_sum / accum, "grad_norm": optimizer.clip.last_grad_norm,
+                "loss_dae": torch.stack(dae_losses).mean(),
+                "loss_ddec": torch.stack(ddec_losses).mean()}
 
     return train_step

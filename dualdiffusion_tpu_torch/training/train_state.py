@@ -13,10 +13,15 @@ One step, as the JAX step:
 * the summed gradients / accum -> dynamic clip -> AdamW -> forced MP weight
   re-normalization -> EMA.
 
+A ``prepare_fn`` (the DDEC trainer's teacher pipeline) turns each
+microbatch into ``samples`` / ``ref_samples`` / ``embeddings`` without
+gradients before the loss, as JAX's does inside its step.
+
 The step's random draws (``StepDraws``: quantiles after the permutation,
-and per microbatch the conditioning uniforms, noise, perturbation) are made
-apart from its arithmetic, from the state's ``torch.Generator``, so a test
-can pass in the draws of JAX's key splits instead.
+and per microbatch the prepare stage's draws, the conditioning uniforms,
+noise, perturbation) are made apart from its arithmetic, from the state's
+``torch.Generator``, so a test can pass in the draws of JAX's key splits
+instead.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ class MicroDraws:
     noise: torch.Tensor                    # N(0,1), the samples' shape
     perturbation: Optional[torch.Tensor]   # N(0,1), the samples' shape
     cond_noise: Optional[torch.Tensor]     # N(0,1), the embeddings' shape
+    prepare: Any = None                    # the prepare stage's draws (its ``.to``)
 
 
 @dataclass
@@ -91,38 +97,59 @@ def _crop(samples: torch.Tensor, config: UNetTrainConfig) -> torch.Tensor:
     return samples[..., c:-c, :] if c > 0 else samples
 
 
-def draw_unet_step(generator: torch.Generator, sampler: SigmaSampler, config: UNetTrainConfig,
-                   total_batch_size: int, micro_shape, has_embeddings: bool,
-                   emb_channels: int) -> StepDraws:
-    """Every random number one train step uses, from ``generator``."""
+def draw_micro(generator: torch.Generator, config: UNetTrainConfig, micro_shape,
+               has_embeddings: bool, emb_channels: int, prepare: Any = None) -> MicroDraws:
+    """One microbatch's draws, from ``generator``; ``prepare`` is the
+    prepare stage's draws, made before these."""
     dev = generator.device
 
     def normal(shape):
         return torch.randn(tuple(shape), generator=generator, device=dev)
 
-    q = sampler.draw_quantiles(generator, total_batch_size)
     b = micro_shape[0]
+    cond_u = torch.rand((b,), generator=generator, device=dev) if has_embeddings else None
+    noise = normal(micro_shape)
+    pert = normal(micro_shape) if config.input_perturbation > 0 else None
+    cond_noise = (normal((b, emb_channels))
+                  if has_embeddings and config.conditioning_perturbation > 0 else None)
+    return MicroDraws(cond_u, noise, pert, cond_noise, prepare)
+
+
+def draw_unet_step(generator: torch.Generator, sampler: SigmaSampler, config: UNetTrainConfig,
+                   total_batch_size: int, micro_shape, has_embeddings: bool,
+                   emb_channels: int, draw_prepare: Optional[Callable] = None) -> StepDraws:
+    """Every random number one train step uses, from ``generator``, in the
+    order the step draws them itself. ``micro_shape`` is the shape of a
+    microbatch's (prepared and cropped) samples; ``draw_prepare(generator,
+    b)`` makes the prepare stage's draws of a step with a ``prepare_fn``."""
+    q = sampler.draw_quantiles(generator, total_batch_size)
     micro = []
     for _ in range(config.grad_accum_steps):
-        cond_u = (torch.rand((b,), generator=generator, device=dev)
-                  if has_embeddings else None)
-        noise = normal(micro_shape)
-        pert = normal(micro_shape) if config.input_perturbation > 0 else None
-        cond_noise = (normal((b, emb_channels))
-                      if has_embeddings and config.conditioning_perturbation > 0 else None)
-        micro.append(MicroDraws(cond_u, noise, pert, cond_noise))
+        prep = draw_prepare(generator, micro_shape[0]) if draw_prepare is not None else None
+        micro.append(draw_micro(generator, config, micro_shape, has_embeddings, emb_channels,
+                                prep))
     return StepDraws(q, micro)
+
+
+def model_embeddings(model, emb_in: torch.Tensor,
+                     conditioning_mask: torch.Tensor) -> Optional[torch.Tensor]:
+    """The default ``get_embeddings`` hook: the UNet's CFG label embedding."""
+    return model.get_embeddings(emb_in, conditioning_mask)
 
 
 def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
                          config: UNetTrainConfig, total_batch_size: int,
-                         prepare_fn: Optional[Callable] = None):
+                         prepare_fn: Optional[Callable] = None,
+                         draw_prepare: Optional[Callable] = None,
+                         get_embeddings: Callable = model_embeddings):
     """Build ``train_step(state, batch, draws=None) -> logs``; it updates
     ``state`` in place. ``batch``: {"samples": (B, H, W, C), "embeddings":
-    (B, E) optional}, B = device batch x grad_accum_steps. ``prepare_fn``
-    (gradient-free input preparation) is not ported yet."""
-    if prepare_fn is not None:
-        raise NotImplementedError("prepare_fn (the DDEC teacher pipeline) is not ported")
+    (B, E) optional}, B = device batch x grad_accum_steps; or, with
+    ``prepare_fn(micro_batch, prepare_draws) -> {"samples", "ref_samples",
+    "embeddings"?}`` (run without gradients per microbatch, its draws from
+    ``draw_prepare(generator, b)``), whatever that takes.
+    ``get_embeddings(model, emb_in, mask)`` gives the label embedding, None
+    for a model without one."""
     sampler = SigmaSampler(config.sigma)
     accum = config.grad_accum_steps
 
@@ -133,7 +160,7 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
         if emb_in is not None:
             cond_mask = (draws.cond_u > config.conditioning_dropout).float()
             # as the JAX builder, whose get_embeddings runs with training=False
-            embeddings = model.get_embeddings(emb_in, cond_mask)
+            embeddings = get_embeddings(model, emb_in, cond_mask)
             if config.conditioning_perturbation > 0:
                 embeddings = embeddings + draws.cond_noise * config.conditioning_perturbation
         sig_b = sigma.reshape(-1, 1, 1, 1)
@@ -141,7 +168,8 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
         x_pert = None
         if config.input_perturbation > 0:
             x_pert = x_noisy + draws.perturbation * sig_b * config.input_perturbation
-        denoised = model(x_noisy, sigma, embeddings, training=True, x_perturbed=x_pert)
+        denoised = model(x_noisy, sigma, embeddings, batch.get("ref_samples"), training=True,
+                         x_perturbed=x_pert)
 
         if config.use_dynamic_sigma_data:
             n = np.prod(samples.shape[1:])
@@ -165,24 +193,29 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
             0, idx, torch.ones_like(weighted))
         return sums, counts
 
+    def micro_draws(state: TrainState, micro: Dict[str, Any]) -> MicroDraws:
+        """The step's own draws for a prepared microbatch."""
+        has_emb = micro.get("embeddings") is not None
+        emb_ch = (state.module.emb_label.out_channels
+                  if has_emb and config.conditioning_perturbation > 0 else 0)
+        return draw_micro(state.generator, config, _crop(micro["samples"], config).shape,
+                          has_emb, emb_ch)
+
     def train_step(state: TrainState, batch: Dict[str, Any],
                    draws: Optional[StepDraws] = None) -> Dict[str, Any]:
         model = state.module
-        n = batch["samples"].shape[0]
+        n = next(iter(batch.values())).shape[0]
         if n % accum:
             raise ValueError(f"batch of {n} does not split into {accum} microbatches")
         mb = n // accum
-        if draws is None:
-            has_emb = batch.get("embeddings") is not None
-            draws = draw_unet_step(state.generator, sampler, config, total_batch_size,
-                                   _crop(batch["samples"][:mb], config).shape, has_emb,
-                                   model.emb_label.out_channels if has_emb else 0)
+        quantiles = (draws.quantiles if draws is not None
+                     else sampler.draw_quantiles(state.generator, total_batch_size))
 
         if config.sigma.distribution == "ln_pdf":
             with torch.no_grad():
                 state.sigma_pdf = sampler.update_pdf_from_logvar(
                     model.get_sigma_loss_logvar, state.sigma_pdf, float(state.global_step))
-        sigma_all = sampler.sample(draws.quantiles, state.sigma_pdf)[:n]
+        sigma_all = sampler.sample(quantiles, state.sigma_pdf)[:n]
 
         optimizer.zero_grad()
         loss_sum = 0.0
@@ -193,8 +226,15 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
             micro = {k: v[sl] for k, v in batch.items()}
+            md = draws.micro[i] if draws is not None else None
+            if prepare_fn is not None:
+                prep = md.prepare if md is not None else draw_prepare(state.generator, mb)
+                with torch.no_grad():
+                    micro = prepare_fn(micro, prep)
+            if md is None:
+                md = micro_draws(state, micro)
             sigma = sigma_all[sl]
-            loss, weighted, std = loss_fn(model, micro, sigma, draws.micro[i])
+            loss, weighted, std = loss_fn(model, micro, sigma, md)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             dstd.append(std)
@@ -223,24 +263,44 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
     return train_step
 
 
-def make_unet_eval_step(config: UNetTrainConfig):
+@dataclass
+class EvalDraws:
+    """The validation step's draws for one batch."""
+    noise: torch.Tensor                    # N(0,1), the samples' shape
+    quantiles: torch.Tensor                # (b,), static, permuted
+    prepare: Any = None                    # the prepare stage's draws
+
+
+def make_unet_eval_step(config: UNetTrainConfig, prepare_fn: Optional[Callable] = None,
+                        draw_prepare: Optional[Callable] = None,
+                        get_embeddings: Callable = model_embeddings):
     """Validation loss: EDM2-weighted MSE at static stratified sigmas, no
     conditioning dropout, no logvar term. ``eval_step(model, batch,
-    generator) -> loss``."""
+    generator, draws=None) -> loss``; ``prepare_fn`` and ``draw_prepare`` as
+    in ``make_unet_train_step``."""
     sampler = SigmaSampler(dataclasses.replace(config.sigma, use_static_sigma_sampling=True))
 
     @torch.no_grad()
-    def eval_step(model, batch, generator: torch.Generator) -> torch.Tensor:
+    def eval_step(model, batch, generator: torch.Generator,
+                  draws: Optional[EvalDraws] = None) -> torch.Tensor:
+        if prepare_fn is not None:
+            b = next(iter(batch.values())).shape[0]
+            prep = draws.prepare if draws is not None else draw_prepare(generator, b)
+            batch = prepare_fn(batch, prep)
         samples = _crop(batch["samples"].float(), config)
         b = samples.shape[0]
         emb_in = batch.get("embeddings")
         embeddings = None
         if emb_in is not None:
-            embeddings = model.get_embeddings(emb_in, torch.ones((b,), device=emb_in.device))
-        noise = torch.randn(samples.shape, generator=generator, device=generator.device)
-        sigma = sampler.sample(sampler.draw_quantiles(generator, b))
+            embeddings = get_embeddings(model, emb_in, torch.ones((b,), device=emb_in.device))
+        if draws is None:
+            draws = EvalDraws(
+                torch.randn(samples.shape, generator=generator, device=generator.device),
+                sampler.draw_quantiles(generator, b))
+        sigma = sampler.sample(draws.quantiles.to(samples.device))
         sig = sigma.reshape(-1, 1, 1, 1)
-        denoised = model(samples + noise.to(samples.device) * sig, sigma, embeddings)
+        denoised = model(samples + draws.noise.to(samples.device) * sig, sigma, embeddings,
+                         batch.get("ref_samples"))
         sd = config.sigma.sigma_data
         weight = (sig ** 2 + sd ** 2) / (sig * sd) ** 2
         return (((denoised - samples) ** 2) * weight).mean()

@@ -8,7 +8,10 @@ trainer.py).
   format, every EMA profile (``<module>/ema_<name>.safetensors``), the
   optimizer, clip, sigma-pdf, counter and generator state (``train_state.pt``)
   and ``trainer_state.json``, rotated by ``checkpoints_total_limit``; resume
-  restores all of it and fast-forwards the epoch to its next batch;
+  restores all of it and fast-forwards the epoch to its next batch. A state
+  whose module is an ``nn.ModuleDict`` (the joint DAE + DDEC trainer) keeps
+  each member in its own folder of the checkpoint, with its own EMA files
+  and ``<member>_ema_archive/``;
 * per-step scalars (loss, grad norm, lr, EMA betas, bucketed losses) to the
   log and ``Trainer.history``, and their means at each epoch's end;
   per-sample losses to
@@ -202,6 +205,19 @@ class Trainer:
     def device(self) -> torch.device:
         return next(self.state.module.parameters()).device
 
+    def _members(self) -> Dict[str, str]:
+        """Each saved module's name -> its prefix in the state's keys: the
+        trained module under ``module_name``, or each member of a
+        ``ModuleDict`` under its own name."""
+        module = self.state.module
+        if isinstance(module, torch.nn.ModuleDict):
+            return {name: f"{name}." for name in module}
+        return {self.config.module_name: ""}
+
+    @staticmethod
+    def _part(tensors: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+        return {k[len(prefix):]: v for k, v in tensors.items() if k.startswith(prefix)}
+
     # ---- checkpointing ------------------------------------------------------
     def _checkpoint_dir(self, step: int) -> Path:
         return Path(self.config.model_path) / f"{self.config.module_name}_checkpoint-{step}"
@@ -210,14 +226,15 @@ class Trainer:
         st = self.state
         ckpt = self._checkpoint_dir(st.global_step)
         ckpt.mkdir(parents=True, exist_ok=True)
-        name = self.config.module_name
         if self.export_module_fn is not None:
             self.export_module_fn(ckpt, st.module, st.global_step)
         if self.ema_bank is not None:
             for ema_name, cfg in self.ema_bank.configs.items():
-                save_safetensors(state_to_flat(st.ema_state[ema_name]),
-                                 ckpt / name / f"ema_{ema_name}.safetensors",
-                                 metadata={"std": str(cfg.std), "global_step": str(st.global_step)})
+                for name, prefix in self._members().items():
+                    save_safetensors(state_to_flat(self._part(st.ema_state[ema_name], prefix)),
+                                     ckpt / name / f"ema_{ema_name}.safetensors",
+                                     metadata={"std": str(cfg.std),
+                                               "global_step": str(st.global_step)})
         torch.save({"optimizer": st.optimizer.state_dict(),
                     "sigma_pdf": st.sigma_pdf.cpu(),
                     "generator": st.generator.get_state(),
@@ -252,18 +269,19 @@ class Trainer:
         if ckpt is None:
             return False
         st = self.state
-        name = self.config.module_name
-        module_dir = ckpt / name
         params = trained_tensors(st.module)
-        for k, v in flat_to_state(params, load_safetensors(module_dir / f"{name}.safetensors")
-                                  ).items():
-            params[k].copy_(v)
-        if self.ema_bank is not None:
-            for ema_name in self.ema_bank.configs:
-                profile = st.ema_state[ema_name]
-                flat = load_safetensors(module_dir / f"ema_{ema_name}.safetensors")
-                for k, v in flat_to_state(profile, flat).items():
-                    profile[k].copy_(v)
+        for name, prefix in self._members().items():
+            module_dir = ckpt / name
+            part = self._part(params, prefix)
+            for k, v in flat_to_state(part, load_safetensors(module_dir / f"{name}.safetensors")
+                                      ).items():
+                part[k].copy_(v)
+            if self.ema_bank is not None:
+                for ema_name in self.ema_bank.configs:
+                    profile = self._part(st.ema_state[ema_name], prefix)
+                    flat = load_safetensors(module_dir / f"ema_{ema_name}.safetensors")
+                    for k, v in flat_to_state(profile, flat).items():
+                        profile[k].copy_(v)
         ts = torch.load(ckpt / "train_state.pt", map_location="cpu")
         st.optimizer.load_state_dict(ts["optimizer"])
         st.sigma_pdf = ts["sigma_pdf"].to(st.sigma_pdf.device)
@@ -326,7 +344,8 @@ class Trainer:
                 logger.info("step %d epoch %d loss %.6g grad_norm %.6g lr %.6g %.3f s", step,
                             self.epoch, loss, grad_norm, scalars[f"learn_rate/{name}"], seconds)
 
-                if paths is not None and cfg.logging.per_sample_loss_logging:
+                if (paths is not None and cfg.logging.per_sample_loss_logging
+                        and "sample_losses" in logs):
                     self._record_sample_losses(paths, logs["sample_losses"])
                 self._maybe_archive_emas(step)
 
@@ -385,10 +404,11 @@ class Trainer:
         for ema_name, cfg in self.ema_bank.configs.items():
             n = cfg.num_archive_steps
             if n and step % n == 0:
-                path = (Path(self.config.model_path) / f"{self.config.module_name}_ema_archive"
-                        / f"{step}_ema_{ema_name}.safetensors")
-                save_ema_archive(self.state.ema_state[ema_name], path, step,
-                                 self.state.total_samples_processed, cfg.std or 0.0)
+                for name, prefix in self._members().items():
+                    path = (Path(self.config.model_path) / f"{name}_ema_archive"
+                            / f"{step}_ema_{ema_name}.safetensors")
+                    save_ema_archive(self._part(self.state.ema_state[ema_name], prefix), path,
+                                     step, self.state.total_samples_processed, cfg.std or 0.0)
                 logger.info("archived ema '%s' at step %d", ema_name, step)
 
     @contextlib.contextmanager

@@ -11,7 +11,7 @@ flax paths, so the whole map is the table below.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import AbstractSet, Dict
 
 import numpy as np
 import torch
@@ -54,11 +54,13 @@ def state_to_flat(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
-def flat_to_state(like: Dict[str, torch.Tensor],
-                  flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def flat_to_state(like: Dict[str, torch.Tensor], flat: Dict[str, np.ndarray],
+                  optional: AbstractSet[str] = frozenset()) -> Dict[str, torch.Tensor]:
     """The entries of a JAX-package flat dict under the names and shapes of
-    ``like`` (CPU tensors); every key must match."""
-    want = {flax_key(k, v.dim() == 0): k for k, v in like.items()}
+    ``like`` (CPU tensors); every key must match, but the keys of ``like``
+    named in ``optional`` may be absent from ``flat`` (and from the result)."""
+    want = {flax_key(k, v.dim() == 0): k for k, v in like.items()
+            if k not in optional or flax_key(k, v.dim() == 0) in flat}
     missing = sorted(set(want) - set(flat))
     unexpected = sorted(set(flat) - set(want))
     if missing or unexpected:
@@ -81,5 +83,17 @@ def to_flat(module: nn.Module) -> Dict[str, np.ndarray]:
 
 
 def load_flat(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
-    """Load a JAX-package flat dict into ``module``; every key must match."""
-    module.load_state_dict(flat_to_state(module.state_dict(), flat))
+    """Load a JAX-package flat dict into ``module``; every key must match.
+    A label-conditioned DAE whose flat dict has no label-conditioning
+    weights at all (JAX's init creates them only when it runs them) gets a
+    fresh, seeded label conditioning that leaves its blocks as they are."""
+    state = module.state_dict()
+    optional = module.label_embedding_keys() if hasattr(module, "label_embedding_keys") else set()
+    loaded = flat_to_state(state, flat, optional)
+    absent = set(state) - set(loaded)
+    if absent and absent != optional:
+        raise KeyError(f"weight keys differ: missing {sorted(absent)[:8]}")
+    if absent:
+        device = next(iter(state.values())).device
+        module.init_label_embedding(torch.Generator(device=device).manual_seed(0))
+    module.load_state_dict(loaded, strict=not absent)

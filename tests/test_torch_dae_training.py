@@ -288,7 +288,8 @@ def test_dae_train_step_matches_jax():
 
 
 def test_unported_dae_options_raise():
-    """Options whose paths are not ported refuse to build a step."""
+    """Options whose paths are not ported refuse to build a step; the
+    TPU-only W-packing of the DAE refuses to build the model."""
     fmt = _formats()[1]
     opt = build_optimizer("adamw", [torch.nn.Parameter(torch.zeros(2))], 1e-3)
     for kw in (dict(domain="mdct"), dict(use_random_prime_mss=True),
@@ -296,8 +297,7 @@ def test_unported_dae_options_raise():
         with pytest.raises(NotImplementedError):
             make_dae_train_step(fmt, opt, None, DAETrainConfig(**kw), 2)
     with pytest.raises(NotImplementedError):
-        DAE(DAEConfig(**DAE_KW)).forward(torch.zeros((1, 64, 40, 2)),
-                                         latents_sigma=torch.ones(()))
+        DAE(DAEConfig(**DAE_KW, w_pack_channels=64))
 
 
 def test_audio_dataloader_matches_jax(tmp_path):
