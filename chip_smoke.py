@@ -98,7 +98,18 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    then the joint DAE + DDEC trainer the same way on a fresh copy of that
    directory (its ``dae`` section from edm2_dae_d3a's dae_train.json),
    checking that both modules and the DAE's stats moved and that the
-   checkpoint's modules load with ``from_pretrained``.
+   checkpoint's modules load with ``from_pretrained``;
+11. drives the dataset factory: ``create_new_model`` writes edm2_default;
+   ``python -m dualdiffusion_tpu_torch.dataset_process`` normalizes four
+   seeded songs (two of 45 s, two of 180 s, two of one file name in two
+   folders), encodes them with its DAE in a spawned worker on the card (8
+   variations; the 180 s songs in 4 chunks), checks them, and after seeded
+   CLAP-like embeddings are added builds the splits and the prompt table;
+   the UNet trains 4 + 1 steps on those latents with edm2_default's
+   unet_train.json and generates a clip from the table; every latents
+   file's shape, the sidecars, train.jsonl, the chunk count, tiled against
+   untiled and no kernel launch in the worker are held, and a tiny encode
+   through the CLI on the card against the CPU.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
 one full-width DAE train step (step 9's model, data and config).
@@ -2371,6 +2382,305 @@ def joint_training_path(root: Path, model_dir: Path, batch: int) -> None:
     run_training(model_dir, root / "audio", config, "cuda", after=after)
 
 
+#: the dataset factory phase's songs: (path under the dataset, seconds); two
+#: share a file name in two folders
+FACTORY_SONGS = (("gameA/01 - Title.wav", 45), ("gameB/01 - Title.wav", 45),
+                 ("gameA/02 - Boss.wav", 180), ("gameB/03 - Field.wav", 180))
+#: the bf16 bound for encodes that differ only in summation order (card against
+#: CPU, tiled against untiled away from the seams): each of the DAE's ~30
+#: layers rounds to bf16 (2**-9 relative), in another order, so the errors add
+#: up as a random walk to about 1e-2 relative L2; 3e-2 leaves room for it
+FACTORY_BF16_REL_L2 = 3e-2
+
+
+def factory_song(seed: int, seconds: float, sample_rate: int = 32000):
+    """A stereo song from a seed: a few chords with vibrato, a pulse and a
+    little noise, the channels at different gains."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sample_rate)) / sample_rate
+    sig = np.zeros_like(t)
+    for _ in range(5):
+        f0 = rng.uniform(60.0, 3000.0)
+        vibrato = rng.uniform(0.3, 3.0) * np.sin(2 * np.pi * rng.uniform(0.2, 4.0) * t)
+        sig += rng.uniform(0.2, 1.0) * np.sin(2 * np.pi * f0 * t + vibrato)
+    sig *= 0.6 + 0.4 * (np.sin(2 * np.pi * rng.uniform(1.0, 3.0) * t) > 0)
+    sig += 0.05 * rng.standard_normal(t.size)
+    audio = np.stack([sig * rng.uniform(0.5, 1.0), sig * rng.uniform(0.5, 1.0)])
+    return (0.5 * audio / np.abs(audio).max()).astype(np.float32)
+
+
+def dataset_cli(process: str, data: Path, *args: str, device: str = "cuda") -> tuple:
+    """``python -m dualdiffusion_tpu_torch.dataset_process`` in a subprocess
+    (no CLAP weights and no network: CLAP_* unset, the hub offline):
+    (seconds, its log)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CLAP_")}
+    env.update(HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
+    cmd = [sys.executable, "-m", "dualdiffusion_tpu_torch.dataset_process", process,
+           "--dataset_path", str(data), *args]
+    if process == "encode":
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", flush=True)
+        raise AssertionError(f"dataset_process {process} exited with {proc.returncode}")
+    return seconds, proc.stdout + proc.stderr
+
+
+def encode_log(log: str) -> dict:
+    """The encode worker's report: per song its stage seconds, chunks and
+    shape, the seconds from its spawn to its model loaded, its peak device
+    memory and its kernel launch counts, all as it logged them."""
+    import re
+    songs = {m.group(1): json.loads(m.group(2))
+             for m in re.finditer(r"encoded (.+?): (\{.*\})$", log, re.M)}
+    ready = re.search(r"EncodeStage:0 ready ([0-9.]+) s after spawn", log)
+    worker = re.search(r"encode worker on (\S+): peak device memory (\d+) bytes; kernel "
+                       r"launches (\{.*\})$", log, re.M)
+    if not (songs and ready and worker):
+        print(log[-6000:], flush=True)
+        raise AssertionError("the encode worker's report is missing from its log")
+    return {"songs": songs, "ready_s": float(ready.group(1)), "device": worker.group(1),
+            "peak_bytes": int(worker.group(2)), "launches": json.loads(worker.group(3))}
+
+
+def tiny_encode_slice(root: Path) -> None:
+    """The encode CLI on a tiny model (32-filter mel, bf16 DAE of ratio 4) and
+    two 1.5 s songs, with ``--device cuda`` and with ``--device cpu`` at the
+    same time: the float16 latents agree to the bf16 bound (relative
+    L2)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    from dualdiffusion_tpu_torch.utils import load_safetensors, save_audio
+    fcfg = MSMDCTDualFormatConfig(ms_num_filters=32, ms_window_length=256, mdct_window_len=64,
+                                  default_raw_length=63 * 32)
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                     num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=8,
+                     in_num_freqs=32)
+    model = root / "tiny_model"
+    Pipeline({"dae": ModuleHandle("dae", "dae", dcfg,
+                                  DAE(dcfg).init_weights(torch.Generator().manual_seed(3))),
+              "format": ModuleHandle("format", "format:ms_mdct_dual", fcfg,
+                                     MSMDCTDualFormat(fcfg))}).save_pretrained(model)
+    for i in range(2):
+        save_audio(factory_song(40 + i, 1.5), 32000, root / "tiny_a" / f"song{i}.wav")
+    shutil.copytree(root / "tiny_a", root / "tiny_b")
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:     # both at once: each is mostly its start-up
+        runs = {data: pool.submit(dataset_cli, "encode", root / data, "--model_path",
+                                  str(model), device=dev)
+                for data, dev in (("tiny_a", "cuda"), ("tiny_b", "cpu"))}
+        secs = {data: run.result()[0] for data, run in runs.items()}
+    errs = []
+    for i in range(2):
+        got = load_safetensors(root / "tiny_a" / "latents" / f"song{i}.safetensors")["latents"]
+        want = load_safetensors(root / "tiny_b" / "latents" / f"song{i}.safetensors")["latents"]
+        if got.shape != want.shape or got.dtype != np.float16:
+            raise AssertionError(f"tiny encode: {got.shape} {got.dtype} against {want.shape}")
+        g, w = got.astype(np.float32), want.astype(np.float32)
+        errs.append(float(np.linalg.norm(g - w) / np.linalg.norm(w)))
+    expect(f"tiny encode CLI, --device cuda against --device cpu (2 songs of 1.5 s, "
+           f"latents {got.shape} float16; {secs['tiny_a']:.2f} s and {secs['tiny_b']:.2f} s)",
+           max(errs) <= FACTORY_BF16_REL_L2,
+           f"relative L2 {[round(e, 6) for e in errs]} <= {FACTORY_BF16_REL_L2}")
+
+
+def dataset_factory_path(root: Path, smi: str) -> None:
+    """The dataset factory at full width, then the UNet trained on what it
+    made: four stereo 32 kHz songs from a seed (two of 45 s and two of
+    180 s, two sharing a file name in two folders); ``python -m
+    dualdiffusion_tpu_torch.create_new_model`` writes edm2_default from a
+    seed; the dataset CLI normalizes them, encodes them with its DAE in a
+    spawned worker (8 variations, 180 s songs in chunks of 6144 mel frames)
+    and checks their integrity; seeded CLAP-like audio embeddings are added
+    to each latents file (no CLAP weights exist here); build_splits and
+    aggregate_embeddings (copied into the model) follow; the UNet trains 4
+    steps then 1 after ``--resume`` on those latents with edm2_default's
+    unet_train.json (cut: device batch 2 for the 4 songs, accumulation 2);
+    the trained pipeline generates one clip from a label of the aggregated
+    table. Holds every latents file's shape and finiteness, the sidecars,
+    train.jsonl, the two same-named songs' two files, the 180 s songs' chunk
+    count, one 180 s variation tiled against untiled (away from the seams
+    and over all columns) and against the file, and no kernel launch in the
+    encode worker; then the tiny CLI slice on the card against the CPU."""
+    import numpy as np
+    import torch
+    from dualdiffusion_tpu_torch.dataset import processes as P
+    from dualdiffusion_tpu_torch.models import tiled_encode, tiled_encode_plan
+    from dualdiffusion_tpu_torch.models.embeddings import mp_normalize
+    from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline, load_module
+    from dualdiffusion_tpu_torch.sampling import SampleParams
+    from dualdiffusion_tpu_torch.utils import (load_audio, load_json, load_safetensors,
+                                               save_audio, save_safetensors)
+    t_phase = time.perf_counter()
+    songs = FACTORY_SONGS
+    data, name = root / "data", "edm2_default"
+    t0 = time.perf_counter()
+    for i, (rel, seconds) in enumerate(songs):
+        save_audio(factory_song(30 + i, seconds), 32000, data / rel)
+    print(f"dataset factory: {len(songs)} stereo 32 kHz songs "
+          f"{[(rel, s) for rel, s in songs]} written in {time.perf_counter() - t0:.1f} s; {smi}",
+          flush=True)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "dualdiffusion_tpu_torch.create_new_model", "--name",
+                    name, "--config_path", str(REPO / "configs" / "models"), "--output_path",
+                    str(root), "--seed", "7", "--device", "cuda"], check=True, cwd=REPO)
+    model_dir = root / name
+    print(f"create_new_model {name} on cuda: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    wall = {"normalize": dataset_cli("normalize", data)[0]}
+    wall["encode"], log = dataset_cli("encode", data, "--model_path", str(model_dir))
+    wall["integrity_check"] = dataset_cli("integrity_check", data)[0]
+    report = encode_log(log)
+
+    # ---- what the encode wrote ------------------------------------------------
+    _, fcfg, fmt = load_module(model_dir, "format", "cuda")
+    dcfg = load_json(model_dir / "dae" / "dae.json")
+    ds = 2 ** (len(dcfg["channel_mult_dec"]) - 1)
+    hop = fcfg.ms_hop_length
+    max_off = 8 * hop * 3 // 4          # 4 time offsets of the EncodeConfig defaults
+    want_files, audio_s = {}, 0.0
+    print(f"  {'song':<26} {'s':>4} {'W':>5} {'chunks':>6} {'encode s':>9} {'audio s/s':>10} "
+          f"{'load s':>7} {'mel s':>7} {'dae s':>7} {'save s':>7}", flush=True)
+    for rel, seconds in songs:
+        path = data / rel
+        n = load_audio(path).shape[-1]
+        frames = fmt._get_num_mel_frames(n - max_off) // ds * ds
+        width = frames // ds
+        meta = P.read_sidecar(str(path))
+        lat_rel = str(Path("latents") / Path(rel).with_suffix(".safetensors"))
+        lat = load_safetensors(data / lat_rel)["latents"]
+        stats = report["songs"][str(path)]
+        chunks = len(tiled_encode_plan(frames, ds))
+        ok = (lat.shape == (8, dcfg["latent_channels"], fcfg.ms_num_filters // ds, width)
+              and lat.dtype == np.float16 and bool(np.isfinite(lat).all())
+              and meta.get("latents_file_name") == lat_rel
+              and meta.get("latents_length") == width
+              and meta.get("latents_num_variations") == 8
+              and meta.get("post_norm_lufs") == -20.0 and stats["chunks"] == chunks)
+        expect(f"{rel}: latents {lat.shape} {lat.dtype}, sidecar, {stats['chunks']} chunks", ok,
+               f"want (8, {dcfg['latent_channels']}, {fcfg.ms_num_filters // ds}, {width}) "
+               f"float16 finite at {lat_rel}, {chunks} chunks")
+        want_files[rel] = data / lat_rel
+        audio_s += stats["audio_s"]
+        print(f"  {rel:<26} {seconds:>4} {width:>5} {stats['chunks']:>6} "
+              f"{stats['encode_s']:>9.3f} {stats['audio_s'] / stats['encode_s']:>10.2f} "
+              f"{stats['load_s']:>7.3f} {stats['mel_s']:>7.3f} {stats['dae_s']:>7.3f} "
+              f"{stats['save_s']:>7.3f}", flush=True)
+    same = [want_files[rel] for rel, _ in songs if Path(rel).name == "01 - Title.wav"]
+    expect("two songs named '01 - Title.wav' in two folders", len(same) == 2
+           and same[0] != same[1] and all(p.is_file() for p in same),
+           f"two latents files {[str(p.relative_to(data)) for p in same]}")
+    long_song = max(songs, key=lambda s: s[1])[0]
+    expect(f"{long_song}: chunks", report["songs"][str(data / long_song)]["chunks"] == 4,
+           "4 chunks of at most 6144 mel frames")
+    expect("kernel launches in the encode worker", not any(report["launches"].values()),
+           json.dumps(report["launches"]))
+    print(f"  encode CLI {wall['encode']:.2f} s for {audio_s:.1f} s of audio: "
+          f"{audio_s / wall['encode']:.2f} audio s per wall s (stage only: "
+          f"{audio_s / sum(s['encode_s'] for s in report['songs'].values()):.2f}); the worker "
+          f"on {report['device']} ready {report['ready_s']:.2f} s after spawn, its peak device "
+          f"memory {report['peak_bytes'] / 2 ** 30:.2f} GiB; normalize {wall['normalize']:.2f} "
+          f"s, integrity_check {wall['integrity_check']:.2f} s; {smi}", flush=True)
+
+    # ---- one long variation tiled against untiled, on the device ----------------
+    _, _, dae = load_module(model_dir, "dae", "cuda")
+    audio = load_audio(data / long_song)
+    x = torch.from_numpy(audio[:, : audio.shape[-1] - max_off]).to("cuda")[None]
+    with torch.inference_mode():
+        mel = fmt.raw_to_mel_spec(x)
+        mel = mel[:, :, : mel.shape[2] // ds * ds]
+        tiled = tiled_encode(dae, mel)
+        untiled = dae.encode(mel)
+    stored = torch.from_numpy(load_safetensors(want_files[long_song])["latents"][0]).float()
+    tiled, untiled = tiled.cpu()[0].permute(2, 0, 1), untiled.float().cpu()[0].permute(2, 0, 1)
+    plan = tiled_encode_plan(mel.shape[2], ds)
+    keep = torch.ones(tiled.shape[-1], dtype=torch.bool)
+    margin = 256 // ds
+    for *_, d0, _ in plan[1:]:
+        keep[max(d0 - margin, 0): d0 + margin] = False
+    err = float((tiled[..., keep] - untiled[..., keep]).norm() / untiled[..., keep].norm())
+    err_all = float((tiled - untiled).norm() / untiled.norm())
+    err_file = float((tiled.half().float() - stored).norm() / stored.norm())
+    expect(f"{long_song} variation 0 tiled ({len(plan)} chunks) against untiled, "
+           f"{int(keep.sum())} of {keep.numel()} latent columns away from the seams (+-{margin})",
+           err <= FACTORY_BF16_REL_L2,
+           f"relative L2 {err:.6f} <= {FACTORY_BF16_REL_L2}")
+    expect(f"{long_song} variation 0 tiled against untiled, all {keep.numel()} latent columns",
+           err_all <= FACTORY_BF16_REL_L2, f"relative L2 {err_all:.6f} <= {FACTORY_BF16_REL_L2}")
+    expect(f"{long_song} variation 0: the stored file against the tiled encode here",
+           err_file <= FACTORY_BF16_REL_L2, f"relative L2 {err_file:.6f}")
+    del dae, mel, x
+    torch.cuda.empty_cache()
+
+    # ---- embeddings, splits, the prompt table --------------------------------
+    rng = np.random.default_rng(50)
+    for rel, seconds in songs:
+        lat_path = want_files[rel]
+        tensors = load_safetensors(lat_path)
+        tensors["clap_audio_embeddings"] = mp_normalize(
+            rng.standard_normal((max(int(seconds // 10), 1), 1024)).astype(np.float32))
+        save_safetensors(tensors, lat_path)
+        P.write_sidecar(str(data / rel), {"latents_has_audio_embeddings": True})
+    print("  no CLAP weights on this machine: seeded clap_audio_embeddings (chunks, 1024), "
+          "mp-normalized, added to each latents file and flagged in its sidecar", flush=True)
+    wall["build_splits"] = dataset_cli("build_splits", data)[0]
+    wall["aggregate_embeddings"] = dataset_cli("aggregate_embeddings", data,
+                                               "--copy_to_model_path", str(model_dir))[0]
+    records = [json.loads(line) for line in (data / "train.jsonl").read_text().splitlines()]
+    expect("train.jsonl", sorted(r["latents_file_name"] for r in records)
+           == sorted(str(p.relative_to(data)) for p in want_files.values())
+           and all(r["latents_has_audio_embeddings"] and r["post_norm_lufs"] == -20.0
+                   for r in records), f"{len(records)} records, one a song")
+    table = load_safetensors(model_dir / "dataset_embeddings.safetensors")
+    expect("the aggregated table in the model", set(table) == {
+        "_unconditional_audio", "gameA_audio", "gameB_audio"}, f"keys {sorted(table)}")
+    print(f"  build_splits {wall['build_splits']:.2f} s, aggregate_embeddings "
+          f"{wall['aggregate_embeddings']:.2f} s", flush=True)
+
+    # ---- the UNet trains on the factory's latents --------------------------------
+    tjson = load_json(REPO / "configs" / "models" / name / "unet_train.json")
+    crop = 688
+    config = {**tjson, "device_batch_size": 2, "gradient_accumulation_steps": TRAIN_ACCUM,
+              "dataloader": {"latents_crop_width": crop}}
+    print(f"UNet training on the factory's latents: {name}'s unet_train.json; cut: device "
+          f"batch 2 (the config's 8) for the {len(songs)} songs, accumulation {TRAIN_ACCUM} "
+          f"(the config's {tjson['gradient_accumulation_steps']}); crop {crop} latent columns; "
+          f"{TRAIN_STEPS} steps then --resume for 1", flush=True)
+    train = run_training(model_dir, data, config, "cuda")
+
+    # ---- the trained pipeline generates from the aggregated table -------------------
+    pipe = Pipeline.from_pretrained(model_dir, device="cuda", load_checkpoints=True)
+    emb = pipe.get_prompt_embedding({"gameB": 1.0})
+    uncond = pipe.get_prompt_embedding({})
+    steps = 10
+    t0 = time.perf_counter()
+    raw = pipe.generate(SampleParams(steps=steps, seed=3), prompt_embedding=emb)["raw"]
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    expect(f"generate from the table's 'gameB' ({steps} steps, DDEC decode)",
+           emb is not None and not torch.allclose(emb, uncond)
+           and bool(torch.isfinite(raw).all()) and raw.shape[:2] == (1, 2),
+           f"audio {tuple(raw.shape)} finite in {gen_s:.2f} s")
+    del pipe, raw
+    torch.cuda.empty_cache()
+
+    tiny_encode_slice(root)
+    print(f"dataset factory summary ({smi}): encode wall s per song "
+          f"{ {rel: round(report['songs'][str(data / rel)]['encode_s'], 3) for rel, _ in songs} }; "
+          f"{audio_s / wall['encode']:.2f} audio s per encode CLI s; worker ready "
+          f"{report['ready_s']:.2f} s after spawn; worker peak "
+          f"{report['peak_bytes'] / 2 ** 30:.2f} GiB; UNet step {train['step_s']:.4f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 #: kernel groups of the profile, by substrings of the kernel's name (first match)
 PROFILE_GROUPS = [
     ("K5/K6 (port)", ("mss2d", "sum_partials")),
@@ -2660,6 +2970,15 @@ def main() -> int:
         joint_training_path(Path(tmp), pristine, JOINT_BATCH)
         print(f"joint training phase: {time.perf_counter() - t0:.2f} s", flush=True)
         path_counts("joint DAE + DDEC training", (), absent=no_kernels)
+
+    # ---- the dataset factory: audio -> latents on the card -> UNet training ----
+    with tempfile.TemporaryDirectory(prefix="dd_smoke_factory_") as tmp:
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        dataset_factory_path(Path(tmp), smi)
+        print(f"dataset factory phase: {time.perf_counter() - t0:.2f} s", flush=True)
+        path_counts("dataset factory", (), absent=no_kernels)
 
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": sum(c[name] for c in counts.values()), **measured[name]}

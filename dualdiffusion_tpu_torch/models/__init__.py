@@ -1,2 +1,2 @@
-from .dae import DAE, DAEConfig
+from .dae import DAE, DAEConfig, tiled_encode, tiled_encode_plan, top_pca_components
 from .unet import UNet, UNetConfig

@@ -9,13 +9,15 @@ every MP weight in the forward, as the JAX package does. A supersampled
 projection by the decoder's downsample ratio; a label-conditioned one
 (``in_channels_emb > 0``) modulates every block by its embedding. The
 training forward adds latent noise (``latents_sigma`` times a noise tensor
-the caller draws). ``tiled_encode`` is not ported.
+the caller draws). ``tiled_encode`` encodes a long mel in overlapping chunks
+(the dataset factory's encode, JAX dae.py:336-375) and ``top_pca_components``
+projects latents on their principal components (JAX dae.py:378-396).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Set, Tuple
+from typing import List, Optional, Sequence, Set, Tuple
 
 import torch
 import torch.nn as nn
@@ -259,3 +261,64 @@ class DAE(nn.Module):
             latents = latents + latents_sigma * noise.to(latents.dtype)
         recon = self.decode(latents, embeddings, training=training)
         return latents, recon, pre_norm
+
+
+def tiled_encode_plan(width: int, downsample_ratio: int, max_chunk: int = 6144,
+                      overlap: int = 256) -> List[Tuple[int, int, int, int, int, int]]:
+    """The chunks ``tiled_encode`` encodes a mel of ``width`` frames in, as
+    (chunk start, chunk end) in mel frames, (keep start, keep end) in the
+    chunk's latent columns and (start, end) of where they go in the whole
+    latents. Chunks of ``max_chunk`` frames step by ``max_chunk - 2 *
+    overlap``; a last chunk shorter than ``3 * overlap`` starts earlier; each
+    inner seam drops ``overlap // ratio`` latent columns on either side. One
+    chunk when the mel fits in ``max_chunk`` (JAX dae.py:336-375)."""
+    ds = downsample_ratio
+    if max_chunk % ds or overlap % ds or width % ds:
+        raise ValueError(f"max_chunk {max_chunk}, overlap {overlap} and width {width} must be "
+                         f"multiples of the downsample ratio {ds}")
+    if width <= max_chunk:
+        return [(0, width, 0, width // ds, 0, width // ds)]
+    out_overlap = overlap // ds
+    min_chunk = overlap * 3
+    plan = []
+    for w_start in range(0, width, max_chunk - overlap * 2):
+        c0, c1 = w_start, min(width, w_start + max_chunk)
+        if c1 - c0 < min_chunk:
+            c0 -= min_chunk - (c1 - c0)
+        first, last = w_start == 0, c1 == width
+        n = (c1 - c0) // ds
+        v0 = 0 if first else out_overlap
+        v1 = n if last else n - out_overlap
+        plan.append((c0, c1, v0, v1, c0 // ds + v0, c0 // ds + v1))
+    return plan
+
+
+@torch.inference_mode()
+def tiled_encode(dae: DAE, x: torch.Tensor, embeddings: Optional[torch.Tensor] = None,
+                 max_chunk: int = 6144, overlap: int = 256) -> torch.Tensor:
+    """``dae.encode`` of a (B, H, W, C) mel over the chunks of
+    ``tiled_encode_plan``, each chunk's inner-seam columns dropped: (B, H/ds,
+    W/ds, latent_channels) fp32."""
+    ds = dae.downsample_ratio
+    plan = tiled_encode_plan(x.shape[2], ds, max_chunk, overlap)
+    if len(plan) == 1:
+        return dae.encode(x, embeddings).float()
+    latents = x.new_zeros((x.shape[0], x.shape[1] // ds, x.shape[2] // ds,
+                           dae.cfg.latent_channels), dtype=torch.float32)
+    for c0, c1, v0, v1, d0, d1 in plan:
+        latents[:, :, d0:d1] = dae.encode(x[:, :, c0:c1], embeddings)[:, :, v0:v1]
+    return latents
+
+
+@torch.no_grad()
+def top_pca_components(x: torch.Tensor, n_pca: int = 4) -> torch.Tensor:
+    """Per-sample PCA of channel-last latents (B, H, W, C): the centered
+    latents projected on their top ``n_pca`` principal directions, (B, H, W,
+    n_pca) fp32. A direction's sign is the SVD's, so it may differ between
+    implementations."""
+    b, h, w, c = x.shape
+    n_pca = min(n_pca, c)
+    flat = x.reshape(b, h * w, c).float()
+    centered = flat - flat.mean(dim=1, keepdim=True)
+    _, _, vh = torch.linalg.svd(centered, full_matrices=False)
+    return (centered @ vh[:, :n_pca].transpose(1, 2)).reshape(b, h, w, n_pca)

@@ -1,9 +1,11 @@
-# Audio, loudness and safetensors io and tensor_to_img copied from
-# dualdiffusion_tpu/utils/utils.py:39-258; the PNG encoder is the port's own.
+# Audio, loudness, safetensors io, tensor_to_img and the numeric helpers copied from
+# dualdiffusion_tpu/utils/utils.py:39-330; the PNG encoder is the port's own.
 """Audio io (WAV through scipy; FLAC through a ``flac`` or ``ffmpeg`` binary
 on PATH, when there is one), ITU-R BS.1770-4 integrated loudness and its
-normalization in numpy, safetensors io (numpy-backed, atomic writes), and
-previews: ``tensor_to_img`` and an 8-bit RGB PNG encoder on ``zlib`` (no PIL).
+normalization in numpy, safetensors io (numpy-backed, atomic writes),
+previews (``tensor_to_img``, an 8-bit RGB PNG encoder on ``zlib`` (no PIL)
+and ``save_img``) and numeric helpers (quantization, mu-law, slerp, fractal
+noise).
 Reference semantics: src/utils/dual_diffusion_utils.py:236-496.
 """
 
@@ -183,6 +185,12 @@ def load_safetensors(path: Union[str, Path]) -> Dict[str, np.ndarray]:
     return load_file(str(path))
 
 
+def load_safetensors_metadata(path: Union[str, Path]) -> Dict[str, str]:
+    from safetensors import safe_open
+    with safe_open(str(path), framework="numpy") as f:
+        return dict(f.metadata() or {})
+
+
 def save_safetensors(tensors: Dict[str, np.ndarray], path: Union[str, Path],
                      metadata: Optional[Dict[str, str]] = None) -> None:
     """Atomic safetensors write (copy-on-write temp + rename)."""
@@ -245,3 +253,80 @@ def png_bytes(img: np.ndarray) -> bytes:
             + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
             + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _png_chunk(b"IEND", b""))
+
+
+def save_img(img: np.ndarray, path: Union[str, Path]) -> None:
+    """Write a uint8 (H, W, 3) image, or a (H, W) gray one, as a PNG file."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(png_bytes(img))
+
+
+# ---------------------------------------------------------------------------
+# misc numeric helpers
+# ---------------------------------------------------------------------------
+
+def quantize_tensor(x: np.ndarray, num_levels: int = 256):
+    """Uniform per-tensor quantization -> (uint8/uint16 codes, scale, offset)
+    (reference: src/utils/dual_diffusion_utils.py:553-570)."""
+    lo, hi = float(np.min(x)), float(np.max(x))
+    scale = (hi - lo) / max(num_levels - 1, 1) or 1.0
+    codes = np.round((x - lo) / scale).astype(np.uint8 if num_levels <= 256 else np.uint16)
+    return codes, np.float32(scale), np.float32(lo)
+
+
+def dequantize_tensor(codes: np.ndarray, scale, offset) -> np.ndarray:
+    return codes.astype(np.float32) * np.float32(scale) + np.float32(offset)
+
+
+def mu_law_encode(x: np.ndarray, mu: float = 255.0) -> np.ndarray:
+    return np.sign(x) * np.log1p(mu * np.abs(x)) / np.log1p(mu)
+
+
+def mu_law_decode(y: np.ndarray, mu: float = 255.0) -> np.ndarray:
+    return np.sign(y) * (np.expm1(np.abs(y) * np.log1p(mu))) / mu
+
+
+def cos_angle(a: np.ndarray, b: np.ndarray) -> float:
+    na = np.linalg.norm(a.ravel()) + 1e-12
+    nb = np.linalg.norm(b.ravel()) + 1e-12
+    return float(np.dot(a.ravel(), b.ravel()) / (na * nb))
+
+
+def slerp(a: np.ndarray, b: np.ndarray, t: float) -> np.ndarray:
+    """Spherical interpolation between flattened tensors."""
+    omega = np.arccos(np.clip(cos_angle(a, b), -1.0, 1.0))
+    so = np.sin(omega)
+    if so < 1e-6:
+        return a * (1.0 - t) + b * t
+    return (np.sin((1.0 - t) * omega) / so) * a + (np.sin(t * omega) / so) * b
+
+
+def fractal_noise_2d(shape: Tuple[int, int], octaves: int = 6, persistence: float = 0.5,
+                     rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """1/f-style fractal noise: bilinearly upsampled gaussian octaves, summed
+    with weights ``persistence`` ** octave."""
+    rng = rng or np.random.default_rng()
+    h, w = shape
+    out = np.zeros(shape, dtype=np.float32)
+    amp, total = 1.0, 0.0
+    for o in range(octaves):
+        gh, gw = max(2, h >> (octaves - 1 - o)), max(2, w >> (octaves - 1 - o))
+        g = rng.standard_normal((gh, gw)).astype(np.float32)
+        ys = np.linspace(0, gh - 1, h)
+        xs = np.linspace(0, gw - 1, w)
+        y0 = np.floor(ys).astype(int)
+        x0 = np.floor(xs).astype(int)
+        y1 = np.minimum(y0 + 1, gh - 1)
+        x1 = np.minimum(x0 + 1, gw - 1)
+        fy = (ys - y0)[:, None]
+        fx = (xs - x0)[None, :]
+        up = (g[np.ix_(y0, x0)] * (1 - fy) * (1 - fx) + g[np.ix_(y0, x1)] * (1 - fy) * fx
+              + g[np.ix_(y1, x0)] * fy * (1 - fx) + g[np.ix_(y1, x1)] * fy * fx)
+        out += amp * up
+        total += amp
+        amp *= persistence
+    return out / total

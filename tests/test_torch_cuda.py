@@ -751,3 +751,72 @@ def test_training_forward_raises_without_its_kernel(cuda, monkeypatch):
     conv.init_weights(torch.Generator(device=cuda).manual_seed(0))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         conv(torch.randn((1, 2, 8, 16), device=cuda).bfloat16(), training=True)
+
+
+def _tiny_encode_model(path, device):
+    """A tiny ms_mdct_dual + DAE model directory (bf16 DAE, ratio 4)."""
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    fcfg = MSMDCTDualFormatConfig(ms_num_filters=32, ms_window_length=256, mdct_window_len=64,
+                                  default_raw_length=63 * 32)
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                     num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=8,
+                     in_num_freqs=32)
+    dae = DAE(dcfg, device=device).init_weights(torch.Generator(device=device).manual_seed(3))
+    Pipeline({"dae": ModuleHandle("dae", "dae", dcfg, dae),
+              "format": ModuleHandle("format", "format:ms_mdct_dual", fcfg,
+                                     MSMDCTDualFormat(fcfg))}).save_pretrained(path)
+    return dae
+
+
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.cuda
+def test_tiled_encode_on_the_card_matches_cpu(cuda, tmp_path):
+    """DAE ``tiled_encode`` of a (2, 32, 1024, 2) mel in six chunks, the
+    tiny bf16 DAE on the card against the same weights on the CPU: bf16
+    rounds each of ~10 layers to 2**-9 in another summation order, so 3e-2
+    relative L2; no kernel of the port launches (dense convs on cuDNN)."""
+    from dualdiffusion_tpu_torch.models import tiled_encode
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    dae = _tiny_encode_model(tmp_path, cuda)
+    cpu_dae = _tiny_encode_model(tmp_path / "cpu", "cpu")
+    cpu_dae.load_state_dict({k: v.cpu() for k, v in dae.state_dict().items()})
+    x = torch.randn((2, 32, 1024, 2), generator=torch.Generator().manual_seed(4))
+    before = launch_counts()
+    got = tiled_encode(dae, x.to(cuda), None, 256, 32)
+    torch.cuda.synchronize()
+    assert launch_counts() == before
+    want = tiled_encode(cpu_dae, x, None, 256, 32)
+    assert got.shape == (2, 8, 256, 8) and torch.isfinite(got).all()
+    assert _rel_l2(got.cpu(), want) < 3e-2
+
+
+@pytest.mark.cuda
+def test_encode_stage_on_the_card_matches_cpu(cuda, tmp_path):
+    """The encode stage in-process on the card and on the CPU, one stereo
+    song, 8 variations: float16 latents agree to the bf16 bound above
+    (3e-2 relative L2); the card's worker reports its peak memory."""
+    from dualdiffusion_tpu_torch.dataset import processes as P
+    from dualdiffusion_tpu_torch.dataset.processor import DatasetProcessorConfig
+    _tiny_encode_model(tmp_path, "cpu")
+    t = np.arange(16000) / 32000
+    audio = np.stack([0.3 * np.sin(2 * np.pi * 440 * t), 0.2 * np.sin(2 * np.pi * 660 * t)])
+    item = {"path": str(tmp_path / "a.wav"), "audio": audio.astype(np.float32),
+            "sample_rate": 32000}
+    out = {}
+    for device in ("cuda", "cpu"):
+        stage = P.EncodeStage(P.EncodeConfig(model_path=str(tmp_path), device=device,
+                                             max_chunk=256, overlap=32,
+                                             encode_embeddings=False))
+        stage.start_process(DatasetProcessorConfig(dataset_path=str(tmp_path)), 0)
+        out[device] = stage.process(dict(item))["tensors"]["latents"]
+        stage.finish_process()
+    assert out["cuda"].dtype == np.float16 and out["cuda"].shape == (8, 8, 8, 123)
+    assert np.isfinite(out["cuda"]).all()
+    assert _rel_l2(out["cuda"], out["cpu"]) < 3e-2
