@@ -109,7 +109,28 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    unet_train.json and generates a clip from the table; every latents
    file's shape, the sidecars, train.jsonl, the chunk count, tiled against
    untiled and no kernel launch in the worker are held, and a tiny encode
-   through the CLI on the card against the CPU.
+   through the CLI on the card against the CPU;
+12. holds K7 against its plain version at the stereo-folded 3-D UNet's
+   level 1 (B 2, 8 heads, L 11,008, D 64), then drives that UNet at full
+   width: the reference scale with the d1 options (``use_3d``, stereo-wrapped
+   io convs without bias, W reflect padding, a skip conv in every block, the
+   constant and ln-freq channels, a double midblock with attention, "full"
+   attention at levels 1, 3 and 4) through ``edm_sample`` for 100 Heun
+   steps at CFG 1.5 on a (1, 2, 32, 688, 4) sample (K7 exactly 7 times a
+   forward, K1 never: its convs are 5-D, on cuDNN), then its train step on
+   5-D latents ("freq" attention at levels 3-4, dropout 0.1, device batch 8
+   x accumulation 2) for 5 steps;
+13. takes every registered format at its default config through its round
+   trip on a seeded 45 s song (the spectrogram's Griffin-Lim through K2/K3),
+   1 s of it on the card against the CPU, and loads a model_index.json
+   naming ``format:ms_mdct_dual_v1``;
+14. runs the component harnesses as subprocesses on the card
+   (``python -m dualdiffusion_tpu_torch.scripts.<name>``: ``unet_test`` on
+   edm2_default with configs/tests/unet_test.json, ``format_test`` with
+   configs/tests/format_test.json, ``dae_test`` on edm2_default and on the
+   spectrogram-format edm2_dae_d3a, ``sigma_sampler_test``), checking the
+   files each writes, and the dataset factory's encode with edm2_dae_d3a on
+   two seeded 45 s songs.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
 one full-width DAE train step (step 9's model, data and config).
@@ -122,6 +143,7 @@ The script imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2681,6 +2703,365 @@ def dataset_factory_path(root: Path, smi: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the rest of the model surface: the 3-D UNet, the formats, the harnesses
+# ---------------------------------------------------------------------------
+
+#: the 3-D UNet's level 1 under "full" attention: Z x H x W = 2 x 16 x 344
+#: positions of a 45 s clip's latents, twice ref_scale_full_attn's
+FLASH3D_L = 2 * 16 * 344
+#: the stereo-folded latent sample of a 45 s clip: (B, Z, H, W, C)
+UNET3D_SHAPE = (1, 2, 32, 688, 4)
+#: relative L2 bounds of a format's card against its CPU run: the linear
+#: transforms (bases and FFTs in fp32) and those with a power or a mel after
+#: the FFT (tests/test_torch_formats_more.py holds the same bounds on JAX)
+FORMAT_REL_L2 = {"linear": 1e-5, "mel": 1e-4}
+
+
+def unet_3d_config(**overrides):
+    """The reference-scale UNet (bench.py:68-92: 256 ch x (1,2,3,4,5), 2
+    layers a block, mlp x2 in 8 groups, 1,024-d embeddings) with the d1
+    options of tests/test_reference_parity.py:1264-1273 (stereo-folded 3-D
+    convs, stereo-wrapped io convs without bias, W reflect padding, a skip
+    conv in every block, the constant and ln-freq channels, a double
+    midblock with attention) and "full" attention at levels 1, 3 and 4."""
+    import dataclasses
+    kw = dict(use_3d=True, io_kernel_z=2, conv_w_pad="reflect", io_bias=False,
+              always_skip=True, add_constant_channel=True, add_ln_freqs_channel=True,
+              double_midblock=True, midblock_attn=True, attn_axis="full", attn_levels=(1, 3, 4))
+    kw.update(overrides)
+    return dataclasses.replace(ref_scale_configs()[0], **kw)
+
+
+def kernel_phase_flash_3d(gen) -> None:
+    """K7 at the 3-D UNet's level 1 (B 2 under CFG, 8 heads, L 11,008, D
+    64, bf16) against its plain version, one batch element at a time (the
+    fp32 scores of all 16 batch-heads at once would take 7.8 GB), all 8
+    heads of each: 2e-2 of max |o|, as at L 5504."""
+    import torch
+    import torch.nn.functional as F
+    from dualdiffusion_tpu_torch.ops.kernels import flash_attention, flash_attention_plain
+    b, h, d = 2, 8, FLASH_D
+    q, k, v = attention_inputs(gen, b, FLASH3D_L, h, d)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    for i in range(b):
+        check_close(f"K7 at the 3-D level 1: batch element {i}, H {h} L {FLASH3D_L} D {d}",
+                    got[i:i + 1], flash_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1]),
+                    2e-2)
+    ms = time_ms(lambda: flash_attention(q, k, v))
+    plain_ms = b * time_ms(lambda: flash_attention_plain(q[:1], k[:1], v[:1]), 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    flops = 4 * b * h * visible_pairs(FLASH3D_L, None, False) * d
+    bound_ms, by = bound(flops, 4 * b * h * FLASH3D_L * d * 2, "bf16")
+    print(f"    K7 at L {FLASH3D_L}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
+          f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP), "
+          f"{ms / bound_ms:.2f}x", flush=True)
+
+
+def unet_3d_path(gen, prompt, path_counts, smi: str) -> None:
+    """The stereo-folded 3-D UNet at full width: 100 Heun steps at CFG 1.5
+    through ``edm_sample`` on a (1, 2, 32, 688, 4) sample ("full" attention:
+    K7 at level 1, 7 calls a forward; every conv is 5-D, on cuDNN, so K1
+    never launches), then the UNet's train step on 5-D latents with "freq"
+    attention at levels 3-4 and dropout 0.1 (device batch 8 x accumulation
+    2, AdamW, one EMA), 5 steps, the first a warm-up."""
+    import torch
+    from dualdiffusion_tpu_torch.models import UNet
+    from dualdiffusion_tpu_torch.ops.kernels import reset_launch_counts
+    from dualdiffusion_tpu_torch.sampling import SampleParams, edm_sample
+    from dualdiffusion_tpu_torch.training import (EMABank, EMAConfig, SigmaSamplerConfig,
+                                                  UNetTrainConfig, build_optimizer,
+                                                  init_train_state, make_unet_train_step)
+    cfg = unet_3d_config()
+    unet = UNet(cfg, device="cuda").init_weights(gen)
+    with torch.no_grad():
+        unet.core.out_gain.fill_(1.0)
+    n_params = sum(p.numel() for p in unet.parameters())
+    print(f"3-D UNet: {n_params / 1e6:.1f}M params, sample {UNET3D_SHAPE}, attention "
+          f"{cfg.attn_axis!r} at levels {cfg.attn_levels} (level 1 L {FLASH3D_L}); {smi}",
+          flush=True)
+    params = SampleParams(steps=SAMPLER_STEPS, cfg_scale=1.5, use_heun=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        emb = unet.get_embeddings(prompt.expand(2, -1),
+                                  torch.tensor([1.0, 0.0], device="cuda"))
+        out = edm_sample(lambda x, s: unet(x, s, emb), UNET3D_SHAPE, params, cfg.sigma_max,
+                         cfg.sigma_min, cfg.sigma_data,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    c = path_counts("3-D UNet sampling", ("flash_attention",),
+                    absent=("grouped_conv3x3", "grouped_conv3x3_wgrad"))
+    forwards = 2 * SAMPLER_STEPS
+    expect(f"3-D UNet sampling: {SAMPLER_STEPS} Heun steps at CFG {params.cfg_scale} in "
+           f"{secs:.3f} s ({secs / forwards * 1e3:.2f} ms a forward), peak memory {peak:.2f} "
+           f"GiB, output {tuple(out.shape)} std {out.float().std().item():.4f}",
+           tuple(out.shape) == UNET3D_SHAPE and bool(torch.isfinite(out).all())
+           and c["flash_attention"] == 7 * forwards,
+           f"finite; K7 {c['flash_attention']} = 7 x {forwards} forwards, K1 0")
+    # where a forward's time goes: its kernels' device time (under the
+    # profiler) against the host clock of the same forwards without it
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        x = torch.randn((2,) + UNET3D_SHAPE[1:], device="cuda")
+        sigma = torch.ones((2,), device="cuda")
+        unet(x, sigma, emb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            unet(x, sigma, emb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                unet(x, sigma, emb)
+            torch.cuda.synchronize()
+    print_device_time(prof, "3-D UNet, 3 forwards at batch 2 (CFG)", wall,
+                      "on the host clock without the profiler", top=8)
+    del unet, emb, out, x
+    torch.cuda.empty_cache()
+
+    tcfg = unet_3d_config(attn_axis="freq", attn_levels=(3, 4), dropout=0.1)
+    model = UNet(tcfg, device="cuda").init_weights(gen)
+    opt = build_optimizer("adamw", model.parameters(), 1e-4)
+    bank = EMABank([EMAConfig(name="std0.05", std=0.05)])
+    tc = UNetTrainConfig(sigma=SigmaSamplerConfig(), grad_accum_steps=TRAIN_ACCUM)
+    n = TRAIN_BATCH * TRAIN_ACCUM
+    step = make_unet_train_step(opt, bank, tc, n)
+    state = init_train_state(model, opt, bank, tc.sigma,
+                             torch.Generator(device="cuda").manual_seed(5))
+    data = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"samples": torch.randn((n,) + UNET3D_SHAPE[1:], generator=data, device="cuda"),
+             "embeddings": torch.randn((n, tcfg.in_channels_emb), generator=data,
+                                       device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch)["loss"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    path_counts("3-D UNet training", (), absent=tuple(name for name, *_ in KERNEL_INFO))
+    expect(f"3-D UNet training (attention 'freq' at levels 3-4, dropout {tcfg.dropout}): "
+           f"device batch {TRAIN_BATCH} x accumulation {TRAIN_ACCUM} of {UNET3D_SHAPE[1:]}, "
+           f"{TRAIN_STEPS + 1} steps, s a step {[round(s, 4) for s in secs]} (after the first: "
+           f"{sum(secs[1:]) / TRAIN_STEPS:.4f}), peak memory {peak:.2f} GiB",
+           all(math.isfinite(x) for x in losses), f"losses {[round(x, 5) for x in losses]}")
+    del model, opt, bank, state, batch
+    torch.cuda.empty_cache()
+
+
+def format_round_trip(name: str, fmt):
+    """(forward, inverse, kind) of a format's round trip: its sample pair,
+    or the MDCT pair where its sample is a mel."""
+    if name in ("ms_mdct_dual", "ms_mdct_dual_v1", "mdct_psd"):
+        return fmt.raw_to_mdct, fmt.mdct_to_raw, "linear"
+    return fmt.raw_to_sample, fmt.sample_to_raw, "mel" if name == "spectrogram" else "linear"
+
+
+def formats_path(root: Path, path_counts, smi: str) -> None:
+    """Every registered format at its default config on a seeded 45 s, 32 kHz
+    stereo song: the round trip (seconds and the relative L2 error against
+    the input; the spectrogram's inverse is Griffin-Lim, through K2/K3), and
+    1 s of it on the card against the CPU (the forward, and the inverse of
+    the linear ones, within FORMAT_REL_L2); then a model_index.json naming
+    ms_mdct_dual_v1 loads through ``from_pretrained``."""
+    import torch
+    from dualdiffusion_tpu_torch.models.formats import get_format_class
+    from dualdiffusion_tpu_torch.models.formats.format import _FORMAT_REGISTRY
+    from dualdiffusion_tpu_torch.ops.kernels import reset_launch_counts
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    song = factory_song(60, 45.0)
+    print(f"formats: {sorted(_FORMAT_REGISTRY)} on a seeded 45 s stereo song; {smi}", flush=True)
+    reset_launch_counts()
+
+    def rel_l2(a, b) -> float:
+        a, b = a.double().cpu(), b.double().cpu()
+        return float((a - b).norm() / b.norm())
+
+    for name in sorted(_FORMAT_REGISTRY):
+        cls, cfg_cls = get_format_class(name)
+        fmt = cls(cfg_cls())
+        fwd, inv, kind = format_round_trip(name, fmt)
+        x = torch.from_numpy(song[None]).cuda()
+        x = x[..., : fmt.get_raw_crop_width(x.shape[-1])]
+        with torch.no_grad():
+            fwd(x)                       # a warm-up: cuFFT plans
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = fwd(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            back = inv(s)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            m = min(back.shape[-1], x.shape[-1])
+            err = rel_l2(back[..., :m], x[..., :m])
+            one = x[..., :32000]
+            cs, gs = fwd(one.cpu()), fwd(one)
+            errs = [rel_l2(gs, cs)]
+            if kind == "linear":
+                errs.append(rel_l2(inv(gs), inv(cs)))
+        tol = FORMAT_REL_L2[kind]
+        expect(f"{name}: {tuple(x.shape)} -> {tuple(s.shape)} in {t1 - t0:.4f} s, back "
+               f"{tuple(back.shape)} in {t2 - t1:.4f} s, round-trip relative L2 {err:.3g}",
+               bool(torch.isfinite(back).all()) and max(errs) <= tol,
+               f"1 s card against CPU relative L2 {[float(f'{e:.3g}') for e in errs]} <= {tol:g}")
+    path_counts("formats", ("fgla_frame", "ola_reframe"), absent=("grouped_conv3x3",
+                                                                 "flash_attention"))
+    cfg_cls = get_format_class("ms_mdct_dual_v1")[1]
+    cfg = cfg_cls()
+    Pipeline({"format": ModuleHandle("format", "format:ms_mdct_dual_v1", cfg,
+                                     get_format_class("ms_mdct_dual_v1")[0](cfg))}
+             ).save_pretrained(root / "v1_model")
+    loaded = Pipeline.from_pretrained(root / "v1_model", device="cuda").format
+    expect("from_pretrained of a model_index.json naming format:ms_mdct_dual_v1",
+           type(loaded).__name__ == "MSMDCTDualV1Format" and loaded.config == cfg,
+           type(loaded).__name__)
+
+
+def harness(name: str, *args: str, cwd: Path) -> tuple:
+    """``python -m dualdiffusion_tpu_torch.scripts.<name>`` on the card in a
+    subprocess: (wall seconds, its output, the kernel launches it printed)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"dualdiffusion_tpu_torch.scripts.{name}",
+                           *args], cwd=cwd, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", flush=True)
+        raise AssertionError(f"harness {name} exited with {proc.returncode}")
+    line = [l for l in proc.stdout.splitlines() if l.startswith("kernel launches: ")]
+    if not line:
+        raise AssertionError(f"harness {name} printed no kernel launches")
+    return secs, proc.stdout, json.loads(line[-1].split(": ", 1)[1])
+
+
+def harness_path(root: Path, smi: str) -> Path:
+    """The four component harnesses as subprocesses on the card, all five
+    runs at once (each is mostly its start-up; its wall seconds are taken
+    beside the others): ``create_new_model`` writes edm2_default and
+    edm2_dae_d3a (spectrogram) from seeds; ``unet_test`` on edm2_default
+    with configs/tests/unet_test.json (20 steps, CFG 1.5, seeds 4000 and
+    4001 at 45 s, the DDEC under "auto"); ``format_test`` with
+    configs/tests/format_test.json (the spectrogram, 64 Griffin-Lim
+    iterations: K2/K3); ``dae_test`` on both models; ``sigma_sampler_test``.
+    The files each one writes are checked. Returns the edm2_dae_d3a
+    directory."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+
+    def create(name: str, seed: int) -> None:
+        subprocess.run([sys.executable, "-m", "dualdiffusion_tpu_torch.create_new_model",
+                        "--name", name, "--config_path", str(REPO / "configs" / "models"),
+                        "--output_path", str(root), "--seed", str(seed), "--device", "cuda"],
+                       check=True, cwd=REPO, capture_output=True)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(create, ("edm2_default", "edm2_dae_d3a"), (7, 8)))
+    print(f"harnesses: create_new_model edm2_default and edm2_dae_d3a on cuda (together) "
+          f"{time.perf_counter() - t0:.2f} s; {smi}", flush=True)
+    default, d3a = root / "edm2_default", root / "edm2_dae_d3a"
+    (root / "format").mkdir()
+    tests = REPO / "configs" / "tests"
+    runs = {
+        "unet_test on edm2_default (2 clips of 45 s, 20 steps, the DDEC)":
+            ("unet_test", ("--model_path", str(default), "--config",
+                           str(tests / "unet_test.json")), root),
+        "format_test (the spectrogram, 4 s, 64 Griffin-Lim iterations)":
+            ("format_test", ("--config", str(tests / "format_test.json")), root / "format"),
+        **{f"dae_test on {m.name}": ("dae_test", ("--model_path", str(m), "--output_path",
+                                                  str(root / f"dae_{m.name}")), root)
+           for m in (default, d3a)},
+        "sigma_sampler_test": ("sigma_sampler_test", (), root)}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = {what: pool.submit(harness, name, *args, cwd=cwd)
+                   for what, (name, args, cwd) in runs.items()}
+        done = {what: f.result() for what, f in futures.items()}
+    print(f"  the five harness runs together: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def files(what: str, paths) -> dict:
+        secs, out, launches = done[what]
+        print("\n".join("  " + l for l in out.splitlines()
+                        if l.startswith(("s4", "avg", "mel (")) or "MSE" in l), flush=True)
+        missing = [str(p) for p in paths if not (p.is_file() and p.stat().st_size > 0)]
+        expect(f"{what}: {secs:.2f} s wall; kernel launches {json.dumps(launches)}",
+               not missing, f"{len(paths)} files written" + (f", missing {missing}"
+                                                             if missing else ""))
+        return launches
+
+    step_dir = default / "output" / "step_0"
+    audio = [p for s in (4000, 4001) for p in (step_dir / f"s{s}.flac", step_dir / f"s{s}.wav")
+             if p.is_file()]
+    what = next(iter(runs))
+    files(what, audio[:1] + [step_dir / f"s{s}{suffix}" for s in (4000, 4001)
+                             for suffix in ("_mel.png", "_latents.png", ".json")])
+    if len(audio) != 2:
+        raise AssertionError(f"unet_test: audio files {audio}")
+    launches = files("format_test (the spectrogram, 4 s, 64 Griffin-Lim iterations)",
+                     [root / "format" / "format_test_out" / n
+                      for n in ("input.wav", "recon.wav", "sample.png")])
+    if not (launches["fgla_frame"] > 0 and launches["ola_reframe"] > 0):
+        raise AssertionError(f"format_test launched no K2/K3: {launches}")
+    for m in (default, d3a):
+        files(f"dae_test on {m.name}", [root / f"dae_{m.name}" / n for n in (
+            "input.wav", "recon.wav", "mel.png", "mel_recon.png", "latents_pca.png")])
+    secs, out, _ = done["sigma_sampler_test"]
+    dists = [l.split(":")[0] for l in out.splitlines() if "median" in l]
+    expect(f"sigma_sampler_test: {secs:.2f} s wall", len(dists) == 6, f"distributions {dists}")
+    return d3a
+
+
+def spectrogram_encode_path(root: Path, model_dir: Path, smi: str) -> None:
+    """``python -m dualdiffusion_tpu_torch.dataset_process encode`` with the
+    spectrogram-format edm2_dae_d3a on two seeded 45 s songs (the
+    EncodeConfig defaults: 8 variations), alone on the card; the latents'
+    shape and the worker's report."""
+    import numpy as np
+    from dualdiffusion_tpu_torch.utils import load_safetensors, save_audio
+    data = root / "spec_data"
+    for i in range(2):
+        save_audio(factory_song(80 + i, 45.0), 32000, data / f"song{i}.wav")
+    wall, log = dataset_cli("encode", data, "--model_path", str(model_dir))
+    report = encode_log(log)
+    audio_s = sum(s["audio_s"] for s in report["songs"].values())
+    stage_s = sum(s["encode_s"] for s in report["songs"].values())
+    shapes = []
+    for i in range(2):
+        lat = load_safetensors(data / "latents" / f"song{i}.safetensors")["latents"]
+        shapes.append(lat.shape)
+        if not (lat.dtype == np.float16 and np.isfinite(lat).all() and lat.shape[0] == 8):
+            raise AssertionError(f"spectrogram encode: latents {lat.shape} {lat.dtype}")
+    expect(f"spectrogram encode (edm2_dae_d3a, 2 songs of 45 s): latents {shapes}; "
+           f"{audio_s / stage_s:.2f} audio s per encode-stage s, {audio_s / wall:.2f} per CLI s "
+           f"({wall:.2f} s); the worker ready {report['ready_s']:.2f} s after spawn, peak device "
+           f"memory {report['peak_bytes'] / 2 ** 30:.2f} GiB; {smi}",
+           not any(report["launches"].values()), f"no kernel launch in the worker "
+           f"{json.dumps(report['launches'])}")
+
+
+def model_surface_paths(gen, prompt, path_counts, smi: str) -> None:
+    """K7 at the 3-D level 1, then the 3-D UNet, the formats, the harnesses
+    and the spectrogram encode, each timed."""
+    import torch
+    kernel_phase_flash_3d(gen)
+    for what, run in (("3-D UNet", lambda tmp: unet_3d_path(gen, prompt, path_counts, smi)),
+                      ("formats", lambda tmp: formats_path(tmp, path_counts, smi)),
+                      ("harness and spectrogram encode",
+                       lambda tmp: spectrogram_encode_path(tmp, harness_path(tmp, smi), smi))):
+        with tempfile.TemporaryDirectory(prefix="dd_smoke_surface_") as tmp:
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            run(Path(tmp))
+            print(f"{what} phase: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
 #: kernel groups of the profile, by substrings of the kernel's name (first match)
 PROFILE_GROUPS = [
     ("K5/K6 (port)", ("mss2d", "sum_partials")),
@@ -2979,6 +3360,9 @@ def main() -> int:
         dataset_factory_path(Path(tmp), smi)
         print(f"dataset factory phase: {time.perf_counter() - t0:.2f} s", flush=True)
         path_counts("dataset factory", (), absent=no_kernels)
+
+    # ---- the 3-D UNet, every format, the component harnesses ----------------
+    model_surface_paths(gen, prompt, path_counts, smi)
 
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": sum(c[name] for c in counts.values()), **measured[name]}

@@ -187,10 +187,12 @@ class EncodeLoadStage(DatasetProcessStage):
 
 def pitch_shifted_format(fmt, semitones: float):
     """The format with its mel filterbank's frequency range scaled by
-    2 ** (semitones / 12) (reference: encode.py:223-227, 267-270)."""
+    2 ** (semitones / 12) (reference: encode.py:223-227, 267-270). A format
+    whose mel has no settable top frequency (``ms_mdct_dual_v1``) raises
+    ``ValueError``; the JAX stage fails there with ``AttributeError``."""
     rate = 2.0 ** (semitones / 12.0)
     fcfg = fmt.config
-    if hasattr(fcfg, "ms_freq_min"):
+    if hasattr(fcfg, "ms_freq_max_override"):
         shifted = dataclasses.replace(fcfg, ms_freq_min=fcfg.ms_freq_min * rate,
                                       ms_freq_max_override=fcfg.ms_freq_max * rate)
     elif hasattr(fcfg, "min_frequency"):

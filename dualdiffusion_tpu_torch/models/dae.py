@@ -199,6 +199,12 @@ class DAE(nn.Module):
         ds = self.downsample_ratio
         return (b, h // ds, w // ds, self.cfg.latent_channels)
 
+    def get_sample_shape(self, latent_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The sample shape a (B, h, w, C) latent decodes to (JAX dae.py:229-232)."""
+        b, h, w, _ = latent_shape
+        ds = self.downsample_ratio
+        return (b, h * ds, w * ds, self.cfg.out_channels)
+
     def get_recon_loss_logvar(self) -> torch.Tensor:
         return self.recon_loss_logvar
 

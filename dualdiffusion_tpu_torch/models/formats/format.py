@@ -21,6 +21,13 @@ def register_format(name: str):
     return deco
 
 
+def get_format_class(name: str) -> Tuple[type, type]:
+    """(format class, config class) registered under ``name`` (JAX format.py:30)."""
+    if name not in _FORMAT_REGISTRY:
+        raise KeyError(f"unknown format '{name}'; known: {sorted(_FORMAT_REGISTRY)}")
+    return _FORMAT_REGISTRY[name]
+
+
 @dataclass
 class FormatConfig:
     sample_rate: int = 32000

@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...ops import FrequencyScale, get_window, griffinlim, stft
@@ -105,12 +106,25 @@ class SpectrogramFormat(Format):
                 self.config.num_raw_channels)
 
     def raw_to_sample(self, raw: torch.Tensor) -> torch.Tensor:
-        """(B, C, T) audio -> (B, F, T', C) normalized mel spectrogram."""
+        """(B, C, T) audio -> (B, F, T', C) normalized mel spectrogram
+        ((mel**0.25 - sample_mean) * raw_to_sample_scale)."""
+        cfg = self.config
+        return (self.raw_to_mel_spec(raw) - cfg.sample_mean) * cfg.raw_to_sample_scale
+
+    def raw_to_mel_spec(self, raw: torch.Tensor) -> torch.Tensor:
+        """(B, C, T) audio -> (B, F, T', C) mel spectrogram ** abs_exponent
+        (JAX spectrogram.py:144-152)."""
         cfg = self.config
         spec = stft(raw.float(), self.window, cfg.padded_length, cfg.hop_length)
         mel = self.freq_scale.scale(spec.abs().transpose(-1, -2))  # (B, C, F_mel, frames)
-        mel = (mel ** cfg.abs_exponent).permute(0, 2, 3, 1)
-        return (mel - cfg.sample_mean) * cfg.raw_to_sample_scale
+        return (mel ** cfg.abs_exponent).permute(0, 2, 3, 1)
+
+    def get_ln_freqs(self) -> torch.Tensor:
+        """The standardized ln of the mel filters' centre frequencies, (F,)
+        fp32: the UNet's ln-freq channel (JAX spectrogram.py:193-200)."""
+        freqs = self.freq_scale.get_unscaled(self.config.num_frequencies + 2)[1:-1]
+        ln = np.log(freqs)
+        return torch.as_tensor((ln - ln.mean()) / ln.std(), dtype=torch.float32)
 
     def sample_to_raw(self, sample: torch.Tensor, n_fgla_iters: Optional[int] = None,
                       phase_init: Optional[str] = None) -> torch.Tensor:

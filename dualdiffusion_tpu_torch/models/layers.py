@@ -1,5 +1,5 @@
 """Magnitude-preserving layers, channel last (JAX: dualdiffusion_tpu/models/
-layers.py:160-269, 629-650; reference: src/modules/mp_tools.py:316-378).
+layers.py:160-269, 451-625, 629-650; reference: src/modules/mp_tools.py:316-378).
 
 MP weights are stored reference-style as (out, in/groups, *kernel) under
 the parameter name ``w_mp`` (``w_raw`` when weight norm is disabled).
@@ -24,11 +24,17 @@ RAW_WEIGHT_NAME = "w_raw"
 class MPConv(nn.Module):
     """Weight-normalized magnitude-preserving conv / linear.
 
-    kernel () -> linear on the last dim; (kh, kw) -> 2D conv on NHWC input.
-    A grouped 3x3 stride-1 conv runs kernel K1 (ops/kernels/grouped_conv.py),
+    kernel () -> linear on the last dim; (kh, kw) -> 2D conv on NHWC input;
+    (kz, kh, kw) -> 3D conv on stereo-folded (B, Z, H, W, C) input (JAX
+    layers.py:531-625): kz == 2 wraps Z circularly (the z=0 plane appended,
+    then a valid conv along Z), kz == 3 pads Z by one each side, kz == 1
+    passes Z through. ``w_pad_mode="reflect"`` reflect-pads W before a 3D
+    conv; 2D convs pad with zeros whatever the mode, as in JAX.
+    A grouped 3x3 stride-1 2D conv runs kernel K1 (ops/kernels/grouped_conv.py),
     in training through ``GroupedConv3x3Fn``, whose backward is K1 (dgrad)
-    and K4 (wgrad); CPU tensors take their plain versions. Every other conv
-    runs ``torch.nn.functional.conv2d`` (the JAX package leaves those to XLA).
+    and K4 (wgrad); CPU tensors take their plain versions. Every other conv,
+    3D ones included, runs ``torch.nn.functional.conv2d`` or ``conv3d`` (the
+    JAX package leaves those to XLA; its Pallas conv never takes 5-D input).
     ``training`` re-normalizes the weight in the forward (JAX layers.py
     MPConv: ``normalize_weight`` when training).
     """
@@ -39,10 +45,10 @@ class MPConv(nn.Module):
                  zero_init: bool = False, w_pad_mode: str = "zeros",
                  device=None):
         super().__init__()
-        if len(kernel) not in (0, 2):
-            raise NotImplementedError(f"kernel rank {len(kernel)} (3-D convs) is not ported")
-        if w_pad_mode != "zeros":
-            raise NotImplementedError(f"w_pad_mode={w_pad_mode!r} is not ported")
+        if len(kernel) not in (0, 2, 3):
+            raise ValueError(f"unsupported kernel rank {len(kernel)}")
+        if w_pad_mode not in ("zeros", "reflect"):
+            raise ValueError(f"unknown w_pad_mode {w_pad_mode!r}")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.kernel = tuple(kernel)
@@ -51,6 +57,7 @@ class MPConv(nn.Module):
         self.disable_weight_norm = disable_weight_norm
         self.use_bias = use_bias
         self.zero_init = zero_init
+        self.w_pad_mode = w_pad_mode
         shape = (out_channels, in_channels // groups) + self.kernel
         name = RAW_WEIGHT_NAME if disable_weight_norm else MP_WEIGHT_NAME
         self.weight_name = name
@@ -133,6 +140,8 @@ class MPConv(nn.Module):
         return out
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if len(self.kernel) == 3:
+            return self._conv3d(x, w)
         kh, kw = self.kernel
         if self.stride == 1 and (kh, kw) == (1, 1) and self.groups == 1:
             # 1x1 conv == matmul over the channel dim
@@ -140,6 +149,29 @@ class MPConv(nn.Module):
         y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
                      padding=(kh // 2, kw // 2), groups=self.groups)
         return y.permute(0, 2, 3, 1)
+
+
+    def _conv3d(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """(B, Z, H, W, C) -> (B, Z, H', W', C_out) (JAX layers.py:531-553)."""
+        kz, kh, kw = self.kernel
+        if kz == 2:   # circular stereo wrap
+            x = torch.cat([x, x[:, :1]], dim=1)
+        pad_w = kw // 2
+        if self.w_pad_mode == "reflect" and pad_w > 0:
+            x = torch.cat([x[..., 1:pad_w + 1, :].flip(-2), x,
+                           x[..., -pad_w - 1:-1, :].flip(-2)], dim=-2)
+            pad_w = 0
+        if kz == 1:   # Z passes through: a 2D conv over the B*Z planes
+            b, z = x.shape[:2]
+            if self.stride == 1 and (kh, kw) == (1, 1) and self.groups == 1:
+                return torch.matmul(x, w.reshape(w.shape[0], w.shape[1]).t())
+            y = F.conv2d(x.reshape((b * z,) + x.shape[2:]).permute(0, 3, 1, 2), w[:, :, 0],
+                         stride=self.stride, padding=(kh // 2, pad_w), groups=self.groups)
+            y = y.permute(0, 2, 3, 1)
+            return y.reshape((b, z) + y.shape[1:])
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=(1, self.stride, self.stride),
+                     padding=(1 if kz == 3 else 0, kh // 2, pad_w), groups=self.groups)
+        return y.permute(0, 2, 3, 4, 1)
 
 
 class MPFourier(nn.Module):

@@ -1,7 +1,8 @@
 """Magnitude-preserving primitive functions (the EDM2 MP toolkit), channel
 last, and the stereo mid/side transform (JAX: dualdiffusion_tpu/models/
-mp.py:30-135, 180-184; reference:
-src/modules/mp_tools.py:42-311). 2D activations are (B, H, W, C).
+mp.py:30-136, 180-184; reference:
+src/modules/mp_tools.py:42-311). 2D activations are (B, H, W, C), 3D
+stereo-folded ones (B, Z, H, W, C).
 """
 
 from __future__ import annotations
@@ -71,6 +72,11 @@ def resample_2d(x: torch.Tensor, mode: str = "keep", ratio: int = 2) -> torch.Te
     if mode == "up":
         return x.repeat_interleave(ratio, dim=-3).repeat_interleave(ratio, dim=-2)
     raise ValueError(mode)
+
+
+def resample_3d(x: torch.Tensor, mode: str = "keep") -> torch.Tensor:
+    """(..., Z, H, W, C): resamples H and W only; the stereo depth Z stays."""
+    return resample_2d(x, mode)
 
 
 def midside_transform(x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:

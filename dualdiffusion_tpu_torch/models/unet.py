@@ -1,24 +1,29 @@
-"""EDM2 magnitude-preserving UNet, channel last, 2-D path
-(JAX: dualdiffusion_tpu/models/unet.py:155-700; reference:
+"""EDM2 magnitude-preserving UNet, channel last
+(JAX: dualdiffusion_tpu/models/unet.py:115-709; reference:
 src/modules/unets/unet_edm2_d1.py, unet_edm2_q4_ddec.py).
 
-EDM2 preconditioning is in-model, with bf16 activations and fp32 io.
-Module and parameter names mirror the JAX package's flax paths, so
-``weights.py`` maps one onto the other by rule.
+The 2-D path takes (B, H, W, C); with ``use_3d`` the stereo-folded path
+takes (B, Z, H, W, C), its convs rank-3 (``io_kernel_z``, ``skip_kernel_z``;
+the res convs (1, 3, 3)), its resampling on H and W only, its attention
+over Z*H*W ("full"), H ("freq") or W ("time"). EDM2 preconditioning is
+in-model, with bf16 activations and fp32 io. Module and parameter names
+mirror the JAX package's flax paths, so ``weights.py`` maps one onto the
+other by rule.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Literal, Optional, Tuple
+from typing import Literal, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.mel import hz_to_mel, mel_to_hz
 from .attention import scaled_dot_product_attention
 from .layers import MPConv, MPFourier
-from .mp import mp_cat, mp_silu, mp_sum, normalize, resample_2d
+from .mp import mp_cat, mp_silu, mp_sum, normalize, resample_2d, resample_3d
 
 #: the trunk's activation dtype (JAX unet.py:562)
 ACT_DTYPE = torch.bfloat16
@@ -73,11 +78,33 @@ class UNetConfig:
 
 
 def _check_supported(cfg: UNetConfig) -> None:
-    unported = {"w_pack_channels": 0, "remat_blocks": False, "use_3d": False,
-                "conv_w_pad": "zeros", "add_ln_freqs_channel": False, "dropout": 0.0}
+    unported = {"w_pack_channels": 0, "remat_blocks": False}
     for name, default in unported.items():
         if getattr(cfg, name) != default:
             raise NotImplementedError(f"UNetConfig.{name}={getattr(cfg, name)!r} is not ported")
+
+
+def _conv_kernel(cfg: UNetConfig, k: Tuple[int, int], kz: int = 1) -> Tuple[int, ...]:
+    """(kh, kw), or (kz, kh, kw) under ``use_3d`` (JAX unet.py:115-116)."""
+    return ((kz,) + tuple(k)) if cfg.use_3d else tuple(k)
+
+
+def mp_dropout(y: torch.Tensor, p: float, keep: torch.Tensor) -> torch.Tensor:
+    """Magnitude-preserving dropout on the kept positions ``keep`` (JAX
+    unet.py:260-264; reference: unet_edm2_d1.py:186-187)."""
+    return torch.where(keep, y / (1.0 - p), 0.0) * (1.0 - p) ** 0.5
+
+
+def _bcast(c: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(B, C) -> (B, 1, ..., 1, C) against an ``ndim``-d activation."""
+    return c.reshape((c.shape[0],) + (1,) * (ndim - 2) + (c.shape[-1],))
+
+
+def default_ln_freqs(num_freqs: int) -> np.ndarray:
+    """ln of ``num_freqs`` mel-spaced centres from 20 Hz to 16 kHz, the
+    endpoints dropped (JAX unet.py:597-601)."""
+    m = np.linspace(hz_to_mel(20.0), hz_to_mel(16000.0), num_freqs + 2)[1:-1]
+    return np.log(mel_to_hz(m))
 
 
 def build_schedule(cfg: UNetConfig):
@@ -135,21 +162,26 @@ class UNetBlock(nn.Module):
         c_mid = out_channels * cfg.mlp_multiplier
         c_in_res0 = out_channels if flavor == "enc" else in_channels
         if cfg.always_skip or in_channels != out_channels:
-            self.conv_skip = MPConv(in_channels, out_channels, (1, 1), device=device)
+            kz = cfg.skip_kernel_z if cfg.use_3d else 1
+            self.conv_skip = MPConv(in_channels, out_channels, _conv_kernel(cfg, (1, 1), kz),
+                                    device=device)
         else:
             self.conv_skip = None
-        self.conv_res0 = MPConv(c_in_res0, c_mid, (3, 3), groups=cfg.mlp_groups, device=device)
-        self.conv_res1 = MPConv(c_mid, out_channels, (3, 3), groups=cfg.mlp_groups,
-                                device=device)
+        k3 = _conv_kernel(cfg, (3, 3))
+        self.conv_res0 = MPConv(c_in_res0, c_mid, k3, groups=cfg.mlp_groups,
+                                w_pad_mode=cfg.conv_w_pad, device=device)
+        self.conv_res1 = MPConv(c_mid, out_channels, k3, groups=cfg.mlp_groups,
+                                w_pad_mode=cfg.conv_w_pad, device=device)
         if emb_channels > 0:
             self.emb_gain = nn.Parameter(torch.zeros((), device=device))
             self.emb_linear = MPConv(emb_channels, c_mid, (), groups=cfg.emb_linear_groups,
                                      device=device)
         if use_attention:
             ch = out_channels
-            self.attn_qk = MPConv(ch, ch * 2, (1, 1), device=device)
-            self.attn_v = MPConv(ch, ch, (1, 1), device=device)
-            self.attn_proj = MPConv(ch, ch, (1, 1), device=device)
+            k1 = _conv_kernel(cfg, (1, 1))
+            self.attn_qk = MPConv(ch, ch * 2, k1, device=device)
+            self.attn_v = MPConv(ch, ch, k1, device=device)
+            self.attn_proj = MPConv(ch, ch, k1, device=device)
             if emb_channels > 0:
                 self.emb_gain_qk = nn.Parameter(torch.zeros((), device=device))
                 self.emb_linear_qk = MPConv(emb_channels, ch, (), device=device)
@@ -157,9 +189,12 @@ class UNetBlock(nn.Module):
                 self.emb_linear_v = MPConv(emb_channels, ch, (), device=device)
 
     def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor],
-                training: bool = False) -> torch.Tensor:
+                training: bool = False,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``dropout_generator`` draws the dropout keep mask (training with
+        ``cfg.dropout > 0``); None draws from torch's default generator."""
         cfg = self.cfg
-        x = resample_2d(x, self.resample_mode)
+        x = (resample_3d if cfg.use_3d else resample_2d)(x, self.resample_mode)
         if self.flavor == "enc":
             if self.conv_skip is not None:
                 x = self.conv_skip(x, training=training)
@@ -167,8 +202,12 @@ class UNetBlock(nn.Module):
         y = self.conv_res0(mp_silu(x), training=training)
         if self.emb_channels > 0 and emb is not None:
             c = self.emb_linear(emb, gain=self.emb_gain, training=training) + 1.0
-            y = y * c.reshape(c.shape[0], 1, 1, c.shape[-1]).to(y.dtype)
-        y = self.conv_res1(mp_silu(y), training=training)
+            y = y * _bcast(c, y.dim()).to(y.dtype)
+        y = mp_silu(y)
+        if cfg.dropout > 0 and training:
+            keep = torch.rand(y.shape, generator=dropout_generator, device=y.device)
+            y = mp_dropout(y, cfg.dropout, keep < 1.0 - cfg.dropout)
+        y = self.conv_res1(y, training=training)
         if self.flavor == "dec" and self.conv_skip is not None:
             x = self.conv_skip(x, training=training)
         x = mp_sum(x, y, t=cfg.res_balance)
@@ -184,7 +223,7 @@ class UNetBlock(nn.Module):
             c = getattr(self, f"emb_linear_{name}")(emb, gain=getattr(self, f"emb_gain_{name}"),
                                                    training=training)
             c = c + 1.0
-            return c.reshape(c.shape[0], 1, 1, c.shape[-1]).to(x.dtype)
+            return _bcast(c, x.dim()).to(x.dtype)
         return 1.0
 
     def _attention(self, x: torch.Tensor, emb: Optional[torch.Tensor],
@@ -195,14 +234,18 @@ class UNetBlock(nn.Module):
         num_heads = max(ch // cfg.channels_per_head, 1)
         qk = self.attn_qk(x * self._modulation("qk", emb, x, training), training=training)
         v = self.attn_v(x, training=training)
-        b, h, w, _ = x.shape
+        b = x.shape[0]
+        # the H axis, moved beside C for "freq" (batch' = B * [Z *] W)
+        h_ax = 2 if cfg.use_3d else 1
+        freq_perm = [d for d in range(x.dim()) if d != h_ax]
+        freq_perm.insert(x.dim() - 2, h_ax)
 
         def to_seq(t: torch.Tensor) -> torch.Tensor:
-            if cfg.attn_axis == "full":
-                return t.reshape(b, h * w, t.shape[-1])
-            if cfg.attn_axis == "freq":   # sequence = H, batch' = B * W
-                return t.permute(0, 2, 1, 3).reshape(b * w, h, t.shape[-1])
-            return t.reshape(b * h, w, t.shape[-1])  # "time": sequence = W
+            if cfg.attn_axis == "full":   # sequence = [Z *] H * W
+                return t.reshape(b, -1, t.shape[-1])
+            if cfg.attn_axis == "freq":   # sequence = H
+                return t.permute(freq_perm).reshape(-1, t.shape[h_ax], t.shape[-1])
+            return t.reshape(-1, t.shape[-2], t.shape[-1])  # "time": sequence = W
 
         qk_s, v_s = to_seq(qk), to_seq(v)
         bs, seq = qk_s.shape[:2]
@@ -216,9 +259,10 @@ class UNetBlock(nn.Module):
                                          training=training)
         y = y.transpose(1, 2).to(x.dtype).reshape(bs, seq, ch)
         if cfg.attn_axis == "freq":
-            y = y.reshape(b, w, h, ch).permute(0, 2, 1, 3)
+            lead = [x.shape[d] for d in freq_perm[:-2]]
+            y = y.reshape(lead + [seq, ch]).permute(np.argsort(freq_perm).tolist())
         else:
-            y = y.reshape(b, h, w, ch)
+            y = y.reshape(x.shape[:-1] + (ch,))
         y = mp_silu(y * self._modulation("v", emb, x, training))
         y = self.attn_proj(y, training=training)
         return mp_sum(x, y, t=cfg.attn_balance)
@@ -240,10 +284,11 @@ class UNetCore(nn.Module):
         self.emb_noise = MPConv(cnoise, cemb, (), device=device)
         for name, kind, level, cin, cout in self.schedule:
             if kind == "enc_in":
-                mod = MPConv(cin, cout, tuple(cfg.input_kernel), use_bias=cfg.io_bias,
-                             device=device)
+                mod = MPConv(cin, cout, _conv_kernel(cfg, cfg.input_kernel, cfg.io_kernel_z),
+                             use_bias=cfg.io_bias, w_pad_mode=cfg.conv_w_pad, device=device)
             elif kind == "conv_out":
-                mod = MPConv(cin, cout, (3, 3), device=device)
+                mod = MPConv(cin, cout, _conv_kernel(cfg, (3, 3), cfg.io_kernel_z),
+                             w_pad_mode=cfg.conv_w_pad, device=device)
             else:
                 flavor = "enc" if kind.startswith("enc") else "dec"
                 resample = {"enc_down": "down", "dec_up": "up"}.get(kind, "keep")
@@ -255,16 +300,19 @@ class UNetCore(nn.Module):
 
     def precondition(self, x_in: torch.Tensor, sigma: torch.Tensor,
                      embeddings: Optional[torch.Tensor], x_ref: Optional[torch.Tensor] = None,
-                     training: bool = False, x_perturbed: Optional[torch.Tensor] = None):
-        """EDM2 preconditioning, the PSD fold, the constant channel and the
-        noise/label embedding. Returns (x, emb, c_skip, c_out).
+                     training: bool = False, x_perturbed: Optional[torch.Tensor] = None,
+                     ln_freqs: Optional[torch.Tensor] = None):
+        """EDM2 preconditioning, the PSD fold, the constant and ln-freq
+        channels and the noise/label embedding. Returns (x, emb, c_skip, c_out).
         ``x_ref`` is the PSD conditioning (B, psd_bins, W, C) of a model with
         ``in_psd_freqs``, else the inpainting reference and mask channels
         (B, H, W, out_channels + 1). ``x_perturbed`` (training-time input perturbation)
         replaces ``x_in`` as the network input only; the c_skip path keeps
-        ``x_in`` (JAX unet.py:570)."""
+        ``x_in`` (JAX unet.py:570). ``ln_freqs`` (H,) are the log
+        frequencies of the ln-freq channel, standardized here (default:
+        ``default_ln_freqs``)."""
         cfg = self.cfg
-        sigma = sigma.reshape(-1, 1, 1, 1).float()
+        sigma = sigma.reshape((-1,) + (1,) * (x_in.dim() - 1)).float()
         sd = cfg.sigma_data
         c_skip = sd ** 2 / (sigma ** 2 + sd ** 2)
         c_out = sigma * sd / torch.sqrt(sigma ** 2 + sd ** 2)
@@ -288,6 +336,18 @@ class UNetCore(nn.Module):
         if cfg.add_constant_channel:
             x = torch.cat([x, torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)],
                           dim=-1)
+        if cfg.add_ln_freqs_channel:
+            # the standardized ln-freq positional channel, broadcast along H
+            # (JAX unet.py:595-608)
+            h_ax = 2 if cfg.use_3d else 1
+            if ln_freqs is None:
+                ln_freqs = torch.as_tensor(default_ln_freqs(x.shape[h_ax]))
+            lf = ln_freqs.to(device=x.device, dtype=torch.float32)
+            lf = (lf - lf.mean()) / lf.std(correction=0)
+            shape = [1] * x.dim()
+            shape[h_ax] = x.shape[h_ax]
+            pos = lf.reshape(shape).expand(x.shape[:-1] + (1,)).to(x.dtype)
+            x = torch.cat([x, pos], dim=-1)
         emb = self.emb_noise(self.emb_fourier(c_noise), training=training)
         if cfg.in_channels_emb > 0 and embeddings is not None:
             emb = mp_silu(mp_sum(emb, embeddings.to(emb.dtype), t=cfg.label_balance))
@@ -296,7 +356,9 @@ class UNetCore(nn.Module):
     def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
                 embeddings: Optional[torch.Tensor] = None,
                 x_ref: Optional[torch.Tensor] = None, training: bool = False,
-                x_perturbed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                x_perturbed: Optional[torch.Tensor] = None,
+                ln_freqs: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         div = 1 << (len(cfg.channel_mult) - 1)
         h, w = x_in.shape[-3], x_in.shape[-2]
@@ -304,20 +366,22 @@ class UNetCore(nn.Module):
             raise ValueError(f"UNet input H,W=({h},{w}) must be divisible by {div} "
                              f"(2^(levels-1), {len(cfg.channel_mult)} levels)")
         x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings, x_ref, training,
-                                                  x_perturbed)
+                                                  x_perturbed, ln_freqs)
         skips = []
+        drop = dropout_generator
         for name, kind, _, _, _ in self.schedule:
             mod = getattr(self, name)
             if kind == "enc_in":
                 x = mod(x, training=training)
                 skips.append(x)
             elif kind in ("enc_down", "enc_layer"):
-                x = mod(x, emb, training)
+                x = mod(x, emb, training, drop)
                 skips.append(x)
             elif kind in ("dec_mid", "dec_up"):
-                x = mod(x, emb, training)
+                x = mod(x, emb, training, drop)
             elif kind == "dec_layer":
-                x = mod(mp_cat(x, skips.pop(), dim=-1, t=cfg.concat_balance), emb, training)
+                x = mod(mp_cat(x, skips.pop(), dim=-1, t=cfg.concat_balance), emb, training,
+                        drop)
             else:
                 x = mod(x, gain=self.out_gain, training=training)
         return c_skip * x_in.float() + c_out * x.float()
@@ -356,8 +420,14 @@ class UNet(nn.Module):
     def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
                 embeddings: Optional[torch.Tensor] = None,
                 x_ref: Optional[torch.Tensor] = None, training: bool = False,
-                x_perturbed: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.core(x_in, sigma, embeddings, x_ref, training, x_perturbed)
+                x_perturbed: Optional[torch.Tensor] = None,
+                ln_freqs: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """D(x) of (B, H, W, C), or (B, Z, H, W, C) under ``use_3d``, fp32.
+        ``ln_freqs``: the ln-freq channel's (H,) log frequencies;
+        ``dropout_generator``: the dropout masks' draws (training)."""
+        return self.core(x_in, sigma, embeddings, x_ref, training, x_perturbed, ln_freqs,
+                         dropout_generator)
 
     def get_embeddings(self, emb_in: torch.Tensor, conditioning_mask: torch.Tensor,
                        training: bool = False) -> Optional[torch.Tensor]:
@@ -376,3 +446,13 @@ class UNet(nn.Module):
         f = self.logvar_fourier(torch.log(sigma.reshape(-1)) / 4.0)
         lv = self.logvar_linear(f, training=training)
         return lv.reshape(-1, 1, 1, 1).float()
+
+    def get_latent_shape(self, latent_shape: Sequence[int]) -> Tuple[int, ...]:
+        """``latent_shape`` (B, H, W, C) or (B, Z, H, W, C) with H and W cut
+        down to multiples of 2^(levels - 1) (JAX unet.py:703-709)."""
+        ds = 2 ** (len(self.cfg.channel_mult) - 1)
+        if len(latent_shape) == 4:
+            return (latent_shape[0], latent_shape[1] // ds * ds,
+                    latent_shape[2] // ds * ds, latent_shape[3])
+        return (latent_shape[0], latent_shape[1], latent_shape[2] // ds * ds,
+                latent_shape[3] // ds * ds, latent_shape[4])

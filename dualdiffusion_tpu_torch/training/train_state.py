@@ -76,6 +76,7 @@ class MicroDraws:
     perturbation: Optional[torch.Tensor]   # N(0,1), the samples' shape
     cond_noise: Optional[torch.Tensor]     # N(0,1), the embeddings' shape
     prepare: Any = None                    # the prepare stage's draws (its ``.to``)
+    dropout_seed: Optional[torch.Tensor] = None  # () int64, seeds the UNet's dropout masks
 
 
 @dataclass
@@ -98,9 +99,11 @@ def _crop(samples: torch.Tensor, config: UNetTrainConfig) -> torch.Tensor:
 
 
 def draw_micro(generator: torch.Generator, config: UNetTrainConfig, micro_shape,
-               has_embeddings: bool, emb_channels: int, prepare: Any = None) -> MicroDraws:
+               has_embeddings: bool, emb_channels: int, prepare: Any = None,
+               dropout: bool = False) -> MicroDraws:
     """One microbatch's draws, from ``generator``; ``prepare`` is the
-    prepare stage's draws, made before these."""
+    prepare stage's draws, made before these. ``dropout``: the model drops
+    out in training, so a seed for its masks is drawn last."""
     dev = generator.device
 
     def normal(shape):
@@ -112,22 +115,26 @@ def draw_micro(generator: torch.Generator, config: UNetTrainConfig, micro_shape,
     pert = normal(micro_shape) if config.input_perturbation > 0 else None
     cond_noise = (normal((b, emb_channels))
                   if has_embeddings and config.conditioning_perturbation > 0 else None)
-    return MicroDraws(cond_u, noise, pert, cond_noise, prepare)
+    seed = (torch.randint(0, 2 ** 62, (), generator=generator, device=dev) if dropout
+            else None)
+    return MicroDraws(cond_u, noise, pert, cond_noise, prepare, seed)
 
 
 def draw_unet_step(generator: torch.Generator, sampler: SigmaSampler, config: UNetTrainConfig,
                    total_batch_size: int, micro_shape, has_embeddings: bool,
-                   emb_channels: int, draw_prepare: Optional[Callable] = None) -> StepDraws:
+                   emb_channels: int, draw_prepare: Optional[Callable] = None,
+                   dropout: bool = False) -> StepDraws:
     """Every random number one train step uses, from ``generator``, in the
     order the step draws them itself. ``micro_shape`` is the shape of a
     microbatch's (prepared and cropped) samples; ``draw_prepare(generator,
-    b)`` makes the prepare stage's draws of a step with a ``prepare_fn``."""
+    b)`` makes the prepare stage's draws of a step with a ``prepare_fn``;
+    ``dropout`` as in ``draw_micro``."""
     q = sampler.draw_quantiles(generator, total_batch_size)
     micro = []
     for _ in range(config.grad_accum_steps):
         prep = draw_prepare(generator, micro_shape[0]) if draw_prepare is not None else None
         micro.append(draw_micro(generator, config, micro_shape, has_embeddings, emb_channels,
-                                prep))
+                                prep, dropout))
     return StepDraws(q, micro)
 
 
@@ -143,7 +150,7 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
                          draw_prepare: Optional[Callable] = None,
                          get_embeddings: Callable = model_embeddings):
     """Build ``train_step(state, batch, draws=None) -> logs``; it updates
-    ``state`` in place. ``batch``: {"samples": (B, H, W, C), "embeddings":
+    ``state`` in place. ``batch``: {"samples": (B, [Z,] H, W, C), "embeddings":
     (B, E) optional}, B = device batch x grad_accum_steps; or, with
     ``prepare_fn(micro_batch, prepare_draws) -> {"samples", "ref_samples",
     "embeddings"?}`` (run without gradients per microbatch, its draws from
@@ -163,23 +170,28 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
             embeddings = get_embeddings(model, emb_in, cond_mask)
             if config.conditioning_perturbation > 0:
                 embeddings = embeddings + draws.cond_noise * config.conditioning_perturbation
-        sig_b = sigma.reshape(-1, 1, 1, 1)
+        dims = tuple(range(1, samples.dim()))
+        sig_b = sigma.reshape((-1,) + (1,) * len(dims))
         x_noisy = samples + draws.noise * sig_b
         x_pert = None
         if config.input_perturbation > 0:
             x_pert = x_noisy + draws.perturbation * sig_b * config.input_perturbation
+        kw = {}
+        if draws.dropout_seed is not None:
+            kw["dropout_generator"] = torch.Generator(device=samples.device).manual_seed(
+                int(draws.dropout_seed))
         denoised = model(x_noisy, sigma, embeddings, batch.get("ref_samples"), training=True,
-                         x_perturbed=x_pert)
+                         x_perturbed=x_pert, **kw)
 
         if config.use_dynamic_sigma_data:
             n = np.prod(samples.shape[1:])
-            sd = torch.sqrt(samples.square().sum(dim=(1, 2, 3), keepdim=True) / n)
+            sd = torch.sqrt(samples.square().sum(dim=dims, keepdim=True) / n)
             sd = sd.clamp(config.dynamic_sigma_data_min,
                           config.dynamic_sigma_data_max) ** config.dynamic_sigma_data_exp
         else:
             sd = config.sigma.sigma_data
         loss_weight = (sig_b ** 2 + sd ** 2) / (sig_b * sd) ** 2
-        weighted = ((denoised - samples) ** 2 * loss_weight).mean(dim=(1, 2, 3))
+        weighted = ((denoised - samples) ** 2 * loss_weight).mean(dim=dims)
         logvar = model.get_sigma_loss_logvar(sigma).reshape(-1)
         loss = (weighted / torch.exp(logvar) + logvar).mean()
         return loss, weighted.detach(), denoised.detach().std(correction=0)
@@ -198,8 +210,9 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
         has_emb = micro.get("embeddings") is not None
         emb_ch = (state.module.emb_label.out_channels
                   if has_emb and config.conditioning_perturbation > 0 else 0)
+        dropout = getattr(getattr(state.module, "cfg", None), "dropout", 0.0) > 0
         return draw_micro(state.generator, config, _crop(micro["samples"], config).shape,
-                          has_emb, emb_ch)
+                          has_emb, emb_ch, dropout=dropout)
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    draws: Optional[StepDraws] = None) -> Dict[str, Any]:
@@ -298,7 +311,7 @@ def make_unet_eval_step(config: UNetTrainConfig, prepare_fn: Optional[Callable] 
                 torch.randn(samples.shape, generator=generator, device=generator.device),
                 sampler.draw_quantiles(generator, b))
         sigma = sampler.sample(draws.quantiles.to(samples.device))
-        sig = sigma.reshape(-1, 1, 1, 1)
+        sig = sigma.reshape((-1,) + (1,) * (samples.dim() - 1))
         denoised = model(samples + draws.noise.to(samples.device) * sig, sigma, embeddings,
                          batch.get("ref_samples"))
         sd = config.sigma.sigma_data

@@ -820,3 +820,85 @@ def test_encode_stage_on_the_card_matches_cpu(cuda, tmp_path):
     assert out["cuda"].dtype == np.float16 and out["cuda"].shape == (8, 8, 8, 123)
     assert np.isfinite(out["cuda"]).all()
     assert _rel_l2(out["cuda"], out["cpu"]) < 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,groups", [((2, 3, 3), 1), ((1, 3, 3), 8), ((3, 3, 3), 2),
+                                           ((2, 1, 1), 1)])
+def test_mpconv_rank3_reflect_on_the_card_matches_cpu(cuda, kernel, groups):
+    """A rank-3 MPConv with W reflect padding on (B, Z, H, W, C) input, on
+    cuDNN in fp32 (TF32 off) against the CPU: float rounding, 1e-5 of max;
+    K1 never takes the 5-D tensor."""
+    from dualdiffusion_tpu_torch.models.layers import MPConv
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.ops.kernels.common import no_tf32
+    cpu = MPConv(64, 64, kernel, groups=groups, w_pad_mode="reflect", use_bias=True)
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = MPConv(64, 64, kernel, groups=groups, w_pad_mode="reflect", use_bias=True,
+                  device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 2, 8, 37, 64), generator=torch.Generator().manual_seed(1))
+    before = launch_counts()
+    with torch.no_grad(), no_tf32():
+        got = card(x.to(cuda))
+        torch.cuda.synchronize()
+    assert launch_counts() == before
+    assert _rel_err(got.cpu(), cpu(x).detach()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_tiny_unet_3d_on_the_card_matches_cpu(cuda):
+    """The tiny d1 UNet (stereo-folded, reflect padding, "full" attention,
+    ln-freq channel) forward on the card against the CPU, bf16 trunks:
+    the network branch to 3e-2 of its max, as the JAX comparison; no K1."""
+    from dualdiffusion_tpu_torch.models import UNet, UNetConfig
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    cfg = UNetConfig(in_channels=4, out_channels=4, in_channels_emb=16, model_channels=16,
+                     channel_mult=(1, 2), channels_per_head=16, num_layers_per_block=1,
+                     attn_levels=(1,), attn_axis="full", mlp_multiplier=2, mlp_groups=2,
+                     double_midblock=True, midblock_attn=True, use_3d=True, io_kernel_z=2,
+                     conv_w_pad="reflect", io_bias=False, always_skip=True,
+                     add_constant_channel=True, add_ln_freqs_channel=True)
+    cpu = UNet(cfg).init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.core.out_gain.fill_(1.0)
+    card = UNet(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 2, 16, 24, 4), generator=g)
+    sigma = torch.tensor([3.0, 0.5])
+    emb_in = torch.randn((2, 16), generator=g)
+    before = launch_counts()
+    with torch.no_grad():
+        got = card(x.to(cuda), sigma.to(cuda),
+                   card.get_embeddings(emb_in.to(cuda), torch.ones(2, device=cuda))).cpu()
+        want = cpu(x, sigma, cpu.get_embeddings(emb_in, torch.ones(2)))
+    assert launch_counts()["grouped_conv3x3"] == before["grouped_conv3x3"]
+    c_skip = (1.0 / (sigma ** 2 + 1.0)).reshape(-1, 1, 1, 1, 1)
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert _rel_err(got - c_skip * x, want - c_skip * x) < 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["raw", "mdct", "mdct_psd", "ms_mdct_dual_v1"])
+def test_new_format_round_trip_on_the_card_matches_cpu(cuda, name):
+    """Each new format's forward and inverse (the MDCT pair where its
+    sample is a mel) on 1 s of stereo noise and tones, fp32 on the card
+    against the CPU: relative L2 1e-5 (cuFFT and cuBLAS against the CPU's
+    FFT and products)."""
+    from dualdiffusion_tpu_torch.models.formats import get_format_class
+    cls, cfg_cls = get_format_class(name)
+    fmt = cls(cfg_cls())
+    fwd, inv = ((fmt.raw_to_mdct, fmt.mdct_to_raw) if hasattr(fmt, "mdct_to_raw")
+                else (fmt.raw_to_sample, fmt.sample_to_raw))
+    t = np.arange(32000) / 32000
+    x = np.stack([np.sin(2 * np.pi * 220 * t), np.sin(2 * np.pi * 1760 * t)])[None] * 0.2
+    x = torch.from_numpy((x + 0.02 * np.random.default_rng(0).standard_normal(x.shape))
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = fwd(x)
+        got = fwd(x.to(cuda))
+        back_want, back_got = inv(want), inv(got)
+    assert _rel_l2(got.cpu(), want) <= 1e-5
+    assert _rel_l2(back_got.cpu(), back_want) <= 1e-5
+    assert torch.isfinite(back_got).all()

@@ -126,7 +126,11 @@ def test_mpconv_training_normalizes_weight():
 
 
 def test_mpconv_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tlayers.MPConv(4, 4, (2, 3, 3))
-    with pytest.raises(NotImplementedError):
-        tlayers.MPConv(4, 4, (3, 3), w_pad_mode="reflect")
+    """Rank-3 kernels and W reflect padding are ported
+    (tests/test_torch_unet_3d.py); a kernel of rank 4 and an unknown padding
+    mode still raise."""
+    tlayers.MPConv(4, 4, (2, 3, 3), w_pad_mode="reflect")
+    with pytest.raises(ValueError):
+        tlayers.MPConv(4, 4, (1, 2, 3, 3))
+    with pytest.raises(ValueError):
+        tlayers.MPConv(4, 4, (3, 3), w_pad_mode="circular")
