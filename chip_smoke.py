@@ -86,7 +86,14 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    config with the fused MSS2D loss, 32 synthetic stereo WAVs, 5.5 s crops,
    device batch 8 x accumulation 2, 4 steps then 1 after ``--resume``,
    checking that K5 and K6 were launched and no call went to the plain
-   version;
+   version; then the rest of training at the same cut: the m1 DAE on its
+   MDCT (the fused loss's K5/K6 on MDCT images and no other kernel, the
+   prime-width 1-D MSS, NorMuon, a host-memory EMA profile held against a
+   device one of the same std, a profiler trace of step 1, the host-EMA
+   hand-over's ms and the step with and without it), the p1 DAE (the
+   randomized-prime MSS, the equivariance loss, Muon; no kernel; a Muon
+   update against AdamW's), and the default VAE and discriminator saved,
+   loaded and run on a 45 s mel (no kernel; 1 s of it against the CPU);
 10. drives DDEC training: ``python -m dualdiffusion_tpu_torch.create_new_model``
    writes configs/models/edm2_ddec_mclt_b1a from a seed on the card (the
    d3-series supersampled, label-conditioned DAE and the 14.49M-parameter
@@ -2082,17 +2089,22 @@ def serving_launch_count(model_dir: Path, body: dict, raw_len: int) -> None:
 
 
 def _train_snapshot(trainer) -> dict:
-    """Everything a checkpoint must restore, copied to the host."""
+    """Everything a checkpoint must restore, copied to the host: the
+    optimizer's whole state (AdamW, Muon, clip) and the host-memory EMA
+    profiles among it."""
+    import torch
     st = trainer.state
-    opt = st.optimizer
 
-    def host(d):
-        return {k: v.detach().cpu().clone() for k, v in d.items()}
+    def host(x):
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [host(v) for v in x]
+        return x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x
     return {"counters": (st.global_step, st.total_samples_processed),
             "params": host(st.module.state_dict()),
-            "ema": {name: host(p) for name, p in st.ema_state.items()},
-            "adamw": [host(opt.adamw.state[p]) for p in opt.params],
-            "clip": host(opt.clip.state_dict()),
+            "ema": {**host(st.ema_state), **host(trainer.host_ema or {})},
+            "optimizer": host(st.optimizer.state_dict()),
             "sigma_pdf": st.sigma_pdf.cpu(), "generator": st.generator.get_state()}
 
 
@@ -2142,8 +2154,10 @@ def run_training(model_dir: Path, data_dir: Path, config: dict, device: str,
                                                            "--max_steps", str(steps + 1)]))
     if not _same(_train_snapshot(resumed), saved):
         raise AssertionError("the resumed train state differs from the saved one")
-    print(f"  checkpoint round-trip: step {resumed.state.global_step}, params and buffers, EMA, "
-          f"AdamW moments, clip, sigma pdf and generator restored exactly", flush=True)
+    parts = ", ".join(k for k, v in saved["optimizer"].items() if v is not None)
+    print(f"  checkpoint round-trip: step {resumed.state.global_step}, params and buffers, EMA "
+          f"(device and host), optimizer state ({parts}), sigma pdf and generator restored "
+          f"exactly", flush=True)
     resumed.train(max_steps=steps + 1)
     history += resumed.history
     final = resumed.state
@@ -2157,7 +2171,8 @@ def run_training(model_dir: Path, data_dir: Path, config: dict, device: str,
         return max(float((now[k].detach().float().cpu() - before[k].float()).abs().max())
                    for k in before)
     params_moved = moved(final.module.state_dict(), saved["params"])
-    ema_moved = min(moved(final.ema_state[name], saved["ema"][name]) for name in config["emas"])
+    profiles = {**final.ema_state, **(resumed.host_ema or {})}
+    ema_moved = min(moved(profiles[name], saved["ema"][name]) for name in config["emas"])
     print(f"  losses {[round(x, 5) for x in losses]}; in the resumed step params moved by up to "
           f"{params_moved:.4g} and each EMA by up to at least {ema_moved:.4g}", flush=True)
     if not (params_moved > 0 and ema_moved > 0):
@@ -2302,11 +2317,11 @@ def ddec_training_path(root: Path, smi: str) -> Path:
                 np.array_equal(got[k], v) for k, v in teacher_file.items()):
             raise AssertionError("the teacher DAE changed or is trainable")
         ckpt = sorted(model_dir.glob("ddec_checkpoint-*"))[-1]
-        if sorted(p.name for p in ckpt.iterdir() if p.is_dir()) != ["ddec"]:
+        if sorted(p.name for p in ckpt.iterdir() if p.is_dir()) != ["ddec", "src_snapshot"]:
             raise AssertionError(f"the DDEC checkpoint holds {list(ckpt.iterdir())}")
         archives = sorted(p.name for p in (model_dir / "ddec_ema_archive").iterdir())
         print(f"  teacher DAE bit for bit unchanged; checkpoint {ckpt.name} holds the DDEC "
-              f"only; EMA archives {archives}", flush=True)
+              f"only (and the source snapshot); EMA archives {archives}", flush=True)
         if len(archives) != len(config["emas"]):
             raise AssertionError("EMA archives missing")
     run_training(model_dir, data_dir, config, "cuda", after=after)
@@ -2413,6 +2428,252 @@ FACTORY_SONGS = (("gameA/01 - Title.wav", 45), ("gameB/01 - Title.wav", 45),
 #: layers rounds to bf16 (2**-9 relative), in another order, so the errors add
 #: up as a random walk to about 1e-2 relative L2; 3e-2 leaves room for it
 FACTORY_BF16_REL_L2 = 3e-2
+
+
+def timed_steps(trainer, rounds: int = 3) -> dict:
+    """Seconds of the trainer's own step on one batch, with the host-memory
+    EMA update and without it, in turns (each ending on the loss's copy to
+    the host, as the trainer's clock ends)."""
+    batch = next(iter(trainer.dataloader.epoch_iter(trainer.epoch, 0)))
+    batch.pop("paths", None)
+    times = {True: [], False: []}
+    for i in range(rounds):
+        for offload in ((True, False) if i % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            logs = trainer.train_step(trainer.state, dict(batch))
+            if offload:
+                trainer._update_host_emas()
+            float(logs["loss"])
+            times[offload].append(time.perf_counter() - t0)
+    trainer.host_ema         # waits for the worker
+    return times
+
+
+def host_ema_copy_ms(trainer, reps: int = 5):
+    """Milliseconds of one host-memory EMA hand-over: the module's tensors
+    packed into one fp32 buffer on the card and copied to pinned host memory,
+    until the copy's event completes; and its bytes."""
+    import torch
+    from dualdiffusion_tpu_torch.training.ema import trained_tensors
+    worker = trainer._async_host_ema
+    trainer.host_ema                        # the worker is idle: its buffers are free
+    tensors = trained_tensors(trainer.state.module)
+    worker._stage(tensors)[1].synchronize()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        worker._stage(tensors)[1].synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, sum(t.numel() for t in tensors.values()) * 4
+
+
+def optimizer_step_ms(model, reps: int = 3):
+    """Milliseconds of one optimizer update of ``model``'s parameters at
+    seeded gradients: Muon (its w_mp weights, AdamW the rest) against AdamW
+    alone, in turns, after a warm-up each."""
+    import torch
+    from dualdiffusion_tpu_torch.training.optim import build_optimizer, jax_param_paths
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=g, device="cuda") * 1e-3
+    paths = jax_param_paths(model, collection=False)
+    opts = {"muon": build_optimizer("muon", paths, 1e-5),
+            "adamw": build_optimizer("adamw", [p for _, p in paths], 1e-5)}
+    for o in opts.values():
+        o.step(0)
+    ms = {k: [] for k in opts}
+    for i in range(reps):
+        for name in (("muon", "adamw") if i % 2 == 0 else ("adamw", "muon")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opts[name].step(i + 1)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    return ms, len(opts["muon"].muon.params)
+
+
+def m1_mss2d_check(batch, fmt) -> None:
+    """K5 and K6 through the wrapper the m1 step calls (widths 8-64, mid/side
+    "stack"), on the (2, 2, 256, W) MDCT images of two real samples rotated
+    as the step rotates them, and a perturbed copy, against their plain
+    versions on the CPU (the loss to 1e-4 relative, the recon gradient to
+    1e-3 relative L2: independent targets flip |S| - |T| in a few bins)."""
+    import torch
+    from dualdiffusion_tpu_torch.ops.kernels import mss2d_loss_fused
+    g = torch.Generator(device="cuda").manual_seed(17)
+    audio = batch["audio"][:2]
+    theta = torch.rand((audio.shape[0],), generator=g, device="cuda") * 6.2832
+    with torch.no_grad():
+        x = fmt.raw_to_mdct(audio, theta)[:, :, 4:-4]
+        x = x[:, :, : x.shape[2] // 8 * 8].permute(0, 3, 1, 2).contiguous()
+    recon = (x + 0.1 * torch.randn(x.shape, generator=g, device="cuda")).requires_grad_()
+    got = mss2d_loss_fused(recon, x, use_midside=True)
+    got.sum().backward()
+    ref = recon.detach().cpu().requires_grad_()
+    want = mss2d_loss_fused(ref, x.cpu(), use_midside=True)
+    want.sum().backward()
+    rel = ((got.detach().cpu() - want.detach()).abs() / want.detach().abs()).max().item()
+    l2 = ((recon.grad.cpu() - ref.grad).norm() / ref.grad.norm()).item()
+    expect(f"K5/K6 on the m1 microbatch's MDCT image {tuple(x.shape)}",
+           rel <= 1e-4 and l2 <= 1e-3,
+           f"loss rel err {rel:.3g} (tol 1e-4), recon gradient rel L2 {l2:.3g} (tol 1e-3) "
+           f"against the plain version on the CPU")
+
+
+def rest_of_training_path(root: Path, path_counts, reset_counts, smi: str) -> None:
+    """The rest of training at full width: (a) the m1 DAE (edm2_default's DAE
+    on its MDCT: ``domain="mdct"``, the fused MSS2D through K5/K6, the
+    prime-width 1-D MSS, phase invariance, NorMuon, a host-memory EMA
+    profile beside a device one of the same std, a profiler trace of step
+    1); (b) the p1 DAE (the mel domain, the randomized-prime MSS, the
+    equivariance loss, Muon); both with the DAE training path's cut, batch
+    8 x accumulation 2 of 5.5 s crops, 4 steps then 1 after ``--resume``;
+    (c) the VAE and the
+    discriminator at their default configs, through a saved pipeline, on a
+    45 s mel, and on 1 s of it against the CPU. Each part's launches are
+    counted from 0."""
+    import copy
+
+    import numpy as np
+    import torch
+    from dualdiffusion_tpu_torch.models import VAE, Discriminator, DiscriminatorConfig, VAEConfig
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
+    from dualdiffusion_tpu_torch.ops.kernels.common import no_tf32
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    from dualdiffusion_tpu_torch.utils import config_from_dict, load_json
+    others = tuple(name for name, *_ in KERNEL_INFO
+                   if name not in ("mss2d_block_loss", "mss2d_block_loss_grad"))
+
+    # ---- (a) the m1 DAE ----------------------------------------------------
+    m1_dir = root / "m1"
+    dae_training_path(m1_dir, steps=0)
+    base = json.loads((m1_dir / "dae_train_config.json").read_text())
+    mtc = {k: v for k, v in base["module_trainer_config"].items() if k != "use_fused_mss2d"}
+    m1 = {**base, "module_trainer_config": {**mtc, "domain": "mdct", "use_fused_mss2d": True,
+                                            "mss1d_prime_loss_weight": 1.0,
+                                            "phase_invariance_loss_weight": 1.0},
+          "optimizer": {"optimizer": "normuon"}, "profile_steps": [1, 2],
+          "emas": {"std0.05": {"std": 0.05}, "host_std0.05": {"std": 0.05, "cpu_offload": True}}}
+    fmt = MSMDCTDualFormat(config_from_dict(
+        MSMDCTDualFormatConfig, load_json(REPO / "configs" / "models" / "edm2_default"
+                                          / "format.json") or {}))
+    print(f"(a) m1 DAE training on {smi}: trainer config {m1['module_trainer_config']}, "
+          f"optimizer normuon, EMAs {m1['emas']}, profile_steps {m1['profile_steps']}",
+          flush=True)
+    found = {}
+
+    def after_m1(trainer, saved):
+        trace = m1_dir / "profiles" / "dae_steps_1-2.trace.json"
+        expect("profiler trace of step 1", trace.is_file() and trace.stat().st_size > 0,
+               f"{trace.name} {trace.stat().st_size if trace.is_file() else 0} bytes")
+        host, dev = trainer.host_ema["host_std0.05"], trainer.state.ema_state["std0.05"]
+        err = max(float((host[k] - dev[k].float().cpu()).abs().max()) for k in dev)
+        scale = max(float(dev[k].abs().max()) for k in dev)
+        expect("host-memory profile against the device profile of the same std",
+               err <= 1e-5 * scale, f"max abs diff {err:.3g} (max |w| {scale:.3g}, tol 1e-5 "
+               f"x max) after {trainer.state.global_step} steps")
+        ms, nbytes = host_ema_copy_ms(trainer)
+        found["copy"] = (ms, nbytes)
+        found["times"] = timed_steps(trainer)
+        found["batch"] = next(iter(trainer.dataloader.epoch_iter(trainer.epoch, 0)))
+
+    reset_counts()
+    stats = run_training(m1_dir, m1_dir / "audio", m1, "cuda", after=after_m1)
+    c = path_counts("m1 DAE training", ("mss2d_block_loss", "mss2d_block_loss_grad"),
+                    absent=others, only_routes=(("mss2d_block_loss", "fft"),
+                                                ("mss2d_block_loss_grad", "fft")))
+    print(f"  m1 launches: K5 {c['mss2d_block_loss']}, K6 {c['mss2d_block_loss_grad']}; no other "
+          f"kernel of K1-K7", flush=True)
+    m1_mss2d_check(found.pop("batch"), fmt)
+    ms, nbytes = found["copy"]
+    times = found["times"]
+    print(f"  m1 on {smi}: step {stats['step_s']:.4f} s after the first, peak "
+          f"{stats['peak_gib']:.2f} GiB; host-EMA hand-over (pack + copy to pinned memory) "
+          f"{np.median(ms):.3f} ms median of {[round(x, 3) for x in ms]} for "
+          f"{nbytes / 1e6:.1f} MB ({nbytes / np.median(ms) / 1e6:.2f} GB/s); step with the "
+          f"offload {[round(x, 4) for x in times[True]]} s, without "
+          f"{[round(x, 4) for x in times[False]]} s (median {np.median(times[True]):.4f} "
+          f"against {np.median(times[False]):.4f})", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- (b) the p1 DAE ----------------------------------------------------
+    p1_dir = root / "p1"
+    dae_training_path(p1_dir, steps=0)
+    p1 = {**base, "module_trainer_config": {**mtc, "use_random_prime_mss": True,
+                                            "equivariance_loss_weight": 0.1},
+          "optimizer": {"optimizer": "muon"}}
+    print(f"(b) p1 DAE training on {smi}: trainer config {p1['module_trainer_config']}, "
+          f"optimizer muon", flush=True)
+
+    def after_p1(trainer, saved):
+        found["opt"] = optimizer_step_ms(trainer.state.module)
+
+    reset_counts()
+    stats = run_training(p1_dir, p1_dir / "audio", p1, "cuda", after=after_p1)
+    path_counts("p1 DAE training", (), absent=tuple(name for name, *_ in KERNEL_INFO))
+    opt_ms, n_muon = found["opt"]
+    print(f"  p1 on {smi}: step {stats['step_s']:.4f} s after the first, peak "
+          f"{stats['peak_gib']:.2f} GiB; one optimizer update of the 102M-param DAE: Muon "
+          f"({n_muon} weights by NS5, AdamW the rest) {[round(x, 2) for x in opt_ms['muon']]} ms, "
+          f"AdamW {[round(x, 2) for x in opt_ms['adamw']]} ms (median "
+          f"{np.median(opt_ms['muon']):.2f} against {np.median(opt_ms['adamw']):.2f})",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- (c) the VAE and the discriminator at their default configs -------
+    reset_counts()
+    fcfg = fmt.config
+    vcfg, dcfg = VAEConfig(), DiscriminatorConfig()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    vae = VAE(vcfg, device="cuda").init_weights(g)
+    disc = Discriminator(dcfg, device="cuda").init_weights(g)
+    d = root / "vae_disc"
+    Pipeline({"vae": ModuleHandle("vae", "vae", vcfg, vae),
+              "disc": ModuleHandle("disc", "disc", dcfg, disc)}).save_pretrained(d)
+    pipe = Pipeline.from_pretrained(d)
+    for name, module in (("vae", vae), ("disc", disc)):
+        loaded = pipe.modules[name].module.state_dict().values()
+        same = all(torch.equal(a, b) for a, b in zip(module.state_dict().values(), loaded))
+        expect(f"{name} through save_pretrained / from_pretrained", same,
+               f"{sum(p.numel() for p in module.parameters()) / 1e6:.2f}M params equal")
+    vae, disc = pipe.modules["vae"].module, pipe.modules["disc"].module
+    raw = fmt.get_raw_crop_width()          # the format's 45 s
+    audio = torch.randn((1, 2, raw), generator=g, device="cuda") * 0.1
+    with torch.no_grad():
+        mel = fmt.raw_to_mel_spec(audio)
+        mel = mel[:, :, : mel.shape[2] // 8 * 8].contiguous()
+        vemb = vae.get_embeddings(torch.randn((1, vcfg.label_dim), generator=g, device="cuda"))
+        demb = disc.get_embeddings(torch.randn((1, dcfg.in_channels_emb), generator=g,
+                                               device="cuda"))
+        folded = mel.permute(0, 3, 1, 2)[..., None].contiguous()
+
+        def run_vae(x):
+            return vae(x, vemb, training=False)
+
+        def run_disc(x):
+            return disc(x, demb)
+        for name, fn, x in (("VAE encode + decode", run_vae, mel),
+                            ("discriminator", run_disc, folded)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: fn(x), 3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"  (c) {name} on a 45 s mel {tuple(x.shape)} on {smi}: {ms:.2f} ms a forward, "
+                  f"peak {peak:.2f} GiB", flush=True)
+        one = mel[:, :, :128]
+        with no_tf32():
+            cuda_out = [t.float().cpu() for t in (*run_vae(one)[:2], *run_disc(
+                one.permute(0, 3, 1, 2)[..., None].contiguous()))]
+        cvae, cdisc = copy.deepcopy(vae).cpu(), copy.deepcopy(disc).cpu()
+        vl, vr, _ = cvae(one.cpu(), vemb.cpu(), training=False)
+        dl, dk = cdisc(one.cpu().permute(0, 3, 1, 2)[..., None].contiguous(), demb.cpu())
+    for name, got, want in zip(("VAE latents", "VAE recon", "disc logits", "disc hidden kld"),
+                               cuda_out, (vl, vr, dl, dk)):
+        rel = float((got - want).norm() / want.norm())
+        expect(f"{name} at 1 s, card (TF32 off) against CPU", rel <= 1e-4,
+               f"rel L2 {rel:.3g} (tol 1e-4)")
+    path_counts("VAE and discriminator", (), absent=tuple(name for name, *_ in KERNEL_INFO))
 
 
 def factory_song(seed: int, seconds: float, sample_rate: int = 32000):
@@ -3335,6 +3596,15 @@ def main() -> int:
                                              ("mss2d_block_loss_grad", "fft"))).items()}
         print(f"  launches per DAE train step: K5 {per_step['mss2d_block_loss']:g}, "
               f"K6 {per_step['mss2d_block_loss_grad']:g}", flush=True)
+
+    # ---- the rest of training: the m1 and p1 DAEs, Muon / NorMuon, a host
+    # EMA, the profiler; the VAE and the discriminator ------------------------
+    with tempfile.TemporaryDirectory(prefix="dd_smoke_rest_") as tmp:
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rest_of_training_path(Path(tmp), path_counts, reset_launch_counts, smi)
+        print(f"rest of training phase: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- DDEC training, then joint DAE + DDEC training, at full width -------
     no_kernels = tuple(name for name, *_ in KERNEL_INFO)

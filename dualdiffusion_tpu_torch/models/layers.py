@@ -1,8 +1,9 @@
 """Magnitude-preserving layers, channel last (JAX: dualdiffusion_tpu/models/
-layers.py:160-269, 451-625, 629-650; reference: src/modules/mp_tools.py:316-378).
+layers.py:160-269, 451-625, 629-650, 680-748; reference: src/modules/mp_tools.py:316-378).
 
 MP weights are stored reference-style as (out, in/groups, *kernel) under
 the parameter name ``w_mp`` (``w_raw`` when weight norm is disabled).
+The filtered resamplers at the end back the equivariance loss.
 """
 
 from __future__ import annotations
@@ -192,3 +193,49 @@ class MPFourier(nn.Module):
         """(B,) -> (B, C)."""
         y = x.float()[:, None] * self.freqs[None, :] + self.phases
         return (torch.cos(y) * np.sqrt(2.0)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# filtered (anti-aliased) resamplers on channel-last tensors (JAX layers.py:680-748)
+# ---------------------------------------------------------------------------
+
+# copied from dualdiffusion_tpu/models/layers.py
+def _kaiser_sinc_1d(size: int, cutoff: float, beta: float) -> np.ndarray:
+    from ..ops.windows import kaiser
+    x = (np.arange(size) - (size - 1) / 2) * np.pi * cutoff
+    sinc = np.where(x == 0, 1.0, np.sin(x) / np.where(x == 0, 1.0, x))
+    k = sinc * kaiser(size, beta=beta, periodic=False)
+    return (k / k.sum()).astype(np.float64)
+
+
+def _sep_conv_axis(x: torch.Tensor, kernel: np.ndarray, dim: int, stride: int) -> torch.Tensor:
+    """Depthwise 1-D filter along ``dim`` of a channel-last tensor, reflect
+    padded as the reference pads (resample.py:49-53): (k//2, k//2 - even) at
+    stride 1, (k//2 - even, k//2) when striding."""
+    ks = kernel.shape[0]
+    even, hk = int(ks % 2 == 0), ks // 2
+    pad = (hk, hk - even) if stride == 1 else (hk - even, hk)
+    dim = dim % x.dim()
+    xm = x.movedim(dim, -2)                       # (..., T, C)
+    lead, (t, c) = xm.shape[:-2], xm.shape[-2:]
+    y = F.pad(xm.reshape(-1, t, c).transpose(1, 2), pad, mode="reflect")
+    w = torch.as_tensor(kernel, dtype=x.dtype, device=x.device).expand(c, 1, ks)
+    y = F.conv1d(y, w, stride=stride, groups=c).transpose(1, 2)
+    return y.reshape(lead + y.shape[-2:]).movedim(-2, dim)
+
+
+def filtered_downsample_2d(x: torch.Tensor, k_size: int = 7, beta: float = 1.5,
+                           factor: int = 2) -> torch.Tensor:
+    """(..., H, W, C) separable anti-aliased downsample by ``factor``."""
+    k = _kaiser_sinc_1d(k_size, 1.0 / factor, beta)
+    return _sep_conv_axis(_sep_conv_axis(x, k, -2, factor), k, -3, factor)
+
+
+def filtered_upsample_2d(x: torch.Tensor, k_size: int = 15, beta: float = 1.5,
+                         factor: int = 2) -> torch.Tensor:
+    """(..., H, W, C) zero-stuffed, then low-passed: an anti-aliased upsample."""
+    k = _kaiser_sinc_1d(k_size, 1.0 / factor, beta) * factor
+    h, w = x.shape[-3], x.shape[-2]
+    z = x.new_zeros(x.shape[:-3] + (h * factor, w * factor, x.shape[-1]))
+    z[..., ::factor, ::factor, :] = x
+    return _sep_conv_axis(_sep_conv_axis(z, k, -2, 1), k, -3, 1)

@@ -1,6 +1,6 @@
 """Magnitude-preserving primitive functions (the EDM2 MP toolkit), channel
 last, and the stereo mid/side transform (JAX: dualdiffusion_tpu/models/
-mp.py:30-136, 180-184; reference:
+mp.py:30-136, 180-215; reference:
 src/modules/mp_tools.py:42-311). 2D activations are (B, H, W, C), 3D
 stereo-folded ones (B, Z, H, W, C).
 """
@@ -83,3 +83,25 @@ def midside_transform(x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
     """Stereo mid/side: ((L+R), (L-R)) / sqrt(2) along ``channel_dim``."""
     l, r = x.select(channel_dim, 0), x.select(channel_dim, 1)
     return torch.stack([l + r, l - r], dim=channel_dim) * 0.5 ** 0.5
+
+
+def wavelet_decompose_2d(x: torch.Tensor, num_levels: int = 4) -> list:
+    """Laplacian pyramid on (..., H, W, C), finest level first (JAX mp.py:187-197)."""
+    wavelets = []
+    for i in range(num_levels):
+        if i == num_levels - 1:
+            wavelets.append(x)
+        else:
+            x_down = resample_2d(x, "down")
+            wavelets.append(x - resample_2d(x_down, "up"))
+            x = x_down
+    return wavelets
+
+
+def wavelet_recompose_2d(wavelets: list) -> torch.Tensor:
+    """The inverse of ``wavelet_decompose_2d``."""
+    x = list(wavelets)
+    y = x.pop()
+    while x:
+        y = resample_2d(y, "up") + x.pop()
+    return y

@@ -71,7 +71,8 @@ def stft(x: torch.Tensor, window: np.ndarray, n_fft: int, hop_length: int,
     win = pad_center(np.asarray(window, np.float64), n_fft)
     if normalized:
         win = win / np.sqrt(n_fft)
-    win = torch.as_tensor(win, dtype=torch.float32, device=x.device)
+    win = torch.as_tensor(win, dtype=torch.promote_types(x.dtype, torch.float32),
+                          device=x.device)
     if center:
         x = reflect_pad(x, n_fft // 2)
     return torch.fft.rfft(frame_signal(x, n_fft, hop_length) * win, n=n_fft)

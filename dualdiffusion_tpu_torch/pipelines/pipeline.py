@@ -27,10 +27,12 @@ import torch
 import torch.nn as nn
 
 from ..models.dae import DAE, DAEConfig
+from ..models.discriminator import Discriminator, DiscriminatorConfig
 from ..models.formats.format import _FORMAT_REGISTRY
 from ..models.formats.ms_mdct_dual import MSMDCTDualFormat
 from ..models.mp import normalize
 from ..models.unet import UNet, UNetConfig
+from ..models.vae import VAE, VAEConfig
 from ..sampling import SampleParams, edm_sample, seamless_loop_crossfade
 from ..utils import (config_from_dict, config_to_dict, load_json, load_safetensors,
                      save_json, save_safetensors)
@@ -41,6 +43,8 @@ MODULE_REGISTRY: Dict[str, Tuple[Callable, type]] = {
     "unet": (lambda cfg, device: UNet(cfg, device=device), UNetConfig),
     "ddec": (lambda cfg, device: UNet(cfg, device=device), UNetConfig),
     "dae": (lambda cfg, device: DAE(cfg, device=device), DAEConfig),
+    "vae": (lambda cfg, device: VAE(cfg, device=device), VAEConfig),
+    "disc": (lambda cfg, device: Discriminator(cfg, device=device), DiscriminatorConfig),
 }
 for _name, (_cls, _cfg_cls) in _FORMAT_REGISTRY.items():
     MODULE_REGISTRY[f"format:{_name}"] = ((lambda c: lambda cfg, device: c(cfg))(_cls), _cfg_cls)

@@ -15,13 +15,15 @@ from .ema import EMABank, EMAConfig
 from .module_trainers import (DAETrainConfig, DDECTrainConfig, JointDAEDDECConfig,
                               make_dae_train_step, make_ddec_train_step,
                               make_joint_dae_ddec_train_step)
-from .optim import Optimizer, build_optimizer, lr_schedule
+from .optim import Optimizer, build_optimizer, jax_param_paths, lr_schedule
 from .sigma_sampler import SigmaSamplerConfig
 from .train_state import UNetTrainConfig, init_train_state, make_unet_train_step
 from .trainer import TrainerConfig, register_module_trainer
 
 
 def make_optimizer(tconf: TrainerConfig, params) -> Optimizer:
+    """The config's optimizer over ``params``, (JAX path, parameter) pairs
+    (``jax_param_paths``) by which Muon routes."""
     lrc, oc = tconf.lr_schedule, tconf.optimizer
     lr = lr_schedule(lrc.lr_schedule, lrc.learning_rate, lrc.lr_warmup_steps,
                      lrc.lr_reference_steps, lrc.lr_decay_exponent, lrc.min_learning_rate)
@@ -53,7 +55,7 @@ def build_unet_trainer(pipeline, tconf: TrainerConfig, generator: torch.Generato
     model = pipeline.modules[tconf.module_name].module
     cfg = config_from_dict(UNetTrainConfig, dict(tconf.module_trainer_config))
     cfg.grad_accum_steps = tconf.gradient_accumulation_steps
-    opt = make_optimizer(tconf, model.parameters())
+    opt = make_optimizer(tconf, jax_param_paths(model))
     bank = make_ema_bank(tconf)
     step = make_unet_train_step(opt, bank, cfg,
                                 tconf.device_batch_size * tconf.gradient_accumulation_steps)
@@ -79,7 +81,8 @@ def build_dae_trainer(pipeline, tconf: TrainerConfig, generator: torch.Generator
     model = pipeline.modules[tconf.module_name].module
     cfg = config_from_dict(DAETrainConfig, dict(tconf.module_trainer_config))
     cfg.grad_accum_steps = tconf.gradient_accumulation_steps
-    opt = make_optimizer(tconf, model.parameters())
+    # the JAX DAE trainer's optimizer covers the "params" collection alone
+    opt = make_optimizer(tconf, jax_param_paths(model, collection=False))
     bank = make_ema_bank(tconf)
     step = make_dae_train_step(pipeline.format, opt, bank, cfg,
                                tconf.device_batch_size * tconf.gradient_accumulation_steps)
@@ -115,7 +118,7 @@ def build_ddec_trainer(pipeline, tconf: TrainerConfig, generator: torch.Generato
     dae.eval().requires_grad_(False)
     cfg = config_from_dict(DDECTrainConfig, dict(tconf.module_trainer_config))
     cfg.unet.grad_accum_steps = tconf.gradient_accumulation_steps
-    opt = make_optimizer(tconf, model.parameters())
+    opt = make_optimizer(tconf, jax_param_paths(model))
     bank = make_ema_bank(tconf)
     step = make_ddec_train_step(pipeline.format, dae, opt, bank, cfg,
                                 tconf.device_batch_size * tconf.gradient_accumulation_steps)
@@ -136,7 +139,9 @@ def build_joint_dae_ddec_trainer(pipeline, tconf: TrainerConfig, generator: torc
     module = torch.nn.ModuleDict({"dae": dae_h.module, "ddec": ddec_h.module})
     cfg = config_from_dict(JointDAEDDECConfig, dict(tconf.module_trainer_config))
     cfg.grad_accum_steps = tconf.gradient_accumulation_steps
-    opt = make_optimizer(tconf, module.parameters())
+    # JAX's joint tree: {"dae": the DAE's "params" collection, "ddec": its variables}
+    opt = make_optimizer(tconf, jax_param_paths(dae_h.module, False, "dae/")
+                         + jax_param_paths(ddec_h.module, True, "ddec/"))
     bank = make_ema_bank(tconf)
     step = make_joint_dae_ddec_train_step(
         pipeline.format, opt, bank, cfg,

@@ -1,17 +1,23 @@
 """Multi-profile EMA bank with power-function profiles, feedback and switch
-EMA, bf16 archive snapshots and post-hoc reconstruction from them (JAX:
-dualdiffusion_tpu/training/ema.py:38-270, 418-459; reference: src/training/ema.py).
+EMA, host-memory profiles, bf16 archive snapshots and post-hoc
+reconstruction from them (JAX: dualdiffusion_tpu/training/ema.py; reference:
+src/training/ema.py).
 
 A profile is a dict name -> tensor beside the model's parameters and
 persistent buffers (the DAE's latent stats: the JAX bank averages every
 variable collection it is given, "stats" with "params"), updated in place
 after each optimizer step (``torch._foreach`` lerp in the
-accumulation dtype, stored in the profile's dtype). Profiles kept in host
-memory (``cpu_offload``, JAX ``AsyncHostEMA``) are not ported yet.
+accumulation dtype, stored in the profile's dtype). A ``cpu_offload``
+profile lives in host memory as fp32 CPU tensors (``EMABank.host_init`` /
+``host_update``), driven by ``AsyncHostEMA``: each step's weights go to the
+host as one packed fp32 buffer, copied without blocking into pinned memory,
+and a worker thread lerps them once the copy's CUDA event has completed.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -133,8 +139,13 @@ class EMAConfig:
         if self.store_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"ema '{self.name}': store_dtype must be "
                              f"float32|bfloat16, got {self.store_dtype}")
-        if self.cpu_offload:
-            raise NotImplementedError(f"ema '{self.name}': cpu_offload is not ported")
+        if self.cpu_offload and (self.feedback_beta is not None
+                                 or self.num_switch_ema_epochs):
+            raise ValueError(f"ema '{self.name}': cpu_offload is incompatible "
+                             f"with feedback/switch EMA (host profile cannot "
+                             f"write back into the jitted step)")
+        if self.cpu_offload and self.use_float64:
+            raise ValueError(f"ema '{self.name}': host profiles are fp32")
 
 
 def trained_tensors(module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -144,7 +155,9 @@ def trained_tensors(module: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 class EMABank:
-    """Named EMA profiles of one module's parameters."""
+    """Named EMA profiles of one module's parameters: the device profiles in
+    the train state, updated by ``update``; the ``cpu_offload`` ones
+    (``offloaded``) by ``host_update``."""
 
     def __init__(self, configs: List[EMAConfig]) -> None:
         names = [c.name for c in configs]
@@ -155,6 +168,7 @@ class EMABank:
         if len(switch) > 1:
             raise ValueError("only one EMA can be the switch EMA")
         self.switch_ema_name = switch[0] if switch else None
+        self.offloaded = [c.name for c in configs if c.cpu_offload]
 
     @staticmethod
     def storage_dtype(cfg: EMAConfig) -> torch.dtype:
@@ -173,10 +187,11 @@ class EMABank:
         return beta
 
     def init(self, module: nn.Module) -> Dict[str, Profile]:
-        """Every profile starts as a copy of the module's tracked tensors."""
+        """Every device profile starts as a copy of the module's tracked
+        tensors; the host profiles live apart (``host_init``)."""
         return {name: {k: p.detach().to(self.storage_dtype(cfg), copy=True)
                        for k, p in trained_tensors(module).items()}
-                for name, cfg in self.configs.items()}
+                for name, cfg in self.configs.items() if not cfg.cpu_offload}
 
     @torch.no_grad()
     def update(self, ema_state: Dict[str, Profile], module: nn.Module,
@@ -186,6 +201,8 @@ class EMABank:
         itself."""
         params = trained_tensors(module)
         for name, cfg in self.configs.items():
+            if cfg.cpu_offload:
+                continue
             b = self.beta(cfg, total_samples_processed, batch_size, global_step)
             store = self.storage_dtype(cfg)
             keys = list(ema_state[name])
@@ -204,6 +221,23 @@ class EMABank:
                 torch._foreach_mul_(tgt, fb)
                 torch._foreach_add_(tgt, [e.to(t.dtype) for e, t in zip(ema, tgt)],
                                     alpha=1.0 - fb)
+
+    def host_init(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, Profile]:
+        """The host profiles, each an fp32 CPU copy of ``tensors``."""
+        return {name: {k: v.detach().to("cpu", torch.float32, copy=True)
+                       for k, v in tensors.items()} for name in self.offloaded}
+
+    @torch.no_grad()
+    def host_update(self, host_state: Dict[str, Profile], tensors: Dict[str, torch.Tensor],
+                    total_samples_processed: int, batch_size: int, global_step: int) -> None:
+        """One EMA step of every host profile toward ``tensors`` (fp32 CPU),
+        in place, with the counters from before the step."""
+        for name in self.offloaded:
+            b = self.beta(self.configs[name], total_samples_processed, batch_size, global_step)
+            keys = list(host_state[name])
+            ema = [host_state[name][k] for k in keys]
+            torch._foreach_mul_(ema, b)
+            torch._foreach_add_(ema, [tensors[k] for k in keys], alpha=1.0 - b)
 
     def get_betas(self, total_samples_processed: int, batch_size: int) -> Dict[str, float]:
         return {name: cfg.beta if cfg.beta is not None else
@@ -233,6 +267,119 @@ class EMABank:
 
     def validation_emas(self) -> List[str]:
         return [n for n, c in self.configs.items() if c.include_in_validation]
+
+
+class AsyncHostEMA:
+    """Drives the bank's ``cpu_offload`` profiles off the training thread.
+
+    ``update`` packs the module's tensors into one fp32 device buffer, starts
+    its copy into pinned host memory without blocking, records a CUDA event
+    after it, and queues the lerp for a single worker thread, which waits on
+    the event before it reads. A depth-1 queue bounds the staleness to one
+    step, and updates apply in submission order. Three pinned buffers take
+    turns: while one is filled, the queue holds at most one and the worker
+    reads at most one. On CPU tensors the copy is a plain one.
+
+    Read ``profiles`` only after ``sync()``. A worker's exception is raised
+    again by the next ``update`` or ``sync``.
+    """
+
+    RING = 3
+
+    def __init__(self, bank: EMABank, batch_size: int):
+        self.bank = bank
+        self.batch_size = batch_size
+        self.profiles: Optional[Dict[str, Profile]] = None
+        self._queue: "queue.Queue" = queue.Queue(maxsize=1)
+        self._error: Optional[BaseException] = None
+        self._layout = None        # (keys, shapes, sizes) of the packed buffer
+        self._packed = None        # the device buffer the step's tensors are packed into
+        self._host: List[torch.Tensor] = []
+        self._turn = 0
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="async-host-ema")
+        self._thread.start()
+
+    def restore(self, profiles: Optional[Dict[str, Profile]]) -> None:
+        """Install profiles (seeded by ``EMABank.host_init`` from the weights
+        before the first step, or restored from a checkpoint); a missing one
+        is seeded from the weights of the next update."""
+        self.sync()
+        self.profiles = profiles or None
+
+    def update(self, tensors: Dict[str, torch.Tensor], total_samples_processed: int,
+               global_step: int) -> None:
+        """Submit one EMA step toward ``tensors``, the module's tensors after
+        the step just taken; the counters are the state's after it."""
+        self._raise_pending()
+        host, event = self._stage(tensors)
+        self._queue.put((host, event, self._layout, total_samples_processed, global_step))
+
+    def _stage(self, tensors: Dict[str, torch.Tensor]):
+        keys = list(tensors)
+        layout = (keys, [tuple(tensors[k].shape) for k in keys],
+                  [tensors[k].numel() for k in keys])
+        if self._layout != layout:
+            self.sync()
+            self._layout = layout
+            first = tensors[keys[0]]
+            self._packed = torch.empty((sum(layout[2]),), dtype=torch.float32,
+                                       device=first.device)
+            self._host = [torch.empty((sum(layout[2]),), dtype=torch.float32,
+                                      pin_memory=first.is_cuda) for _ in range(self.RING)]
+        with torch.no_grad():
+            torch.cat([tensors[k].detach().reshape(-1).float() for k in keys], out=self._packed)
+        host = self._host[self._turn]
+        self._turn = (self._turn + 1) % self.RING
+        event = None
+        if self._packed.is_cuda:
+            host.copy_(self._packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host.copy_(self._packed)
+        return host, event
+
+    def sync(self) -> None:
+        """Block until every submitted update has been applied."""
+        self._queue.join()
+        self._raise_pending()
+
+    def close(self) -> None:
+        self._queue.put(None)
+        self._thread.join()
+
+    def _raise_pending(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _worker(self) -> None:
+        while True:
+            item = self._queue.get()
+            try:
+                if item is None:
+                    return
+                host, event, (keys, shapes, sizes), tsp, step = item
+                if event is not None:
+                    event.synchronize()     # the copy has landed in ``host``
+                views, ofs = {}, 0
+                for k, shape, n in zip(keys, shapes, sizes):
+                    views[k] = host[ofs:ofs + n].view(shape)
+                    ofs += n
+                if self.profiles is None:
+                    # driven without a seed: the first weights seed, one lerp late
+                    self.profiles = self.bank.host_init(views)
+                    continue
+                for name in self.bank.offloaded:
+                    if name not in self.profiles:     # a partial restore
+                        self.profiles[name] = {k: v.clone() for k, v in views.items()}
+                self.bank.host_update(self.profiles, views, int(tsp) - self.batch_size,
+                                      self.batch_size, int(step) - 1)
+            except BaseException as e:      # raised again by the next update() or sync()
+                self._error = e
+            finally:
+                self._queue.task_done()
 
 
 def save_ema_archive(profile: Profile, path, global_step: int,

@@ -5,15 +5,20 @@ ddec_q4_trainer.py:46-145, trainer.py:204-209).
 
 The DAE step, as the JAX step: per microbatch, a random stereo flip, the
 label embedding of the batch's ``audio_embeddings`` where it has them, the
-mel spectrogram (cropped by ``crop_edges`` and cut to a multiple of the
-DAE's downsample ratio), the DAE's training forward (which moves its latent
-stats), the recon loss (MSS2D, fused through K5/K6 with
-``use_fused_mss2d``) plus a decaying point L1, its NLL under the learned
-logvar, the phase-invariance term (a second encode, with
-``training=False``, of the mel of a phase-rotated MDCT view of the same
-audio), optional dispersion, and KL-to-unit-variance on the pre-norm
-latents; then the summed gradients / accum -> clip -> AdamW -> forced MP
-weight norm -> EMA of the parameters and the stats buffers.
+samples (``domain="mel"``, the p1 trainer: the mel spectrogram;
+``domain="mdct"``, the m1 trainer: the MDCT of a random phase rotation),
+cropped by ``crop_edges`` and cut to a multiple of the DAE's downsample
+ratio, the DAE's training forward (which moves its latent stats), the
+recon loss (MSS2D, fused through K5/K6 with ``use_fused_mss2d``, or the
+randomized-prime MSS with ``use_random_prime_mss``; plus the prime-width
+1-D MSS over the width axis with ``mss1d_prime_loss_weight``) plus a
+decaying point L1, its NLL under the learned logvar, the phase-invariance
+term (a second encode, with ``training=False``, of another phase rotation
+of the same audio: its mel, or in the MDCT domain the rotated MDCT
+itself), optional dispersion and latent shift-equivariance, and
+KL-to-unit-variance on the pre-norm latents; then the summed gradients /
+accum -> clip -> the optimizer -> forced MP weight norm -> EMA of the
+parameters and the stats buffers.
 
 The DDEC step is the UNet diffusion step over a prepare stage that uses the
 frozen DAE as its teacher: stereo flip, MDCT with a per-sample phase
@@ -26,9 +31,7 @@ Each step's random draws (stereo flips, phase angles, noise) are made apart
 from its arithmetic, from the state's ``torch.Generator``, so a test can
 pass in the draws of JAX's key splits. The JAX phase rotation lines its (B,)
 angles up with the channel axis (per sample only at B = 1, an error at B > 2
-unless B = C); the port rotates each sample by its own angle. The DAE's
-MDCT-domain variant, the randomized-prime MSS, the 1-D prime MSS and the
-equivariance loss are not ported.
+unless B = C); the port rotates each sample by its own angle.
 """
 
 from __future__ import annotations
@@ -43,8 +46,10 @@ import torch
 from ..models.mp import normalize
 from ..ops.kernels import mss2d_loss_fused
 from .ema import EMABank
-from .losses import (MSSLoss2D, MSSLoss2DConfig, latents_dispersion_loss,
-                     phase_invariance_loss)
+from .losses import (PRIME_BLOCK_STEPS_1D, PRIME_BLOCK_WIDTHS_1D, EquivarianceLossConfig,
+                     MSSLoss2D, MSSLoss2DConfig, PrimeMSSDraws, draw_equivariance_offsets,
+                     draw_random_prime_mss, equivariance_loss, latents_dispersion_loss,
+                     phase_invariance_loss, prime_mss_1d, random_prime_mss_2d)
 from .optim import Optimizer, normalize_mp_weights
 from .sigma_sampler import SigmaSampler
 from .train_state import (TrainState, UNetTrainConfig, make_unet_eval_step,
@@ -71,7 +76,7 @@ class DAETrainConfig:
     random_stereo_augmentation: bool = True
     crop_edges: int = 4
     grad_accum_steps: int = 1
-    domain: str = "mel"               # "mel" (p1) | "mdct" (m1, not ported)
+    domain: str = "mel"               # "mel" (p1) | "mdct" (m1)
     use_random_prime_mss: bool = False
     #: the recon loss through K5/K6 (ops/kernels/mss2d.py): no unfolded block
     #: tensor for widths >= 32; midside "stack" or "none" only
@@ -84,11 +89,16 @@ class DAETrainConfig:
 class DAEMicroDraws:
     """One microbatch's random draws (None where the option is off)."""
     stereo_flip: Optional[torch.Tensor]   # (b,) bool
-    phase_theta: Optional[torch.Tensor]   # (b,) MDCT rotation angles
+    phase_theta: Optional[torch.Tensor]   # (b,) the phase-invariance view's MDCT angles
+    mdct_theta: Optional[torch.Tensor] = None   # (b,) the m1 samples' MDCT angles
+    prime_mss: Optional[PrimeMSSDraws] = None   # the randomized-prime MSS's draws
+    #: each sample's equivariance crop offsets (yo, xo), on the host
+    equivariance: Optional[Tuple[List[int], List[int]]] = None
 
     def to(self, device) -> "DAEMicroDraws":
-        return DAEMicroDraws(*(None if t is None else t.to(device)
-                               for t in (self.stereo_flip, self.phase_theta)))
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).to(device) for k in ("stereo_flip", "phase_theta", "mdct_theta")
+            if getattr(self, k) is not None})
 
 
 def _draw_flip_theta(generator: torch.Generator, b: int, flip: bool,
@@ -99,22 +109,30 @@ def _draw_flip_theta(generator: torch.Generator, b: int, flip: bool,
         torch.rand((b,), generator=generator, device=dev) * (2 * np.pi) if theta else None)
 
 
-def draw_dae_step(generator: torch.Generator, config: DAETrainConfig,
-                  micro_batch: int) -> List[DAEMicroDraws]:
-    """Every random number one DAE train step uses, from ``generator``."""
-    return [_draw_flip_theta(generator, micro_batch, config.random_stereo_augmentation,
-                             config.phase_invariance_loss_weight > 0)
-            for _ in range(config.grad_accum_steps)]
+def draw_dae_step(generator: torch.Generator, config: DAETrainConfig, micro_batch: int,
+                  sample_hw: Optional[Tuple[int, int]] = None) -> List[DAEMicroDraws]:
+    """Every random number one DAE train step uses, from ``generator``;
+    ``sample_hw`` is the samples' (rows, frames) after the crop and
+    alignment, which the randomized-prime MSS's draws need."""
+    cfg = config
+    draws = []
+    for _ in range(cfg.grad_accum_steps):
+        d = _draw_flip_theta(generator, micro_batch, cfg.random_stereo_augmentation,
+                             cfg.phase_invariance_loss_weight > 0)
+        if cfg.domain == "mdct":
+            d.mdct_theta = torch.rand((micro_batch,), generator=generator,
+                                      device=generator.device) * (2 * np.pi)
+        if cfg.use_random_prime_mss:
+            d.prime_mss = draw_random_prime_mss(generator, *sample_hw)
+        if cfg.equivariance_loss_weight > 0:
+            d.equivariance = draw_equivariance_offsets(generator, micro_batch)
+        draws.append(d)
+    return draws
 
 
-def _check_ported(cfg: DAETrainConfig) -> None:
-    if cfg.domain != "mel":
-        raise NotImplementedError(f"DAETrainConfig.domain={cfg.domain!r} is not ported")
-    if cfg.use_random_prime_mss:
-        raise NotImplementedError("DAETrainConfig.use_random_prime_mss is not ported")
-    for name in ("mss1d_prime_loss_weight", "equivariance_loss_weight"):
-        if getattr(cfg, name) > 0:
-            raise NotImplementedError(f"DAETrainConfig.{name} > 0 is not ported")
+def _check_config(cfg: DAETrainConfig) -> None:
+    if cfg.domain not in ("mel", "mdct"):
+        raise ValueError(f"DAETrainConfig.domain must be 'mel' or 'mdct', not {cfg.domain!r}")
     if cfg.use_fused_mss2d and cfg.mss2d.use_midside_transform not in ("stack", "none"):
         raise ValueError("the fused MSS2D takes midside 'stack' or 'none'")
 
@@ -126,7 +144,7 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
     {"audio": (B, C, T), "audio_embeddings": (B, E) optional}, B = device
     batch x grad_accum_steps."""
     cfg = config
-    _check_ported(cfg)
+    _check_config(cfg)
     mss = MSSLoss2D(cfg.mss2d)
     c = cfg.crop_edges
     accum = cfg.grad_accum_steps
@@ -137,11 +155,34 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
     def decay(step: int, n: int) -> float:
         return 0.0 if n <= 0 else max(1.0 - step / n, 0.0)
 
-    def mel_view(model, audio: torch.Tensor) -> torch.Tensor:
-        mel = fmt.raw_to_mel_spec(audio)
-        mel = mel[:, :, c:-c] if c > 0 else mel
+    def crop_align(model, x: torch.Tensor) -> torch.Tensor:
+        x = x[:, :, c:-c] if c > 0 else x
         ds = model.downsample_ratio
-        return mel[:, :, : mel.shape[2] // ds * ds]
+        return x[:, :, : x.shape[2] // ds * ds]
+
+    def sample_view(model, audio: torch.Tensor, theta: Optional[torch.Tensor]) -> torch.Tensor:
+        """The samples (mel) or, in the MDCT domain, the MDCT rotated by ``theta``."""
+        if cfg.domain == "mel":
+            return crop_align(model, fmt.raw_to_mel_spec(audio))
+        return crop_align(model, fmt.raw_to_mdct(audio, theta))
+
+    def alt_view(model, audio: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+        """The phase-invariance view: the rotated MDCT, as a mel in the mel domain."""
+        mdct = fmt.raw_to_mdct(audio, theta)
+        if cfg.domain == "mel":
+            return crop_align(model, fmt.raw_to_mel_spec(fmt.mdct_to_raw(mdct)))
+        return crop_align(model, mdct)
+
+    sample_hw: Dict[Tuple[int, ...], Tuple[int, int]] = {}
+
+    @torch.no_grad()
+    def sample_hw_of(model, audio: torch.Tensor) -> Tuple[int, int]:
+        """The samples' (rows, frames) for audio of this shape, from one silent clip."""
+        key = tuple(audio.shape[1:])
+        if key not in sample_hw:
+            silent = audio.new_zeros((1,) + key)
+            sample_hw[key] = tuple(sample_view(model, silent, silent.new_zeros(1)).shape[1:3])
+        return sample_hw[key]
 
     def loss_fn(model, audio: torch.Tensor, emb_in: Optional[torch.Tensor],
                 draws: DAEMicroDraws, step: int):
@@ -151,18 +192,27 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
         dae_emb = (model.get_embeddings(normalize(emb_in.float(), dim=-1))
                    if emb_in is not None else None)
         with torch.no_grad():
-            samples = mel_view(model, audio)
+            samples = sample_view(model, audio, draws.mdct_theta)
         latents, recon, pre_norm = model(samples, dae_emb, training=True)
 
         s_cf = samples.permute(0, 3, 1, 2)
         r_cf = recon.float().permute(0, 3, 1, 2)
-        if cfg.use_fused_mss2d:
+        if cfg.use_random_prime_mss:
+            recon_loss = random_prime_mss_2d(r_cf, s_cf, draws.prime_mss)
+        elif cfg.use_fused_mss2d:
             recon_loss = mss2d_loss_fused(
                 r_cf, s_cf, block_widths=cfg.mss2d.block_widths,
                 block_overlap=cfg.mss2d.block_overlap,
                 use_midside=cfg.mss2d.use_midside_transform == "stack")
         else:
             recon_loss = mss(r_cf, s_cf)
+        if cfg.mss1d_prime_loss_weight > 0:
+            # over the width (time) axis of (B, C*H, W), block widths capped at W
+            s1 = s_cf.reshape(s_cf.shape[0], -1, s_cf.shape[-1])
+            r1 = r_cf.reshape(r_cf.shape[0], -1, r_cf.shape[-1])
+            bws = tuple(b for b in PRIME_BLOCK_WIDTHS_1D if b <= s1.shape[-1])
+            recon_loss = recon_loss + prime_mss_1d(
+                r1, s1, bws, PRIME_BLOCK_STEPS_1D[:len(bws)]) * cfg.mss1d_prime_loss_weight
         point_loss = (recon - samples).abs().mean(dim=(1, 2, 3))
         recon_loss = recon_loss + point_loss * (cfg.point_loss_weight
                                                 * decay(step, cfg.point_loss_warmup_steps))
@@ -175,7 +225,7 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
 
         if cfg.phase_invariance_loss_weight > 0:
             with torch.no_grad():
-                alt = mel_view(model, fmt.mdct_to_raw(fmt.raw_to_mdct(audio, draws.phase_theta)))
+                alt = alt_view(model, audio, draws.phase_theta)
             latents2 = model.encode(alt, dae_emb, training=False)
             pi = phase_invariance_loss(latents, latents2.float()) / 2.0
             total = total + pi.mean() * cfg.phase_invariance_loss_weight * reg_w
@@ -184,6 +234,12 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
             disp = latents_dispersion_loss(latents)
             total = total + disp.mean() * cfg.latents_dispersion_loss_weight * reg_w
             logs["loss_dispersion"] = disp.mean()
+        if cfg.equivariance_loss_weight > 0:
+            eq_cfg = EquivarianceLossConfig(levels=int(np.log2(model.downsample_ratio)) + 1)
+            eq = equivariance_loss(lambda m: model.encode(m, dae_emb, training=False), samples,
+                                   latents.float(), draws.equivariance, eq_cfg)
+            total = total + eq.mean() * cfg.equivariance_loss_weight * reg_w
+            logs["loss_equivariance"] = eq.mean()
 
         var = pre_norm.square().mean(dim=(0, 1, 2)) + 1e-20
         kl = (var - 1.0 - torch.log(var)).mean() + (
@@ -204,7 +260,8 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
             raise ValueError(f"batch of {n} does not split into {accum} microbatches")
         mb = n // accum
         if draws is None:
-            draws = draw_dae_step(state.generator, cfg, mb)
+            hw = sample_hw_of(model, audio) if cfg.use_random_prime_mss else None
+            draws = draw_dae_step(state.generator, cfg, mb, hw)
         optimizer.zero_grad()
         loss_sum = 0.0
         logs_seq: Dict[str, List[torch.Tensor]] = {}

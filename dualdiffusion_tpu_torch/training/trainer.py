@@ -6,26 +6,34 @@ trainer.py).
   the module-trainer registry;
 * checkpoints (``<module>_checkpoint-<step>/``): the module in model-directory
   format, every EMA profile (``<module>/ema_<name>.safetensors``), the
-  optimizer, clip, sigma-pdf, counter and generator state (``train_state.pt``)
-  and ``trainer_state.json``, rotated by ``checkpoints_total_limit``; resume
-  restores all of it and fast-forwards the epoch to its next batch. A state
+  optimizer, clip, sigma-pdf, counter and generator state (``train_state.pt``),
+  ``trainer_state.json`` and a snapshot of the port's source
+  (``src_snapshot/``), rotated by ``checkpoints_total_limit``; resume
+  restores all of it, fast-forwards the epoch to its next batch and writes
+  ``<model>/src_diff_<stamp>.txt`` when the source changed since. A state
   whose module is an ``nn.ModuleDict`` (the joint DAE + DDEC trainer) keeps
   each member in its own folder of the checkpoint, with its own EMA files
   and ``<member>_ema_archive/``;
+* ``cpu_offload`` EMA profiles in host memory, updated each step by an
+  ``AsyncHostEMA`` worker, seeded from the weights before the first step,
+  checkpointed, restored and validated as the device ones;
 * per-step scalars (loss, grad norm, lr, EMA betas, bucketed losses) to the
-  log and ``Trainer.history``, and their means at each epoch's end;
-  per-sample losses to
+  log, ``Trainer.history`` and tensorboardX under ``<model>/logs/<module>``
+  (where tensorboardX is installed: without it, to the log only), and their
+  means at each epoch's end; per-sample losses to
   ``per_sample_losses.json``; bf16 EMA archives; SwitchEMA; validation over
-  the train weights and the EMA profiles.
-
-Tensorboard, the source snapshot and diff, and the profiler hook of the JAX
-trainer are not ported yet.
+  the train weights and the EMA profiles;
+* a ``torch.profiler`` trace of the steps [start, stop) of
+  ``profile_steps`` into ``profile_dir`` (default ``<model>/profiles``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
+import difflib
 import logging
+import os
 import shutil
 import time
 from dataclasses import dataclass, field
@@ -37,11 +45,15 @@ import torch
 
 from ..utils import load_json, load_safetensors, save_json, save_safetensors
 from ..weights import flat_to_state, state_to_flat
-from .ema import EMABank, power_function_beta, save_ema_archive, trained_tensors
+from .ema import AsyncHostEMA, EMABank, power_function_beta, save_ema_archive, trained_tensors
 from .optim import lr_schedule, normalize_mp_weights
 from .train_state import TrainState
 
 logger = logging.getLogger(__name__)
+
+#: the port's package, whose source each checkpoint snapshots
+SOURCE_ROOT = Path(__file__).resolve().parents[1]
+SOURCE_SUFFIXES = (".py", ".cu", ".cuh")
 
 
 @dataclass
@@ -173,8 +185,6 @@ class Trainer:
         export_module_fn(path, module, global_step) writes the module in
         model-directory format. eval_step(module, batch, generator) -> loss
         enables validation over the train weights and every EMA profile."""
-        if config.profile_steps is not None:
-            raise NotImplementedError("profile_steps (the profiler hook) is not ported")
         self.config = config
         self.train_step = train_step
         self.state = init_state
@@ -192,6 +202,11 @@ class Trainer:
         self.epoch_batch_idx = 0
         self._resume_skip_batches = 0
         self._pending_sample_losses: Dict[str, float] = {}
+        # the cpu_offload EMA profiles' worker; ``host_ema`` syncs it before a read
+        self._async_host_ema: Optional[AsyncHostEMA] = None
+        self._profiler = None
+        self.trace_path: Optional[Path] = None
+        self.writer = self._make_writer()
         lrc = config.lr_schedule
         self._lr_fn = lr_schedule(lrc.lr_schedule, lrc.learning_rate, lrc.lr_warmup_steps,
                                   lrc.lr_reference_steps, lrc.lr_decay_exponent,
@@ -200,6 +215,60 @@ class Trainer:
         if config.enable_anomaly_detection:
             torch.autograd.set_detect_anomaly(True)
             logger.info("anomaly detection enabled")
+
+    # ---- observability ----------------------------------------------------
+    def _make_writer(self):
+        """A tensorboardX writer under ``logging.logging_dir``, else
+        ``<model>/logs/<module>``; None without a directory or without
+        tensorboardX."""
+        logdir = self.config.logging.logging_dir
+        if logdir is None and self.config.model_path:
+            logdir = os.path.join(self.config.model_path, "logs", self.config.module_name)
+        if logdir is None:
+            return None
+        try:
+            from tensorboardX import SummaryWriter
+            os.makedirs(logdir, exist_ok=True)
+            return SummaryWriter(logdir)
+        except Exception:
+            logger.warning("tensorboard unavailable; metrics to log only")
+            return None
+
+    def _log_scalars(self, logs: Dict[str, float], step: int) -> None:
+        if self.writer is not None:
+            for k, v in logs.items():
+                self.writer.add_scalar(k, v, step)
+
+    def _maybe_profile(self, step: int) -> None:
+        """A ``torch.profiler`` trace over the steps [start, stop) of
+        ``profile_steps``, written when it stops."""
+        cfg = self.config
+        if cfg.profile_steps is None:
+            return
+        start, stop = cfg.profile_steps
+        if step == start and self._profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+            self._profile_start = step
+            logger.info("profiler trace started at step %d", step)
+        elif step >= stop and self._profiler is not None:
+            self._stop_profile(step)
+
+    def _stop_profile(self, step: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        d = Path(self.config.profile_dir or os.path.join(self.config.model_path or ".",
+                                                         "profiles"))
+        d.mkdir(parents=True, exist_ok=True)
+        path = d / f"{self.config.module_name}_steps_{self._profile_start}-{step}.trace.json"
+        self._profiler.export_chrome_trace(str(path))
+        self._profiler = None
+        self.trace_path = path
+        logger.info("profiler trace stopped -> %s", path)
 
     @property
     def device(self) -> torch.device:
@@ -218,6 +287,43 @@ class Trainer:
     def _part(tensors: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
         return {k[len(prefix):]: v for k, v in tensors.items() if k.startswith(prefix)}
 
+    # ---- host-offloaded EMA profiles ------------------------------------------
+    @property
+    def host_ema(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+        """The ``cpu_offload`` profiles (fp32 CPU tensors), with every
+        submitted step applied."""
+        if self._async_host_ema is None:
+            return None
+        self._async_host_ema.sync()
+        return self._async_host_ema.profiles
+
+    @host_ema.setter
+    def host_ema(self, value) -> None:
+        if value is None and self._async_host_ema is None:
+            return
+        self._host_ema_worker().restore(value)
+
+    def _host_ema_worker(self) -> AsyncHostEMA:
+        if self._async_host_ema is None:
+            self._async_host_ema = AsyncHostEMA(self.ema_bank, self.total_batch_size)
+        return self._async_host_ema
+
+    def _ema_profile(self, ema_name: str) -> Optional[Dict[str, torch.Tensor]]:
+        """One EMA profile's current tensors, on the device or in host memory."""
+        if ema_name in self.ema_bank.offloaded:
+            host = self.host_ema
+            return None if host is None else host.get(ema_name)
+        return self.state.ema_state[ema_name]
+
+    def _update_host_emas(self) -> None:
+        """Submit the step just taken to the host profiles' worker; its beta
+        uses the counters from before the step, as ``EMABank.update``."""
+        if self.ema_bank is None or not self.ema_bank.offloaded:
+            return
+        st = self.state
+        self._host_ema_worker().update(trained_tensors(st.module), st.total_samples_processed,
+                                       st.global_step)
+
     # ---- checkpointing ------------------------------------------------------
     def _checkpoint_dir(self, step: int) -> Path:
         return Path(self.config.model_path) / f"{self.config.module_name}_checkpoint-{step}"
@@ -230,8 +336,11 @@ class Trainer:
             self.export_module_fn(ckpt, st.module, st.global_step)
         if self.ema_bank is not None:
             for ema_name, cfg in self.ema_bank.configs.items():
+                profile = self._ema_profile(ema_name)
+                if profile is None:
+                    continue        # a host profile not seeded yet
                 for name, prefix in self._members().items():
-                    save_safetensors(state_to_flat(self._part(st.ema_state[ema_name], prefix)),
+                    save_safetensors(state_to_flat(self._part(profile, prefix)),
                                      ckpt / name / f"ema_{ema_name}.safetensors",
                                      metadata={"std": str(cfg.std),
                                                "global_step": str(st.global_step)})
@@ -245,10 +354,47 @@ class Trainer:
                    "epoch_batch_idx": self.epoch_batch_idx,
                    "total_samples_processed": st.total_samples_processed,
                    "total_train_hours": self.total_train_hours}, ckpt / "trainer_state.json")
+        self._snapshot_source(ckpt / "src_snapshot")
+        if self.writer is not None:
+            self.writer.flush()
         self._rotate_checkpoints()
         self.last_checkpoint_time = time.time()
         logger.info("saved checkpoint %s", ckpt)
         return ckpt
+
+    @staticmethod
+    def _source_files(root: Path) -> List[Path]:
+        return sorted(p for p in root.rglob("*") if p.suffix in SOURCE_SUFFIXES
+                      and "build" not in p.relative_to(root).parts[:-1])
+
+    def _snapshot_source(self, dst: Path) -> None:
+        """Copy the port's source (Python and CUDA) into ``dst``."""
+        for src in self._source_files(SOURCE_ROOT):
+            out = dst / src.relative_to(SOURCE_ROOT)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy2(src, out)
+
+    def _write_src_diff(self, ckpt: Path) -> Optional[Path]:
+        """A unified diff of the checkpoint's source snapshot against the
+        package as it is now, in ``<model>/src_diff_<stamp>.txt``, when they
+        differ."""
+        snap = ckpt / "src_snapshot"
+        if not snap.is_dir():
+            return None
+        diffs: List[str] = []
+        for old in self._source_files(snap):
+            rel = old.relative_to(snap)
+            new = SOURCE_ROOT / rel
+            new_lines = new.read_text().splitlines(keepends=True) if new.is_file() else []
+            diffs += difflib.unified_diff(old.read_text().splitlines(keepends=True), new_lines,
+                                          fromfile=f"snapshot/{rel}", tofile=f"worktree/{rel}")
+        if not diffs:
+            return None
+        stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        out = Path(self.config.model_path) / f"src_diff_{stamp}.txt"
+        out.write_text("".join(diffs))
+        logger.info("source changed since the checkpoint; diff at %s", out)
+        return out
 
     def _rotate_checkpoints(self) -> None:
         limit = self.config.checkpoints_total_limit
@@ -277,11 +423,25 @@ class Trainer:
                                       ).items():
                 part[k].copy_(v)
             if self.ema_bank is not None:
-                for ema_name in self.ema_bank.configs:
+                for ema_name in st.ema_state:
                     profile = self._part(st.ema_state[ema_name], prefix)
                     flat = load_safetensors(module_dir / f"ema_{ema_name}.safetensors")
                     for k, v in flat_to_state(profile, flat).items():
                         profile[k].copy_(v)
+        if self.ema_bank is not None and self.ema_bank.offloaded:
+            # the host profiles, as fp32 CPU tensors under the state's keys
+            like = {k: v.detach().cpu().float() for k, v in params.items()}
+            restored = {}
+            for ema_name in self.ema_bank.offloaded:
+                profile: Dict[str, torch.Tensor] = {}
+                for name, prefix in self._members().items():
+                    path = ckpt / name / f"ema_{ema_name}.safetensors"
+                    if path.is_file():
+                        part = flat_to_state(self._part(like, prefix), load_safetensors(path))
+                        profile.update({prefix + k: v for k, v in part.items()})
+                if profile:
+                    restored[ema_name] = profile
+            self.host_ema = restored or None
         ts = torch.load(ckpt / "train_state.pt", map_location="cpu")
         st.optimizer.load_state_dict(ts["optimizer"])
         st.sigma_pdf = ts["sigma_pdf"].to(st.sigma_pdf.device)
@@ -293,6 +453,7 @@ class Trainer:
         self.total_train_hours = meta.get("total_train_hours", 0.0)
         self.epoch_batch_idx = meta.get("epoch_batch_idx", 0)
         self._resume_skip_batches = self.epoch_batch_idx
+        self._write_src_diff(ckpt)
         logger.info("resumed from %s at step %d (epoch %d, fast-forward %d batches)",
                     ckpt, st.global_step, self.epoch, self._resume_skip_batches)
         return True
@@ -301,14 +462,29 @@ class Trainer:
     def train(self, max_steps: Optional[int] = None) -> TrainState:
         cfg = self.config
         max_steps = max_steps or cfg.max_train_steps
-        name = cfg.module_name
         trigger = Path(cfg.model_path) / "_save_checkpoint" if cfg.model_path else None
+        if self.ema_bank is not None and self.ema_bank.offloaded and self.host_ema is None:
+            # seeded from the weights before the first step, as the device profiles
+            self.host_ema = self.ema_bank.host_init(trained_tensors(self.state.module))
+        try:
+            return self._train(max_steps, trigger)
+        finally:
+            if self._profiler is not None:
+                self._stop_profile(self.state.global_step)
+            if self.writer is not None:
+                self.writer.flush()
+
+    def _train(self, max_steps: int, trigger: Optional[Path]) -> TrainState:
+        cfg = self.config
+        name = cfg.module_name
         while self.epoch < cfg.num_train_epochs:
             for batch in self._epoch_iter():
                 t0 = time.perf_counter()
                 paths = batch.pop("paths", None)
+                self._maybe_profile(self.state.global_step)
                 logs = self.train_step(self.state, batch)
                 self.epoch_batch_idx += 1
+                self._update_host_emas()
                 step = self.state.global_step
                 loss = float(logs["loss"])        # waits for the step's device work
                 if not np.isfinite(loss):
@@ -339,6 +515,7 @@ class Trainer:
                         if counts[i] > 0:
                             scalars[f"loss_buckets/{name}_{i}"] = float(sums[i] / counts[i])
                 self.train_logger.add_logs(scalars)
+                self._log_scalars(scalars, step)
                 self.history.append({"step": step, "loss": loss, "grad_norm": grad_norm,
                                      "seconds": seconds})
                 logger.info("step %d epoch %d loss %.6g grad_norm %.6g lr %.6g %.3f s", step,
@@ -403,11 +580,12 @@ class Trainer:
             return
         for ema_name, cfg in self.ema_bank.configs.items():
             n = cfg.num_archive_steps
-            if n and step % n == 0:
+            profile = self._ema_profile(ema_name) if n and step % n == 0 else None
+            if profile is not None:
                 for name, prefix in self._members().items():
                     path = (Path(self.config.model_path) / f"{name}_ema_archive"
                             / f"{step}_ema_{ema_name}.safetensors")
-                    save_ema_archive(self._part(self.state.ema_state[ema_name], prefix), path,
+                    save_ema_archive(self._part(profile, prefix), path,
                                      step, self.state.total_samples_processed, cfg.std or 0.0)
                 logger.info("archived ema '%s' at step %d", ema_name, step)
 
@@ -435,7 +613,9 @@ class Trainer:
         candidates: Dict[str, Optional[Dict[str, torch.Tensor]]] = {"train": None}
         if self.ema_bank is not None:
             for ema_name in self.ema_bank.validation_emas():
-                candidates[f"ema_{ema_name}"] = self.state.ema_state[ema_name]
+                profile = self._ema_profile(ema_name)
+                if profile is not None:
+                    candidates[f"ema_{ema_name}"] = profile
         results: Dict[str, float] = {}
         for cand, profile in candidates.items():
             generator = torch.Generator(device=self.device).manual_seed(0)
@@ -447,6 +627,8 @@ class Trainer:
                     losses.append(float(self.eval_step(module, batch, generator)))
             if losses:
                 results[cand] = float(np.mean(losses))
+        self._log_scalars({f"loss_validation/{k}": v for k, v in results.items()},
+                          self.state.global_step)
         logger.info("validation @ step %d: %s", self.state.global_step,
                     {k: round(v, 4) for k, v in results.items()})
         return results

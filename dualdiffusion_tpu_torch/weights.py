@@ -29,7 +29,8 @@ COLLECTIONS = {
 #: (torch pattern, flax replacement) renames, applied in order to a torch
 #: key whose '.' separators already became '/'
 TORCH_TO_FLAX = [
-    (r"^(enc|dec)/(\d+)/", r"\1_\2/"),   # DAE block lists: enc.3 <-> enc_3
+    # block lists: the DAE's and VAE's enc.3 <-> enc_3, the discriminator's blocks.3 <-> blocks_3
+    (r"^(enc|dec|blocks)/(\d+)/", r"\1_\2/"),
 ]
 
 SCALAR_SUFFIX = "#0d"

@@ -409,6 +409,48 @@ def test_mss2d_fused_loss_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bw", [32, 64])
+def test_mss2d_on_mdct_images_matches_plain(cuda, bw):
+    """K5/K6 on what the m1 DAE step feeds them: (B, 2, 256, W) MDCT images
+    of seeded stereo audio (signed, unlike a mel), rotated per sample, cut
+    as the trainer cuts them, mid/side stacked and reflect-padded by bw/2 at
+    stride bw/8. Per-image losses to 1e-4 relative; the gradient to 1e-4 of
+    max with target = sample / 2 and to 1e-3 relative L2 against the
+    reconstruction (see test_mss2d_kernels_match_plain)."""
+    import torch.nn.functional as F
+    from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
+    from dualdiffusion_tpu_torch.models.mp import midside_transform
+    fmt = MSMDCTDualFormat(MSMDCTDualFormatConfig())
+    g = torch.Generator(device=cuda).manual_seed(21)
+    t = torch.arange(48000, device=cuda) / 32000
+    audio = (0.3 * torch.sin(2 * np.pi * 440 * t) * torch.ones((2, 2, 1), device=cuda)
+             + 0.05 * torch.randn((2, 2, 48000), generator=g, device=cuda))
+    theta = torch.rand((2,), generator=g, device=cuda) * 2 * np.pi
+    with torch.no_grad():
+        x = fmt.raw_to_mdct(audio, theta)[:, :, 4:-4]
+        x = x[:, :, : x.shape[2] // 8 * 8].permute(0, 3, 1, 2)
+    assert x.shape[:3] == (2, 2, 256)
+    recon = x + 0.1 * torch.randn(x.shape, generator=g, device=cuda)
+    stride, pad = bw // 8, bw // 2
+    s, tt = (F.pad((midside_transform(v, 1) * np.sqrt(2.0)).reshape(-1, 1, *x.shape[2:]),
+                   (pad,) * 4, mode="reflect")[:, 0] for v in (recon, x))
+    gg = torch.rand((s.shape[0],), generator=g, device=cuda) + 0.5
+    win, wgt = _window_2d("flat_top", bw), product_weights(bw) / bw
+    before = mss2d_block_loss.routes["fft"], mss2d_block_loss_grad.routes["fft"]
+    got = mss2d_block_loss(s, tt, bw, stride, win, wgt)
+    want = mss2d_block_loss_plain(s, tt, bw, stride, win, wgt)
+    assert ((got - want).abs() <= 1e-4 * want.abs()).all()
+    for a, b in zip(mss2d_block_loss_grad(s, 0.5 * s, gg, bw, stride, win, wgt),
+                    mss2d_block_loss_grad_plain(s, 0.5 * s, gg, bw, stride, win, wgt)):
+        assert _rel_err(a.cpu(), b.cpu()) <= 1e-4
+    a = mss2d_block_loss_grad(s, tt, gg, bw, stride, win, wgt, need_target=False)[0]
+    b = mss2d_block_loss_grad_plain(s, tt, gg, bw, stride, win, wgt, need_target=False)[0]
+    assert ((a - b).norm() / b.norm()).item() <= 1e-3
+    assert (mss2d_block_loss.routes["fft"], mss2d_block_loss_grad.routes["fft"]) == \
+        (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("l,h,d,window,causal", [
     (300, 3, 64, None, False),   # dense, ragged last tile
     (256, 3, 64, None, True),    # causal

@@ -288,13 +288,19 @@ def test_dae_train_step_matches_jax():
 
 
 def test_unported_dae_options_raise():
-    """Options whose paths are not ported refuse to build a step; the
-    TPU-only W-packing of the DAE refuses to build the model."""
+    """Every option of the JAX DAE trainer builds a step (the MDCT domain,
+    the randomized-prime and prime-width 1-D MSS, the equivariance loss);
+    the fused MSS2D refuses the "cat" mid/side (JAX asserts) and an unknown
+    domain refuses to build; the TPU-only W-packing of the DAE refuses to
+    build the model."""
     fmt = _formats()[1]
     opt = build_optimizer("adamw", [torch.nn.Parameter(torch.zeros(2))], 1e-3)
     for kw in (dict(domain="mdct"), dict(use_random_prime_mss=True),
                dict(mss1d_prime_loss_weight=1.0), dict(equivariance_loss_weight=1.0)):
-        with pytest.raises(NotImplementedError):
+        assert callable(make_dae_train_step(fmt, opt, None, DAETrainConfig(**kw), 2))
+    for kw in (dict(domain="raw"),
+               dict(use_fused_mss2d=True, mss2d=MSSLoss2DConfig(use_midside_transform="cat"))):
+        with pytest.raises(ValueError):
             make_dae_train_step(fmt, opt, None, DAETrainConfig(**kw), 2)
     with pytest.raises(NotImplementedError):
         DAE(DAEConfig(**DAE_KW, w_pack_channels=64))

@@ -411,7 +411,7 @@ def test_ddec_train_entry_runs_and_resumes_on_cpu(tmp_path):
 
     m = tmp_path / "m"
     ck2, ck3 = m / "ddec_checkpoint-2", m / "ddec_checkpoint-3"
-    assert sorted(p.name for p in ck3.iterdir() if p.is_dir()) == ["ddec"]
+    assert sorted(p.name for p in ck3.iterdir() if p.is_dir()) == ["ddec", "src_snapshot"]
     assert (m / "ddec_ema_archive" / "2_ema_std0.05.safetensors").is_file()
     ts = torch.load(ck3 / "train_state.pt")
     assert ts["global_step"] == 3 and ts["total_samples_processed"] == 12

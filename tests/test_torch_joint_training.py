@@ -212,7 +212,7 @@ def test_joint_train_entry_exports_resumes_and_loads_both_modules(tmp_path):
     assert resumed.state.global_step == 3 and np.isfinite(resumed.history[-1]["loss"])
 
     ck2, ck3 = m / "ddec_checkpoint-2", m / "ddec_checkpoint-3"
-    assert sorted(p.name for p in ck3.iterdir() if p.is_dir()) == ["dae", "ddec"]
+    assert sorted(p.name for p in ck3.iterdir() if p.is_dir()) == ["dae", "ddec", "src_snapshot"]
     beta = power_function_beta(0.05, 8 + 4, 4)
     for name in ("dae", "ddec"):
         assert (m / f"{name}_ema_archive" / "2_ema_std0.05.safetensors").is_file()
