@@ -40,21 +40,21 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    CFG 1.5, Heun, SPSI + 100 Griffin-Lim iterations), checking the audio and
    that K1, K2 and K3 were launched (every K3 call on its Hopper route) and
    K7 was not (its "freq" attention
-   sees L <= 32); then the same for ``ref_scale_full_attn`` (the same model
-   with "full" attention at levels 1, 3 and 4), where K7 must be launched
-   at level 1 (L 5504); then DDEC serving: the same UNet and DAE on the
+   sees L <= 32); then the same at 50 steps for ``ref_scale_full_attn`` (the
+   same model with "full" attention at levels 1, 3 and 4), where K7 must be
+   launched at level 1 (L 5504); then DDEC serving: the same UNet and DAE on the
    edm2_default MS-MDCT dual format with the DDEC of
    configs/models/edm2_ddec_mclt_b1a, ``generate(decode_mode="auto")``
-   twice (the DDEC samples (1, 256, 5504, 2) MDCT coefficients with the
-   same 100 Heun steps, conditioned on the mel's 2048-row linear PSD; no
+   twice at 50 steps (the DDEC samples (1, 256, 5504, 2) MDCT coefficients
+   with the same 50 Heun steps, conditioned on the mel's 2048-row linear PSD; no
    CFG), printing each stage's seconds and peak memory and checking the
    audio and that K1 was launched and K2, K3 and K7 were not; then one
    full-width DDEC forward (ms, analytic GFLOP, TFLOP/s, bf16 bound);
 6. drives the options of ``generate`` that ``sample.py`` and the model
    server use, on a fourth copy of the reference-scale pipeline: img2img
-   from the first serving clip at strength 0.5 (K1 for 50 of the 100 steps)
+   from the first serving clip at strength 0.5 (K1 for 25 of 50 steps)
    and 0, inpainting 10-20 s on ``convert_unet_to_inpainting``'s UNet (all
-   100 steps, and one full-width forward with a zero reference against the
+   50 steps, and one full-width forward with a zero reference against the
    original), the seamless loop under Griffin-Lim and under the DDEC
    (shifts that change from step to step, the crossfaded length), a
    chunked preview aborted after 3 chunks of 10 steps, and
@@ -67,7 +67,7 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    ``python -m dualdiffusion_tpu_torch.create_new_model`` writes it from a
    seed on the card; ``serving.launch(device="cuda")`` spawns the model
    server, which loads it and warms up (``compile_model``); the UI's handlers
-   behind a local HTTP server take a plain request (45 s, 100 Heun steps, CFG
+   behind a local HTTP server take a plain request (45 s, 50 Heun steps, CFG
    1.5, the DDEC decode; its preview, WAV and spectrogram), an editor inpaint
    of 10-20 s, an editor append, a request aborted after its first preview,
    and a rating and a save, each timed against the same clip in-process;
@@ -122,7 +122,7 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    width: the reference scale with the d1 options (``use_3d``, stereo-wrapped
    io convs without bias, W reflect padding, a skip conv in every block, the
    constant and ln-freq channels, a double midblock with attention, "full"
-   attention at levels 1, 3 and 4) through ``edm_sample`` for 100 Heun
+   attention at levels 1, 3 and 4) through ``edm_sample`` for 50 Heun
    steps at CFG 1.5 on a (1, 2, 32, 688, 4) sample (K7 exactly 7 times a
    forward, K1 never: its convs are 5-D, on cuDNN), then its train step on
    5-D latents ("freq" attention at levels 3-4, dropout 0.1, device batch 8
@@ -137,10 +137,26 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    configs/tests/format_test.json, ``dae_test`` on edm2_default and on the
    spectrogram-format edm2_dae_d3a, ``sigma_sampler_test``), checking the
    files each writes, and the dataset factory's encode with edm2_dae_d3a on
-   two seeded 45 s songs.
+   two seeded 45 s songs;
+15. the parallel phase, in processes started by ``python -m
+   torch.distributed.run``: (a) the UNet training path's run under a process
+   group of one over NCCL, with ``parallel.fsdp`` (over one rank the
+   weights stay whole) and then plain data parallelism (4 steps, then 1
+   after ``--resume`` under FSDP), its first step against the plain
+   trainer's, its K1 and K4 launches those of the UNet training path's
+   steps, the FSDP checkpoint loaded by a single-device pipeline; (b) two
+   data-parallel ranks on the one card over gloo, each with half of a global
+   batch of 16, whose averaged gradient must equal one process's over the
+   same batch; (c) K1 at the tensor-parallel shard's shapes (4 of the 8
+   groups, half the channels) against its plain version; (d) img2img at
+   strength 0.5 from 5 s of seeded audio (25 steps) on the reference-scale
+   pipeline with the DAE moved to the CPU by ``Pipeline.to``: the encode and
+   the decode on the CPU, the sampler on the card.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
-one full-width DAE train step (step 9's model, data and config).
+one full-width DAE train step (step 9's model, data and config). The
+arguments ``--parallel-train`` and ``--parallel-gloo`` run one rank of
+step 15 (a) and (b); step 15 starts them.
 
 Any failure raises, so the exit code is not 0. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -152,6 +168,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -161,6 +178,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SAMPLER_STEPS = 100
 SEEDS = (1, 2)
+#: steps of the generation options' and the 3-D UNet's samplers: half the
+#: serving path's, to keep the whole script within its time limit
+OPTIONS_STEPS = 50
+#: steps of the full-attention and DDEC serving paths and of the web UI's
+#: requests: half the reference-scale serving path's, for the same reason
+CUT_SERVING_STEPS = 50
 TRAIN_BATCH = 8          # device batch of the training path
 TRAIN_ACCUM = 2          # gradient accumulation steps
 TRAIN_STEPS = 4          # then one more after --resume
@@ -469,7 +492,7 @@ def kernel_phase_conv_backward(unet, groups: int, lat_h: int, lat_w: int, gen):
             cudnn[key] += t[1]
             lv["dgrad" if key == "dgrad" else "K4 wgrad"] += t[0]
             lv[f"cuDNN {key}"] += t[1]
-            r[2] += n * time_ms(plain)
+            r[2] += n * time_ms(plain, 3)
         flops += n * 2 * 9 * cin * cout // groups * b * h * w
         nbytes += n * 2 * (b * h * w * (cin + cout) + 9 * cin // groups * cout)
     print_levels("per UNet backward,", levels)
@@ -1058,7 +1081,8 @@ def train_slice_phase():
                           "versions)", out, lr)
 
 
-def check_train_agreement(what: str, out: dict, lr: float) -> None:
+def check_train_agreement(what: str, out: dict, lr: float,
+                          names=("on the card", "the CPU run")) -> None:
     """``out[dev]`` = (losses, grad norms, flat params, flat EMA) of the same
     steps on "cuda" and "cpu". Both run bf16 trunks and round at different
     places: loss and grad norm agree to 2e-2 relative. AdamW's first updates
@@ -1073,7 +1097,7 @@ def check_train_agreement(what: str, out: dict, lr: float) -> None:
         ok = rel <= 2e-2
         print(f"  {name} {a} vs {b}: rel {rel:.3g} (tol 2e-2) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"{what}: {name} on the card disagrees with the CPU run")
+            raise AssertionError(f"{what}: {name} {names[0]} disagrees with {names[1]}")
     worst, far, total = 0.0, 0, 0
     for got, want in ((pg, pc), (eg, ec)):
         for k in want:
@@ -1085,7 +1109,7 @@ def check_train_agreement(what: str, out: dict, lr: float) -> None:
     print(f"  params and EMA: max abs diff {worst:.3g} (tol {6 * lr:g}), {far} of {total} "
           f"elements beyond lr/2 (tol 2%) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError(f"{what}: params on the card disagree with the CPU run")
+        raise AssertionError(f"{what}: params {names[0]} disagree with {names[1]}")
 
 
 def mss2d_dft_route_check(gen) -> None:
@@ -1503,7 +1527,7 @@ def flash_crossover(gen) -> None:
           f"{FLASH_MIN_SEQ}): {json.dumps(line)}", flush=True)
 
 
-def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla"):
+def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla", steps: int = SAMPLER_STEPS):
     """``Pipeline.from_pretrained`` then ``generate`` once per seed, checking
     the audio's shape, finiteness and loudness; returns the pipeline, the
     first seed's audio and {seed: seconds of its generate}."""
@@ -1513,7 +1537,7 @@ def serving_path(model_dir, fmt, prompt, decode_mode: str = "fgla"):
     t0 = time.perf_counter()
     pipe = Pipeline.from_pretrained(model_dir, device="cuda")
     print(f"from_pretrained: {time.perf_counter() - t0:.2f} s", flush=True)
-    params = SampleParams(steps=SAMPLER_STEPS, cfg_scale=1.5, use_heun=True,
+    params = SampleParams(steps=steps, cfg_scale=1.5, use_heun=True,
                           num_fgla_iters=100, fgla_phase_init="spsi")
     decode = ("the DDEC (same steps, no CFG), inverse MDCT" if decode_mode != "fgla"
               else f"{params.num_fgla_iters} FGLA iters")
@@ -1624,12 +1648,12 @@ def seamless_conv_check(unet, lat_h: int, lat_w: int, gen) -> None:
 def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, clip,
                             k1_per_forward: int, card: str) -> None:
     """The options of ``generate`` at full width on the reference-scale
-    pipeline (100 Heun steps, CFG 1.5, SPSI + 100 Griffin-Lim iterations):
-    img2img from the first serving clip at strength 0.5 (K1 launched for 50
-    steps, half a clip's latent stage) and 0 (no step: the latents are the
+    pipeline (50 Heun steps, CFG 1.5, SPSI + 100 Griffin-Lim iterations):
+    img2img from the first serving clip at strength 0.5 (K1 launched for 25
+    steps, half the latent stage) and 0 (no step: the latents are the
     input's normalized encoding plus sigma_min's noise, 0.05 relative L2 as
     tests/test_torch_generate_options.py states); inpainting 10-20 s on the
-    converted UNet (its 4 + 4 + 1 inputs, every forward of all 100 steps);
+    converted UNet (its 4 + 4 + 1 inputs, every forward of all 50 steps);
     the seamless loop under Griffin-Lim and under the DDEC (shifts that
     differ from step to step; the audio shorter by the crossfade); the
     chunked preview with an abort after 3 chunks of 10 steps; and the
@@ -1647,9 +1671,9 @@ def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, 
     from dualdiffusion_tpu_torch.training.ema import save_ema_archive
     from dualdiffusion_tpu_torch.utils import (get_audio_loudness, load_audio, save_audio,
                                                save_safetensors)
-    base = SampleParams(steps=SAMPLER_STEPS, cfg_scale=1.5, use_heun=True, num_fgla_iters=100,
+    base = SampleParams(steps=OPTIONS_STEPS, cfg_scale=1.5, use_heun=True, num_fgla_iters=100,
                         fgla_phase_init="spsi")
-    print(f"generation options on {card}: {SAMPLER_STEPS} steps (CFG 1.5, Heun), SPSI + 100 "
+    print(f"generation options on {card}: {OPTIONS_STEPS} steps (CFG 1.5, Heun), SPSI + 100 "
           f"Griffin-Lim iterations or the DDEC; seed {SEEDS[0]}", flush=True)
 
     def run(what, pipe, params, want_k1_steps, **kw):
@@ -1679,7 +1703,7 @@ def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, 
     audio = clip[0]
     # ---- img2img at strength 0.5 and 0 ----
     run("img2img (strength 0.5)", pipe, dataclasses.replace(base, img2img_strength=0.5),
-        SAMPLER_STEPS // 2, input_audio=audio)
+        OPTIONS_STEPS // 2, input_audio=audio)
     out, debug = run("img2img (strength 0)", pipe, dataclasses.replace(base, img2img_strength=0.0),
                      0, input_audio=audio)
     enc = normalize(pipe.encode_input_audio(audio)) * sd
@@ -1702,10 +1726,10 @@ def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, 
     mask = inpainting_mask(pipe, 10.0, 20.0, fmt.config.sample_rate)
     cols = int(mask.sum())
     out, debug = run("inpainting 10-20 s", pipe, dataclasses.replace(base, img2img_strength=0.5),
-                     SAMPLER_STEPS, input_audio=audio, inpainting_mask=mask)
+                     OPTIONS_STEPS, input_audio=audio, inpainting_mask=mask)
     hook.remove()
-    expect("unet_inpainting forwards", len(calls) == 2 * SAMPLER_STEPS and
-           len(debug["sample_std"]) == SAMPLER_STEPS,
+    expect("unet_inpainting forwards", len(calls) == 2 * OPTIONS_STEPS and
+           len(debug["sample_std"]) == OPTIONS_STEPS,
            f"{len(calls)} forwards, {len(debug['sample_std'])} steps ({cols} of "
            f"{mask.shape[2]} latent columns regenerated)")
     lat = out["latents"]
@@ -1736,7 +1760,7 @@ def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, 
         if name == "Griffin-Lim":
             pipe.modules.pop("unet_inpainting")
         out, debug = run(f"seamless loop ({name})", pipe,
-                         dataclasses.replace(base, seamless_loop=True), SAMPLER_STEPS, **kw)
+                         dataclasses.replace(base, seamless_loop=True), OPTIONS_STEPS, **kw)
         hop = loop_hop_length(f.config)
         want_len = f.get_raw_crop_width() - int((LOOP_PAD - 0.5) * hop) * 2
         expect("audio length", out["raw"].shape[-1] == want_len,
@@ -1747,8 +1771,8 @@ def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, 
                 continue
             shifts = dbg["step_shifts"]
             moved = sum(a != b for a, b in zip(shifts, shifts[1:]))
-            expect(f"{stage} stage's shifts", len(shifts) == SAMPLER_STEPS and
-                   moved >= SAMPLER_STEPS - 5, f"{len(set(shifts))} distinct of "
+            expect(f"{stage} stage's shifts", len(shifts) == OPTIONS_STEPS and
+                   moved >= OPTIONS_STEPS - 5, f"{len(set(shifts))} distinct of "
                    f"{len(shifts)}, {moved} changes between steps")
         del pipe
 
@@ -1856,7 +1880,7 @@ def web_ui_serving_path(root: Path, ucfg, dcfg, raw_len: int, clip_s: dict, card
     edm2_ddec_mclt_b1a DDEC) from a seed; ``launch(device="cuda")`` spawns the
     model server, which loads it and runs ``compile_model``; the port's UI
     handlers behind a port-0 HTTP server take, at full width (45 s, batch 1,
-    100 Heun steps, CFG 1.5, decoded by the DDEC under "auto"), (a) a plain
+    50 Heun steps, CFG 1.5, decoded by the DDEC under "auto"), (a) a plain
     request (its preview PNG, WAV and spectrogram PNG), (b) an editor inpaint
     of 10-20 s of output 0, (c) an editor append, (d) a request aborted after
     its first preview and (e) a rating and a save, each checked to have come
@@ -1899,7 +1923,7 @@ def web_ui_serving_path(root: Path, ucfg, dcfg, raw_len: int, clip_s: dict, card
     save_safetensors({k: torch.randn(ucfg.in_channels_emb, generator=rng).numpy()
                       for k in ("label_a_audio", "_unconditional_audio")},
                      model_dir / "dataset_embeddings.safetensors")
-    body = {"steps": SAMPLER_STEPS, "cfg_scale": 1.5, "use_heun": True, "num_fgla_iters": 100,
+    body = {"steps": CUT_SERVING_STEPS, "cfg_scale": 1.5, "use_heun": True, "num_fgla_iters": 100,
             "fgla_phase_init": "spsi", "seed": SEEDS[0], "prompt": {"label_a": 1.0}}
 
     # the server's device memory: the card's free memory as this process sees
@@ -2118,15 +2142,33 @@ def _same(a, b) -> bool:
     return a == b
 
 
+def capture_first_step(trainer, into: dict) -> None:
+    """Wrap the trainer's step so that ``into`` gets the first step's loss,
+    grad norm and whole parameters (flat, on the host)."""
+    step = trainer.train_step
+
+    def wrapped(state, batch):
+        logs = step(state, batch)
+        if not into:
+            from dualdiffusion_tpu_torch.parallel import gathered
+            from dualdiffusion_tpu_torch.weights import to_flat
+            with gathered(state.module):   # copies: to_flat shares a CPU tensor's memory
+                into.update(loss=float(logs["loss"]), grad_norm=float(logs["grad_norm"]),
+                            params={k: v.copy() for k, v in to_flat(state.module).items()})
+        return logs
+    trainer.train_step = wrapped
+
+
 def run_training(model_dir: Path, data_dir: Path, config: dict, device: str,
-                 steps: int = TRAIN_STEPS, after=None) -> dict:
+                 steps: int = TRAIN_STEPS, after=None, first=None) -> dict:
     """The port's training entry on ``model_dir`` (a pipeline model
     directory) with the TrainerConfig ``config``: ``steps`` steps, then
     ``--resume`` for one more. Checks finite losses, that params and every
     EMA moved, and that the resumed state is the saved one exactly;
     ``after(trainer, saved)`` checks more on the resumed trainer and the
-    snapshot of the state before its step. Returns step seconds (after the
-    first), samples/s and peak memory."""
+    snapshot of the state before its step; ``first``, a dict, gets the first
+    step (``capture_first_step``). Returns step seconds (after the first),
+    samples/s and peak memory."""
     import gc
     import numpy as np
     import torch
@@ -2140,7 +2182,10 @@ def run_training(model_dir: Path, data_dir: Path, config: dict, device: str,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = train.main(argv + ["--max_steps", str(steps)])
+    trainer = train.build_trainer(train.parse_args(argv + ["--max_steps", str(steps)]))
+    if first is not None:
+        capture_first_step(trainer, first)
+    trainer.train(max_steps=steps)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
     history = list(trainer.history)
@@ -2188,20 +2233,28 @@ def run_training(model_dir: Path, data_dir: Path, config: dict, device: str,
     return stats
 
 
-def unet_training_path(model_dir: Path, latent_chw, emb_dim: int, device: str) -> dict:
+def unet_train_config(latent_w: int) -> dict:
+    """The UNet training path's TrainerConfig: device batch 8 x accumulation
+    2, one EMA, no warm-up, the latents' whole width."""
+    return {"device_batch_size": TRAIN_BATCH, "gradient_accumulation_steps": TRAIN_ACCUM,
+            "module_name": "unet", "lr_schedule": {"lr_warmup_steps": 0},
+            "emas": {"std0.05": {"std": 0.05}},
+            "dataloader": {"latents_crop_width": latent_w}}
+
+
+def unet_training_path(model_dir: Path, latent_chw, emb_dim: int, device: str,
+                       first=None) -> dict:
     """UNet training on a synthetic latent dataset (the JAX trainer's
-    default crop), device batch 8 x accumulation 2, one EMA, no warm-up."""
+    default crop), device batch 8 x accumulation 2, one EMA, no warm-up;
+    ``first`` as in ``run_training``."""
     from dualdiffusion_tpu_torch.dataset import write_latent_dataset
     data_dir = model_dir / "latents"
     write_latent_dataset(data_dir, TRAIN_SAMPLES, latent_chw, emb_dim, seed=5)
     print(f"UNet training: latents {tuple(latent_chw)}, device batch {TRAIN_BATCH} x accumulation "
           f"{TRAIN_ACCUM}, {TRAIN_SAMPLES} samples, {TRAIN_STEPS} steps then --resume for 1",
           flush=True)
-    return run_training(model_dir, data_dir, {
-        "device_batch_size": TRAIN_BATCH, "gradient_accumulation_steps": TRAIN_ACCUM,
-        "module_name": "unet", "lr_schedule": {"lr_warmup_steps": 0},
-        "emas": {"std0.05": {"std": 0.05}},
-        "dataloader": {"latents_crop_width": latent_chw[-1]}}, device)
+    return run_training(model_dir, data_dir, unet_train_config(latent_chw[-1]), device,
+                        first=first)
 
 
 def dae_training_path(model_dir: Path, device: str = "cuda", steps: int = TRAIN_STEPS):
@@ -3021,7 +3074,7 @@ def kernel_phase_flash_3d(gen) -> None:
 
 
 def unet_3d_path(gen, prompt, path_counts, smi: str) -> None:
-    """The stereo-folded 3-D UNet at full width: 100 Heun steps at CFG 1.5
+    """The stereo-folded 3-D UNet at full width: 50 Heun steps at CFG 1.5
     through ``edm_sample`` on a (1, 2, 32, 688, 4) sample ("full" attention:
     K7 at level 1, 7 calls a forward; every conv is 5-D, on cuDNN, so K1
     never launches), then the UNet's train step on 5-D latents with "freq"
@@ -3042,7 +3095,7 @@ def unet_3d_path(gen, prompt, path_counts, smi: str) -> None:
     print(f"3-D UNet: {n_params / 1e6:.1f}M params, sample {UNET3D_SHAPE}, attention "
           f"{cfg.attn_axis!r} at levels {cfg.attn_levels} (level 1 L {FLASH3D_L}); {smi}",
           flush=True)
-    params = SampleParams(steps=SAMPLER_STEPS, cfg_scale=1.5, use_heun=True)
+    params = SampleParams(steps=OPTIONS_STEPS, cfg_scale=1.5, use_heun=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -3058,8 +3111,8 @@ def unet_3d_path(gen, prompt, path_counts, smi: str) -> None:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     c = path_counts("3-D UNet sampling", ("flash_attention",),
                     absent=("grouped_conv3x3", "grouped_conv3x3_wgrad"))
-    forwards = 2 * SAMPLER_STEPS
-    expect(f"3-D UNet sampling: {SAMPLER_STEPS} Heun steps at CFG {params.cfg_scale} in "
+    forwards = 2 * OPTIONS_STEPS
+    expect(f"3-D UNet sampling: {OPTIONS_STEPS} Heun steps at CFG {params.cfg_scale} in "
            f"{secs:.3f} s ({secs / forwards * 1e3:.2f} ms a forward), peak memory {peak:.2f} "
            f"GiB, output {tuple(out.shape)} std {out.float().std().item():.4f}",
            tuple(out.shape) == UNET3D_SHAPE and bool(torch.isfinite(out).all())
@@ -3383,6 +3436,305 @@ def print_device_time(prof, what: str, wall_s: float, clock: str, top: int = 15)
               flush=True)
 
 
+
+# ---------------------------------------------------------------------------
+# the parallel phase: ranks of torch.distributed.run
+# ---------------------------------------------------------------------------
+
+PARALLEL_LR = 3e-3       # the UNet training path's rate (TrainerConfig's default, no warm-up)
+PARALLEL_MODES = ("fsdp", "dp")     # (a): FSDP, then plain data parallelism
+RESUMED_MODE = "fsdp"    # (a): the run that also resumes for a step
+TO_STEPS = 25            # (d): sampler steps of the clip with the DAE on the CPU
+GLOO_RANKS = 2           # (b): data-parallel ranks on the one card
+GLOO_BATCH = 4           # (b): each rank's device batch, x TRAIN_ACCUM: half of 8 x 2
+
+
+def torchrun(nproc: int, *args: str, timeout: float = 600) -> str:
+    """``python -m torch.distributed.run --standalone`` of this script with
+    ``args`` on ``nproc`` ranks; a rank that exits non-zero fails the phase.
+    Returns the ranks' standard output."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               DD_SMOKE_LAUNCHED=str(time.time()))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", str(nproc), str(REPO / "chip_smoke.py"), *args],
+                          env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-6000:], sep="\n", flush=True)
+        raise AssertionError(f"torch.distributed.run {args[0]} exited {proc.returncode}")
+    print(f"  torch.distributed.run {' '.join(args[:2])} on {nproc} rank(s): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return proc.stdout
+
+
+def parallel_train_rank(root: Path) -> None:
+    """The rank of (a), in one process for both runs: the UNet training
+    path's run through the train entry on ``root / mode`` with
+    ``parallel.fsdp`` for "fsdp" and without for "dp", 4 steps (then 1 after
+    ``--resume`` for ``RESUMED_MODE``); each writes its first step
+    (its parameters in ``first.safetensors``, its loss and grad norm in
+    ``result.json`` with the losses, steps, step seconds, peak memory and
+    kernel launches)."""
+    import gc
+    import numpy as np
+    import torch
+    from dualdiffusion_tpu_torch import train
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualdiffusion_tpu_torch.parallel import is_main_process, shutdown
+    from dualdiffusion_tpu_torch.utils import save_safetensors
+
+    def since_launch(what: str) -> None:
+        print(f"  (a) rank: {what} {time.time() - float(os.environ['DD_SMOKE_LAUNCHED']):.1f} s "
+              f"after the launch", flush=True)
+
+    since_launch("imports done")
+    for mode in PARALLEL_MODES:
+        model_dir = root / mode
+        hwc = json.loads((model_dir / "latent_shape.json").read_text())["hwc"]
+        config = dict(unet_train_config(hwc[1]), parallel={"fsdp": mode == "fsdp"})
+        path = model_dir / "train_config.json"
+        path.write_text(json.dumps(config))
+        argv = ["--model_path", str(model_dir), "--train_config_path", str(path),
+                "--dataset_path", str(root / "latents")]
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        first: dict = {}
+        marks = [("start", time.perf_counter())]
+        trainer = train.build_trainer(train.parse_args(argv + ["--max_steps", str(TRAIN_STEPS)]))
+        capture_first_step(trainer, first)
+        marks.append(("build", time.perf_counter()))
+        trainer.train(max_steps=TRAIN_STEPS)
+        marks.append((f"{TRAIN_STEPS} steps + checkpoint", time.perf_counter()))
+        history = list(trainer.history)
+        steps = TRAIN_STEPS + (mode == RESUMED_MODE)
+        del trainer
+        if mode == RESUMED_MODE:
+            trainer = train.build_trainer(train.parse_args(argv + ["--resume", "--max_steps",
+                                                                   str(steps)]))
+            marks.append(("build + resume", time.perf_counter()))
+            trainer.train(max_steps=steps)
+            marks.append(("1 step + checkpoint", time.perf_counter()))
+            history += trainer.history
+            if trainer.state.global_step != steps:
+                raise AssertionError(f"ended at step {trainer.state.global_step}")
+            del trainer
+        print(f"  (a) {mode} rank seconds: " + ", ".join(
+            f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])), flush=True)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if is_main_process():
+            save_safetensors(first["params"], model_dir / "first.safetensors")
+            (model_dir / "result.json").write_text(json.dumps({
+                "first": {k: first[k] for k in ("loss", "grad_norm")},
+                "losses": [h["loss"] for h in history], "counts": counts, "peak_gib": peak,
+                "steps": steps,
+                "step_s": float(np.mean([h["seconds"] for h in history[1:TRAIN_STEPS]]))}))
+        since_launch(f"{mode} written")
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutdown()
+    since_launch("group shut down")
+
+
+def gloo_inputs(model_dir: Path):
+    """(b)'s global batch of 16 latents and its draws, from seed 11: the
+    quantiles and two global microbatches of 8."""
+    import torch
+    from dualdiffusion_tpu_torch.training import SigmaSampler, UNetTrainConfig
+    from dualdiffusion_tpu_torch.training.train_state import draw_unet_step
+    cfg = json.loads((model_dir / "unet" / "unet.json").read_text())
+    data = json.loads((model_dir / "latent_shape.json").read_text())
+    n = GLOO_RANKS * GLOO_BATCH * TRAIN_ACCUM
+    gen = torch.Generator().manual_seed(11)
+    batch = {"samples": torch.randn((n,) + tuple(data["hwc"]), generator=gen),
+             "embeddings": torch.randn((n, cfg["in_channels_emb"]), generator=gen)}
+    tc = UNetTrainConfig(grad_accum_steps=TRAIN_ACCUM)
+    draws = draw_unet_step(gen, SigmaSampler(tc.sigma), tc, n,
+                           (n // TRAIN_ACCUM,) + tuple(data["hwc"]), True, 0)
+    return batch, draws, tc
+
+
+def gloo_step(model_dir: Path, batch, draws, tc, data=None):
+    """One UNet train step of the reference-scale UNet (AdamW, no EMA) on
+    cuda:0; returns (whole gradient after the clip, grad norm, seconds)."""
+    import torch
+    from dualdiffusion_tpu_torch.parallel.collectives import Axis
+    from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline
+    from dualdiffusion_tpu_torch.training import (build_optimizer, init_train_state,
+                                                  make_unet_train_step)
+    model = Pipeline.from_pretrained(model_dir, device="cuda:0").modules["unet"].module
+    opt = build_optimizer("adamw", model.parameters(), PARALLEL_LR)
+    opt.axis = data
+    n = batch["samples"].shape[0] * (data.size if data else 1)
+    step = make_unet_train_step(opt, None, tc, n, data=data)
+    state = init_train_state(model, opt, None, tc.sigma, torch.Generator(device="cuda:0"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = step(state, {k: v.to("cuda:0") for k, v in batch.items()}, draws.to("cuda:0"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    grad = torch.cat([p.grad.reshape(-1) for p in opt.params])
+    return grad, float(logs["grad_norm"]), seconds
+
+
+def parallel_gloo_rank(model_dir: Path) -> None:
+    """One rank of (b): gloo on cuda:0, the rank's share of the global batch
+    through the data-parallel step; rank 0 writes the averaged gradient."""
+    import torch
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualdiffusion_tpu_torch.parallel import (MeshConfig, ParallelState, make_mesh,
+                                                  maybe_initialize_distributed, shard_batch,
+                                                  shutdown)
+    maybe_initialize_distributed(device="cuda", backend="gloo", local_device_ids=[0])
+    parallel = ParallelState(make_mesh(MeshConfig(), device_type="cpu"))
+    batch, draws, tc = gloo_inputs(model_dir)
+    local = shard_batch(parallel.mesh, batch, TRAIN_ACCUM, device="cpu")
+    reset_launch_counts()
+    grad, norm, seconds = gloo_step(model_dir, local, draws, tc, parallel.data)
+    if parallel.data.rank == 0:
+        torch.save({"grad": grad.cpu(), "grad_norm": norm, "seconds": seconds,
+                    "counts": launch_counts()}, model_dir / "gloo_dp.pt")
+    shutdown()
+
+
+def tp_shard_conv_check(conv_shapes, groups: int, gen) -> None:
+    """(c) K1 at the tensor-parallel shard's shapes: each grouped conv of a
+    UNet forward with ``groups / 2`` of its groups (half the input and
+    output channels), against the plain version, timed per forward."""
+    import torch
+    from dualdiffusion_tpu_torch.ops.kernels import (grouped_conv3x3, grouped_conv3x3_plain,
+                                                     prepare_weights)
+    g = groups // 2
+    counts = {s: conv_shapes.count(s) for s in dict.fromkeys(conv_shapes)}
+    print(f"(c) K1 at the tensor-parallel shard (model axis 2): {g} of {groups} groups, half "
+          f"the channels, {len(conv_shapes)} convs per UNet forward (batch 2)", flush=True)
+    ms = plain_ms = 0.0
+    for (b, h, w, cin, cout), n in counts.items():
+        x = torch.randn((b, h, w, cin // 2), generator=gen, device="cuda").bfloat16()
+        wgt = torch.randn((cout // 2, cin // groups, 3, 3), generator=gen, device="cuda")
+        wt = prepare_weights(wgt / (9 * cin // groups) ** 0.5, g)
+        got = grouped_conv3x3(x, wt, g)
+        torch.cuda.synchronize()
+        route = conv_route(cin // groups, cout // groups, x, wt, got)
+        check_close(f"({b},{h},{w},{cin // 2}->{cout // 2}) {g} groups x{n} [{route}]", got,
+                    grouped_conv3x3_plain(x, wt, g), 2 ** -7)
+        ms += n * time_ms(lambda: grouped_conv3x3(x, wt, g))
+        plain_ms += n * time_ms(lambda: grouped_conv3x3_plain(x, wt, g))
+    print(f"  per UNet forward at the shard: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms",
+          flush=True)
+
+
+def parallel_path(root: Path, plain_first: dict, plain_stats: dict, counts: dict,
+                  conv_shapes, groups: int, fmt, prompt, path_counts, reset_counts,
+                  smi: str) -> None:
+    """Step 15 on the pristine reference-scale model in ``root / "model"``
+    and the UNet training path's latents in ``root / "latents"``; the
+    ranks' launch counts join ``counts``."""
+    import torch
+    from dualdiffusion_tpu_torch.parallel.collectives import Axis
+    from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline
+    from dualdiffusion_tpu_torch.sampling import SampleParams
+    from dualdiffusion_tpu_torch.training import StepDraws
+    from dualdiffusion_tpu_torch.utils import load_safetensors
+    print(f"parallel phase ({smi})", flush=True)
+    unet_counts = counts["UNet training"]
+    plain = ([plain_first["loss"]], [plain_first["grad_norm"]], plain_first["params"], {})
+    print(f"(a) UNet training under a process group of one over NCCL, one rank running "
+          f"FSDP (over one rank the weights stay whole), then plain data parallelism: "
+          f"{TRAIN_STEPS} steps each, then --resume for 1 under {RESUMED_MODE}", flush=True)
+    for mode in PARALLEL_MODES:
+        shutil.copytree(root / "model", root / mode)
+    out = torchrun(1, "--parallel-train", str(root))
+    print("\n".join(line for line in out.splitlines() if line.startswith("  (a)")), flush=True)
+    for mode in PARALLEL_MODES:
+        mdir = root / mode
+        res = json.loads((mdir / "result.json").read_text())
+        first = res["first"]
+        params = load_safetensors(mdir / "first.safetensors")
+        check_train_agreement(f"  step 1 under {mode} against the plain trainer", {
+            "cpu": plain, "cuda": ([first["loss"]], [first["grad_norm"]], params, {})},
+            PARALLEL_LR, names=(f"under {mode}", "the plain trainer"))
+        for k in ("grouped_conv3x3", "grouped_conv3x3_wgrad"):
+            # the UNet training path runs TRAIN_STEPS + 1 steps
+            want = unet_counts[k] * res["steps"] // (TRAIN_STEPS + 1)
+            expect(f"{k} launches under {mode}", res["counts"][k] == want > 0,
+                   f"{res['counts'][k]} in {res['steps']} steps (the UNet training path's "
+                   f"{unet_counts[k]} in {TRAIN_STEPS + 1})")
+        counts[f"parallel {mode}, world 1"] = res["counts"]
+        print(f"  losses {[round(x, 5) for x in res['losses']]}; step {res['step_s']:.4f} s, "
+              f"peak memory {res['peak_gib']:.2f} GiB; the plain trainer: step "
+              f"{plain_stats['step_s']:.4f} s, peak {plain_stats['peak_gib']:.2f} GiB ({smi})",
+              flush=True)
+        if mode == "fsdp":
+            got = Pipeline.from_pretrained(mdir, device="cuda", load_checkpoints=True
+                                           ).modules["unet"].module.state_dict()
+            want = Pipeline.from_pretrained(root / "model", device="cpu"
+                                            ).modules["unet"].module.state_dict()
+            ok = (all(got[k].shape == v.shape for k, v in want.items())
+                  and all(bool(torch.isfinite(v).all()) for v in got.values())
+                  and any(not torch.equal(got[k].cpu(), v) for k, v in want.items()))
+            expect("the FSDP checkpoint in a single-device pipeline", ok,
+                   f"unet_checkpoint-{TRAIN_STEPS + 1}: whole shapes, finite, trained")
+            del got, want
+        shutil.rmtree(mdir)
+        torch.cuda.empty_cache()
+
+    # (b) two data-parallel ranks on the one card over gloo
+    n = GLOO_RANKS * GLOO_BATCH * TRAIN_ACCUM
+    print(f"(b) {GLOO_RANKS} data-parallel ranks on one card over gloo: device batch "
+          f"{GLOO_BATCH} x accumulation {TRAIN_ACCUM} each, a global batch of {n}; one process "
+          f"steps the same batch as {GLOO_RANKS * TRAIN_ACCUM} microbatches of {GLOO_BATCH}, "
+          f"each a rank's microbatch (same rows, same kernels: the bf16 roundings match)",
+          flush=True)
+    torchrun(GLOO_RANKS, "--parallel-gloo", str(root / "model"))
+    dp = torch.load(root / "model" / "gloo_dp.pt", weights_only=False)
+    counts["parallel gloo, rank 0 of 2"] = dp["counts"]
+    batch, draws, tc = gloo_inputs(root / "model")
+    # microbatch 2i + r of one process = rank r's microbatch i
+    one = StepDraws(draws.quantiles, [m.share(Axis(None, r, GLOO_RANKS))
+                                      for m in draws.micro for r in range(GLOO_RANKS)])
+    one_tc = type(tc)(grad_accum_steps=GLOO_RANKS * TRAIN_ACCUM)
+    grad, norm, seconds = gloo_step(root / "model", batch, one, one_tc)
+    rel = float((dp["grad"].cuda() - grad).norm() / grad.norm())
+    expect("averaged gradient against one process's", rel <= 1e-4,
+           f"relative L2 {rel:.3g} (tol 1e-4); grad norm {dp['grad_norm']:.6g} vs {norm:.6g}")
+    print(f"  step seconds: {dp['seconds']:.3f} on each of {GLOO_RANKS} gloo ranks sharing the "
+          f"card, {seconds:.3f} on one process; correctness only, they measure no speed "
+          f"({smi})", flush=True)
+    del grad, dp
+    torch.cuda.empty_cache()
+
+    # (c) K1 at the tensor-parallel shard's shapes
+    tp_shard_conv_check(conv_shapes, groups, torch.Generator(device="cuda").manual_seed(4))
+
+    # (d) Pipeline.to: the UNet on the card, the DAE on the CPU, whose decode
+    # of a 45 s clip takes ~40 s there: img2img at strength 0.5 from seeded
+    # audio of an eighth of the length, 25 steps (the DAE encodes and decodes
+    # on the CPU, the UNet samples on the card)
+    pipe = Pipeline.from_pretrained(root / "model", device="cuda").to(device_map={"dae": "cpu"})
+    length = fmt.get_raw_crop_width() // 8
+    params = SampleParams(steps=TO_STEPS, cfg_scale=1.5, use_heun=True, length=length,
+                          num_fgla_iters=100, fgla_phase_init="spsi", img2img_strength=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(SEEDS[0])
+    audio = 0.1 * torch.randn((2, fmt.get_raw_crop_width(length)), generator=gen, device="cuda")
+    reset_counts()
+    timings: dict = {}
+    out = pipe.generate(params, gen, prompt_embedding=prompt, input_audio=audio,
+                        timings=timings)
+    raw = out["raw"]
+    ok = (tuple(raw.shape) == (1, 2, fmt.get_raw_crop_width(length)) and raw.is_cuda
+          and bool(torch.isfinite(raw).all()) and float(raw.float().square().mean()) > 0
+          and set(timings) >= {"encode", "sampler", "dae_decode"})
+    expect("(d) Pipeline.to(device_map={'dae': 'cpu'}) img2img", ok,
+           f"audio {tuple(raw.shape)} on {raw.device}; stages " +
+           ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
+    path_counts("Pipeline.to", ("grouped_conv3x3", "fgla_frame", "ola_reframe"),
+                absent=("flash_attention",))
+    del pipe, out, raw
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3392,6 +3744,12 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--parallel-train"]:
+        parallel_train_rank(Path(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--parallel-gloo"]:
+        parallel_gloo_rank(Path(sys.argv[2]))
+        return 0
     from dualdiffusion_tpu_torch.models import DAE, UNet
     from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, SpectrogramFormat
     from dualdiffusion_tpu_torch.ops.kernels import (launch_counts, reset_launch_counts,
@@ -3435,7 +3793,8 @@ def main() -> int:
     # inputs from a generator of their own, so the later phases' draws stay as they were
     seamless_conv_check(unet, lat_shape[1], lat_shape[2],
                         torch.Generator(device="cuda").manual_seed(2))
-    k1_per_forward = len(grouped_conv_shapes(unet, 2, lat_shape[1], lat_shape[2]))
+    conv_shapes = grouped_conv_shapes(unet, 2, lat_shape[1], lat_shape[2])
+    k1_per_forward = len(conv_shapes)
     measured.update(kernel_phase_fgla(fmt, gen))
     measured.update(kernel_phase_ola(fmt, gen))
     slice_phase()
@@ -3523,7 +3882,7 @@ def main() -> int:
               flush=True)
         torch.cuda.empty_cache()
         reset_launch_counts()
-        serving_path(full_dir, fmt, prompt)
+        serving_path(full_dir, fmt, prompt, steps=CUT_SERVING_STEPS)
         path_counts("full-attention serving", ("flash_attention", "grouped_conv3x3", "fgla_frame",
                                                "ola_reframe"),
                     only_routes=(("ola_reframe", "hopper"),))
@@ -3537,7 +3896,8 @@ def main() -> int:
               f"(groups {ddec_cfg.mlp_groups}), PSD {ddec_cfg.in_psd_freqs} rows; mel "
               f"{mfmt.get_sample_shape(1)}, MDCT {mdct_shape}", flush=True)
         reset_launch_counts()
-        ddec_pipe, _, ddec_totals = serving_path(ddec_dir, mfmt, prompt, decode_mode="auto")
+        ddec_pipe, _, ddec_totals = serving_path(ddec_dir, mfmt, prompt, decode_mode="auto",
+                                                 steps=CUT_SERVING_STEPS)
         path_counts("DDEC serving", ("grouped_conv3x3",),
                     absent=("fgla_frame", "ola_reframe", "flash_attention"))
         ddec_forward(ddec_pipe.modules["ddec"].module, ddec_cfg, mdct_shape, gen)
@@ -3571,19 +3931,29 @@ def main() -> int:
         serving_launch_count(webui_dir, body, mfmt.get_raw_crop_width())
         c = path_counts("web UI serving", ("grouped_conv3x3", "fgla_frame", "ola_reframe"),
                         absent=("flash_attention",), only_routes=(("ola_reframe", "hopper"),))
-        want = 2 * SAMPLER_STEPS * k1_per_forward
+        want = 2 * CUT_SERVING_STEPS * k1_per_forward
         if c["grouped_conv3x3"] != want or fgla_route(n_fft) != "hopper":
             raise AssertionError(f"web UI serving: {c['grouped_conv3x3']} K1 launches (want "
                                  f"{want}), K2 route {fgla_route(n_fft)}")
-        print(f"  K1 launches {c['grouped_conv3x3']} = {SAMPLER_STEPS} steps x 2 forwards x "
+        print(f"  K1 launches {c['grouped_conv3x3']} = {CUT_SERVING_STEPS} steps x 2 forwards x "
               f"{k1_per_forward} ok", flush=True)
 
         # ---- UNet training path: train 4 steps, --resume 1 more -------------
         torch.cuda.empty_cache()
         reset_launch_counts()
-        unet_training_path(Path(tmp), (ucfg.in_channels,) + lat_shape[1:3],
-                           ucfg.in_channels_emb, "cuda")
+        plain_first: dict = {}
+        plain_stats = unet_training_path(Path(tmp), (ucfg.in_channels,) + lat_shape[1:3],
+                                         ucfg.in_channels_emb, "cuda", first=plain_first)
         path_counts("UNet training", ("grouped_conv3x3", "grouped_conv3x3_wgrad"))
+        # the pristine model and the latents, for the parallel phase
+        par_root = Path(tempfile.mkdtemp(prefix="dd_smoke_parallel_"))
+        (par_root / "model").mkdir()
+        for name in ("model_index.json", "unet", "dae", "format"):
+            copy = shutil.copytree if (Path(tmp) / name).is_dir() else shutil.copy2
+            copy(Path(tmp) / name, par_root / "model" / name)
+        shutil.copytree(Path(tmp) / "latents", par_root / "latents")
+        (par_root / "model" / "latent_shape.json").write_text(json.dumps(
+            {"hwc": list(lat_shape[1:3]) + [ucfg.in_channels]}))
 
     # ---- DAE training path: train 4 steps, --resume 1 more ------------------
     with tempfile.TemporaryDirectory(prefix="dd_smoke_dae_") as tmp:
@@ -3605,6 +3975,17 @@ def main() -> int:
         t0 = time.perf_counter()
         rest_of_training_path(Path(tmp), path_counts, reset_launch_counts, smi)
         print(f"rest of training phase: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---- the parallel phase: torch.distributed ranks at full width ----------
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        parallel_path(par_root, plain_first, plain_stats, counts, conv_shapes, ucfg.mlp_groups,
+                      fmt, prompt, path_counts, reset_launch_counts, smi)
+        print(f"parallel phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(par_root, ignore_errors=True)
+    del plain_first
 
     # ---- DDEC training, then joint DAE + DDEC training, at full width -------
     no_kernels = tuple(name for name, *_ in KERNEL_INFO)

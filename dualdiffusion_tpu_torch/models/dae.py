@@ -218,9 +218,10 @@ class DAE(nn.Module):
         return (latents * std + self.latents_mean).to(latents.dtype)
 
     def encode(self, x: torch.Tensor, embeddings: Optional[torch.Tensor] = None,
-               training: bool = False) -> torch.Tensor:
+               training: bool = False, stats_axis=None) -> torch.Tensor:
         """(B, H, W, in_channels) -> (B, H/ds, W/ds, latent_channels) fp32.
-        ``training`` also moves the latent stats buffers."""
+        ``training`` also moves the latent stats buffers, by the statistics
+        of the global batch over ``stats_axis`` (the data axis) where given."""
         x = x.to(getattr(torch, self.cfg.compute_dtype))
         x = self.conv_in(x, training=training)
         for block in self.enc:
@@ -230,20 +231,29 @@ class DAE(nn.Module):
             # pool after the projection (reference dae_edm2_d3.py:349)
             latents = resample_2d(latents, "down", ratio=self.downsample_ratio)
         if training:
-            self._track_stats(latents)
+            self._track_stats(latents, stats_axis)
         return latents
 
     @torch.no_grad()
-    def _track_stats(self, latents: torch.Tensor) -> None:
+    def _track_stats(self, latents: torch.Tensor, axis=None) -> None:
         """EMA (momentum ``latent_stats_momentum``) of the per-channel and
-        global mean and unbiased variance, in place."""
+        global mean and unbiased variance, in place; over the global batch of
+        ``axis`` where given."""
         m = self.cfg.latent_stats_momentum
         lx = latents.detach().float()
         dims = (0, 1, 2)
-        for buf, new in ((self.latents_mean, lx.mean(dim=dims)),
-                         (self.latents_var, lx.var(dim=dims, correction=1)),
-                         (self.latents_global_mean, lx.mean()),
-                         (self.latents_global_var, lx.var(correction=1))):
+        if axis is None or axis.size == 1:
+            stats = (lx.mean(dim=dims), lx.var(dim=dims, correction=1), lx.mean(),
+                     lx.var(correction=1))
+        else:
+            def mean_var(d, n):
+                mean = axis.mean_of(lx.mean(dim=d))
+                n = n * axis.size
+                return mean, axis.mean_of((lx - mean).square().mean(dim=d)) * (n / (n - 1))
+            stats = (mean_var(dims, lx.numel() // lx.shape[-1])
+                     + mean_var((0, 1, 2, 3), lx.numel()))
+        for buf, new in zip((self.latents_mean, self.latents_var, self.latents_global_mean,
+                             self.latents_global_var), stats):
             buf.copy_(buf * m + new * (1 - m))
 
     def decode(self, latents: torch.Tensor, embeddings: Optional[torch.Tensor] = None,
@@ -257,11 +267,13 @@ class DAE(nn.Module):
 
     def forward(self, samples: torch.Tensor, embeddings: Optional[torch.Tensor] = None,
                 latents_sigma: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None, training: bool = True):
+                noise: Optional[torch.Tensor] = None, training: bool = True,
+                stats_axis=None):
         """Training forward: (latents, reconstruction, pre-norm latents). With
         ``latents_sigma`` and ``noise`` (N(0, 1), the latents' shape) the
-        decoder sees the latents plus ``latents_sigma * noise``."""
-        pre_norm = self.encode(samples, embeddings, training=training)
+        decoder sees the latents plus ``latents_sigma * noise``;
+        ``stats_axis`` as in ``encode``."""
+        pre_norm = self.encode(samples, embeddings, training=training, stats_axis=stats_axis)
         latents = pre_norm
         if latents_sigma is not None and noise is not None:
             latents = latents + latents_sigma * noise.to(latents.dtype)

@@ -14,8 +14,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import GroupedConv3x3Fn, grouped_conv3x3, prepare_weights
+from ..parallel.collectives import copy_to_group, gather_last_dim, gather_rows, shard_of
 from .mp import normalize
 
 MP_WEIGHT_NAME = "w_mp"
@@ -71,6 +73,7 @@ class MPConv(nn.Module):
 
     @property
     def weight(self) -> torch.Tensor:
+        """The parameter (under FSDP or tensor parallelism, this rank's rows)."""
         return getattr(self, self.weight_name)
 
     @torch.no_grad()
@@ -87,8 +90,7 @@ class MPConv(nn.Module):
             sign = np.where(np.arange(self.out_channels) % 2 == 0, 1.0, -1.0)
             self.bias.copy_(torch.as_tensor(sign / np.sqrt(group_dim), dtype=torch.float32))
 
-    def _scaled_weight(self, gain, training: bool) -> torch.Tensor:
-        w = self.weight
+    def _scaled_weight(self, w: torch.Tensor, gain, training: bool) -> torch.Tensor:
         if training and not self.disable_weight_norm:
             w = normalize(w)
         w = w / np.sqrt(float(np.prod(w.shape[1:])))
@@ -96,19 +98,19 @@ class MPConv(nn.Module):
             w = w * gain
         return w
 
-    def _uses_kernel(self, x: torch.Tensor) -> bool:
-        return (self.groups > 1 and self.kernel == (3, 3) and self.stride == 1
-                and x.dim() == 4)
+    def _uses_kernel(self, x: torch.Tensor, groups: int) -> bool:
+        return groups > 1 and self.kernel == (3, 3) and self.stride == 1 and x.dim() == 4
 
-    def _kernel_weight(self, gain, dtype) -> torch.Tensor:
-        """K1's pre-arranged weights, made once per module and reused until
-        the parameter changes."""
+    def _kernel_weight(self, gain, dtype, groups: int) -> torch.Tensor:
+        """K1's pre-arranged weights of the module's own parameter (a
+        tensor-parallel row shard included), made once and reused until the
+        parameter changes."""
         w = self.weight
         gain_key = gain if isinstance(gain, (int, float)) else (id(gain), gain._version)
         key = (w._version, w.data_ptr(), gain_key, dtype)
         if self._kernel_weight_cache is None or self._kernel_weight_cache[0] != key:
             with torch.no_grad():
-                wt = prepare_weights(self._scaled_weight(gain, False), self.groups, dtype)
+                wt = prepare_weights(self._scaled_weight(w, gain, False), groups, dtype)
             self._kernel_weight_cache = (key, wt)
         return self._kernel_weight_cache[1]
 
@@ -116,43 +118,89 @@ class MPConv(nn.Module):
                 training: bool = False) -> torch.Tensor:
         if isinstance(gain, torch.Tensor) and gain.dim() > 0:
             raise NotImplementedError("per-sample gains are not ported")
-        if len(self.kernel) == 0:
-            w = self._scaled_weight(gain, training)
-            if self.groups > 1:
-                g = self.groups
-                xg = x.reshape(x.shape[:-1] + (g, self.in_channels // g))
-                wg = w.to(x.dtype).reshape(g, self.out_channels // g, self.in_channels // g)
-                out = torch.einsum("...gi,goi->...go", xg, wg)
-                out = out.reshape(x.shape[:-1] + (self.out_channels,))
-            else:
-                out = torch.matmul(x, w.t().to(x.dtype))
-        elif self._uses_kernel(x) and training:
-            # no weight cache: the prepared weights carry the parameter's grad
-            wt = prepare_weights(self._scaled_weight(gain, True), self.groups, x.dtype)
-            out = GroupedConv3x3Fn.apply(x.contiguous(), wt, self.groups)
-        elif self._uses_kernel(x):
-            out = grouped_conv3x3(x.contiguous(), self._kernel_weight(gain, x.dtype),
-                                  self.groups)
+        shard = shard_of(self.weight)
+        if shard is None:
+            out = self._layer(x, self.weight, self.groups, gain, training, cacheable=True)
+        elif shard.mode == "tp":
+            out = self._forward_column_parallel(x, gain, training, shard)
         else:
-            w = self._scaled_weight(gain, training).to(x.dtype)
-            out = self._conv(x, w)
+            out = self._forward_gathered(x, gain, training, shard)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
 
-    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def _forward_gathered(self, x: torch.Tensor, gain, training: bool,
+                          shard) -> torch.Tensor:
+        """FSDP: the layer with its whole weight, all-gathered from the row
+        shards where it is used (the backward reduce-scatters the weight's
+        gradient). Under autograd the gather and the layer run again in the
+        backward (``checkpoint``), so no whole weight, and nothing made from
+        one, outlives the layer: between the forward and the backward the
+        step keeps each layer's input and row shard alone."""
+        def layer(x, w, gain):
+            whole = gather_rows(w, shard.axis, 1.0 / shard.axis.size)
+            return self._layer(x, whole, self.groups, gain, training, cacheable=False)
+
+        if not torch.is_grad_enabled():
+            return layer(x, self.weight, gain)
+        return checkpoint(layer, x, self.weight, gain, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    def _forward_column_parallel(self, x: torch.Tensor, gain, training: bool,
+                                 shard) -> torch.Tensor:
+        """Tensor parallelism: this rank's rows of the weight are its slice of
+        the output channels (its groups, and their input channels, for a
+        grouped layer); the slices are all-gathered along the channels. The
+        gradients of the input and of a gain, which each rank sees through its
+        slice alone, are summed over the group (Megatron's f and g)."""
+        n, groups = shard.axis.size, self.groups
+        x = copy_to_group(x, shard)
+        if isinstance(gain, torch.Tensor):
+            gain = copy_to_group(gain, shard)
+        if groups > 1:
+            c = x.shape[-1] // n
+            x = x[..., shard.axis.rank * c:(shard.axis.rank + 1) * c]
+            groups //= n
+        out = self._layer(x, self.weight, groups, gain, training, cacheable=True)
+        return gather_last_dim(out, shard)
+
+    def _layer(self, x: torch.Tensor, w: torch.Tensor, groups: int, gain, training: bool,
+               cacheable: bool) -> torch.Tensor:
+        """The layer with weight ``w`` (out, in/groups, *kernel) in ``groups``
+        groups, without the bias; ``cacheable``: ``w`` is the module's own
+        parameter, whose K1 weights may be kept."""
+        if len(self.kernel) == 0:
+            w = self._scaled_weight(w, gain, training)
+            if groups > 1:
+                cin, cout = x.shape[-1], w.shape[0]
+                xg = x.reshape(x.shape[:-1] + (groups, cin // groups))
+                wg = w.to(x.dtype).reshape(groups, cout // groups, cin // groups)
+                out = torch.einsum("...gi,goi->...go", xg, wg)
+                return out.reshape(x.shape[:-1] + (cout,))
+            return torch.matmul(x, w.t().to(x.dtype))
+        if self._uses_kernel(x, groups) and training:
+            # no weight cache: the prepared weights carry the parameter's grad
+            wt = prepare_weights(self._scaled_weight(w, gain, True), groups, x.dtype)
+            return GroupedConv3x3Fn.apply(x.contiguous(), wt, groups)
+        if self._uses_kernel(x, groups):
+            wt = (self._kernel_weight(gain, x.dtype, groups) if cacheable else
+                  prepare_weights(self._scaled_weight(w.detach(), gain, False), groups, x.dtype))
+            return grouped_conv3x3(x.contiguous(), wt, groups)
+        return self._conv(x, self._scaled_weight(w, gain, training).to(x.dtype), groups)
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:
         if len(self.kernel) == 3:
-            return self._conv3d(x, w)
+            return self._conv3d(x, w, groups)
         kh, kw = self.kernel
-        if self.stride == 1 and (kh, kw) == (1, 1) and self.groups == 1:
+        if self.stride == 1 and (kh, kw) == (1, 1) and groups == 1:
             # 1x1 conv == matmul over the channel dim
             return torch.matmul(x, w.reshape(w.shape[0], w.shape[1]).t())
         y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
-                     padding=(kh // 2, kw // 2), groups=self.groups)
+                     padding=(kh // 2, kw // 2), groups=groups)
         return y.permute(0, 2, 3, 1)
 
 
-    def _conv3d(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def _conv3d(self, x: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:
         """(B, Z, H, W, C) -> (B, Z, H', W', C_out) (JAX layers.py:531-553)."""
         kz, kh, kw = self.kernel
         if kz == 2:   # circular stereo wrap
@@ -164,14 +212,14 @@ class MPConv(nn.Module):
             pad_w = 0
         if kz == 1:   # Z passes through: a 2D conv over the B*Z planes
             b, z = x.shape[:2]
-            if self.stride == 1 and (kh, kw) == (1, 1) and self.groups == 1:
+            if self.stride == 1 and (kh, kw) == (1, 1) and groups == 1:
                 return torch.matmul(x, w.reshape(w.shape[0], w.shape[1]).t())
             y = F.conv2d(x.reshape((b * z,) + x.shape[2:]).permute(0, 3, 1, 2), w[:, :, 0],
-                         stride=self.stride, padding=(kh // 2, pad_w), groups=self.groups)
+                         stride=self.stride, padding=(kh // 2, pad_w), groups=groups)
             y = y.permute(0, 2, 3, 1)
             return y.reshape((b, z) + y.shape[1:])
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=(1, self.stride, self.stride),
-                     padding=(1 if kz == 3 else 0, kh // 2, pad_w), groups=self.groups)
+                     padding=(1 if kz == 3 else 0, kh // 2, pad_w), groups=groups)
         return y.permute(0, 2, 3, 4, 1)
 
 

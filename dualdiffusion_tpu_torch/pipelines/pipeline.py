@@ -10,6 +10,11 @@ bf16 archives in ``<module>/ema_archive/`` for post-hoc EMAs), and the
 per-label prompt embeddings in ``dataset_embeddings.safetensors``. The port
 reads and writes the same format, so a directory written by either package
 loads in the other.
+
+``Pipeline.to`` places each module on a device of its own; ``generate``
+then moves each stage's input to the device of the module that runs it.
+``Pipeline.shard`` puts every module on the tensor-parallel route over the
+ranks of a process group (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -133,6 +138,34 @@ class Pipeline:
             if h.module_type.startswith("format:"):
                 return h.module
         return None
+
+    # ---- device placement ------------------------------------------------
+    def to(self, device=None, device_map: Optional[Dict[str, Any]] = None) -> "Pipeline":
+        """Move each module with weights to ``device``, or to its entry of
+        ``device_map`` (module name -> device, as "cuda:0" or "cpu"), in
+        place (JAX pipeline.py:243-268). The format, which has no weights,
+        runs where the UNet runs."""
+        for name, h in self.modules.items():
+            dev = (device_map or {}).get(name, device)
+            if dev is not None and isinstance(h.module, nn.Module):
+                if torch.device(dev).type == "cuda" and not torch.cuda.is_available():
+                    raise RuntimeError(f"no CUDA device for module '{name}'")
+                h.module.to(torch.device(dev))
+        return self
+
+    def shard(self, model_axis: int, devices: Optional[Sequence[int]] = None) -> "Pipeline":
+        """Tensor-parallel placement (JAX pipeline.py:270-296): every module's
+        ``MPConv`` weights sharded out-channel-wise over a ``model_axis``-wide
+        "model" axis of the process group's ranks (``devices``, all by
+        default; one rank per device, each holding the pipeline on its own
+        device), by the trainer's rule. Every rank then computes the same
+        clip, each layer column-parallel over the group."""
+        from ..parallel import MeshConfig, make_mesh, shard_train_state
+        mesh = make_mesh(MeshConfig(data_axis=1, model_axis=model_axis), devices=devices)
+        for h in self.modules.values():
+            if isinstance(h.module, nn.Module):
+                shard_train_state(mesh, h.module)
+        return self
 
     # ---- io ------------------------------------------------------------
     def save_pretrained(self, model_path: Union[str, Path], last_global_step: int = 0) -> None:
@@ -318,6 +351,14 @@ class Pipeline:
         def denoise(x, sigma, r=None):
             return unet(x, sigma, emb2, r)
 
+        if generator is not None and generator.device != device:
+            # the sampler runs where its noise is drawn; the module on its own device
+            def denoise(x, sigma, r=None, run=denoise, at=device, home=generator.device):
+                return run(x.to(at), sigma.to(at), None if r is None else r.to(at)).to(home)
+            device = generator.device
+            ref = None if ref is None else ref.to(device)
+            init_sample = None if init_sample is None else init_sample.to(device)
+
         return edm_sample(denoise, sample_shape, params,
                           params.sigma_max or ucfg.sigma_max,
                           params.sigma_min or ucfg.sigma_min,
@@ -332,8 +373,9 @@ class Pipeline:
         """Raw audio (C, T) or (B, C, T), numpy or tensor, as an init sample
         for img2img and inpainting (JAX pipeline.py:516-544): cropped or
         zero-padded to the format's crop width, format-encoded, cropped to a
-        multiple of the DAE's downsample ratio and DAE-encoded (the format
-        sample itself without a DAE). fp32, on the UNet's device."""
+        multiple of the DAE's downsample ratio and DAE-encoded on the DAE's
+        device (the format sample itself without a DAE). fp32, on the UNet's
+        device."""
         fmt = self.format
         device = next(self.modules["unet"].module.parameters()).device
         audio = torch.as_tensor(input_audio, dtype=torch.float32, device=device)
@@ -348,7 +390,8 @@ class Pipeline:
         if dae_h is not None:
             ds = dae_h.module.downsample_ratio
             sample = sample[:, :, : sample.shape[2] // ds * ds]
-            sample = dae_h.module.encode(sample)
+            dae_device = next(dae_h.module.parameters()).device
+            sample = dae_h.module.encode(sample.to(dae_device)).to(device)
         return sample.float()
 
     @torch.no_grad()
@@ -450,7 +493,8 @@ class Pipeline:
             latents = self.diffusion_decode(sample_params, lat_shape, prompt_embedding,
                                             generator, init_noise, step_noise, **stage_kw)
             t0 = mark("sampler", t0)
-            mel = dae_h.module.decode(latents).float()
+            dae_device = next(dae_h.module.parameters()).device
+            mel = dae_h.module.decode(latents.to(dae_device)).float().to(device)
             t0 = mark("dae_decode", t0)
         else:
             mel = self.diffusion_decode(sample_params, tuple(mel_shape), prompt_embedding,

@@ -4,7 +4,7 @@
         [--prompt label:1.0 ...] [--steps 100] [--seed N] [--load_ema NAME] \
         [--img2img AUDIO [--img2img_strength S] [--inpaint START:END]] \
         [--seamless_loop] [--decode_mode auto|fgla|ddec] [--output out.wav] \
-        [--device cuda|cpu] [--interactive [--port 8080]]
+        [--device cuda|cpu] [--tp N] [--interactive [--port 8080]]
 
 Generates one batch of audio and writes it, normalized to -20 LUFS, to
 ``--output`` (``out_<i>.wav`` for each clip of a batch). ``--load_ema``
@@ -14,14 +14,21 @@ with a ``flac``/``ffmpeg`` binary) at the model's sample rate;
 ``--device`` defaults to ``cuda`` and never falls back: without a GPU,
 sampling on the CPU takes ``--device cpu``. ``--interactive`` starts the
 model-server process on ``--device`` and serves the web UI at
-http://127.0.0.1 on ``--port`` (8080 by default) instead. Tensor-parallel
-serving (``--tp``) is not ported.
+http://127.0.0.1 on ``--port`` (8080 by default) instead.
+
+``--tp N`` samples with every module's weights sharded over N ranks
+(``Pipeline.shard``), one per card (gloo ranks on the CPU with ``--device
+cpu``); each rank computes the same clip and rank 0 writes it. Under a
+launcher (``python -m torch.distributed.run --nproc_per_node N``) the
+launched ranks are those; started bare, the command spawns N ranks itself,
+and it raises when fewer than N cards are visible.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -67,7 +74,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="regenerate only this time range (seconds) of the --img2img input")
     ap.add_argument("--output", default="output.wav")
     ap.add_argument("--tp", type=int, default=1, metavar="N",
-                    help="tensor-parallel width (not ported)")
+                    help="tensor-parallel width: the ranks the weights are sharded over")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
@@ -96,21 +103,73 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         from .serving.webui import run_app
         run_app(args.model_path, port=args.port, device=args.device)
         return
-    if args.tp != 1:
-        raise NotImplementedError("--tp (tensor-parallel serving) is not ported: "
-                                  "ROADMAP.md §1 item 6")
+    if args.tp > 1 and not ("WORLD_SIZE" in os.environ or "DD_NUM_PROCESSES" in os.environ):
+        spawn_tp_ranks(args)
+    else:
+        sample(args)
+
+
+def spawn_tp_ranks(args: argparse.Namespace) -> None:
+    """``--tp N`` started bare: N spawned ranks, over NCCL one per visible
+    card, or over gloo with ``--device cpu``; a rank that fails fails the
+    command."""
+    import tempfile
+
     import torch
+    import torch.multiprocessing as mp
+    if torch.device(args.device).type == "cuda" and torch.cuda.device_count() < args.tp:
+        raise RuntimeError(f"--tp {args.tp} needs {args.tp} cards; "
+                           f"{torch.cuda.device_count()} visible")
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_tp_rank, args=(args, f"file://{tmp}/rendezvous"), nprocs=args.tp,
+                           join=True, start_method="spawn")
+
+
+def _tp_rank(rank: int, args: argparse.Namespace, rendezvous: str) -> None:
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s rank{rank} %(name)s %(levelname)s %(message)s")
+    from .parallel import maybe_initialize_distributed
+    maybe_initialize_distributed(rendezvous, args.tp, rank, [rank], device=args.device)
+    sample(args)
+
+
+def sample(args: argparse.Namespace) -> None:
+    """One batch of audio to ``--output``; with ``--tp``, on this rank of
+    the process group (started here when a launcher set it up)."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel import is_main_process, local_device, maybe_initialize_distributed, shutdown
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to sample on the CPU")
+    try:
+        if args.tp > 1:
+            maybe_initialize_distributed(device=args.device)
+            if dist.get_world_size() != args.tp:
+                raise ValueError(f"--tp {args.tp} under a launcher of "
+                                 f"{dist.get_world_size()} processes")
+        _sample(args, local_device(args.device), is_main_process())
+    finally:
+        shutdown()
+
+
+def _sample(args: argparse.Namespace, device, write: bool) -> None:
+    import torch
+    import torch.distributed as dist
 
     from .pipelines.pipeline import Pipeline
     from .sampling import SampleParams
     from .utils import load_audio, save_audio
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to sample on the CPU")
     load_emas = {"unet": args.load_ema} if args.load_ema else None
     pipeline = Pipeline.from_pretrained(args.model_path, device=device, load_emas=load_emas)
     seed = args.seed if args.seed is not None else int(np.random.randint(100000, 999999))
+    if args.tp > 1:
+        pipeline.shard(args.tp)
+        seed_t = torch.tensor(seed, device=device)
+        dist.broadcast(seed_t, 0)      # every rank samples rank 0's seed
+        seed = int(seed_t)
     params = SampleParams(steps=args.steps, cfg_scale=args.cfg_scale, seed=seed,
                           batch_size=args.batch_size, length=args.length,
                           use_heun=args.use_heun, seamless_loop=args.seamless_loop,
@@ -135,6 +194,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     out = pipeline.generate(params, torch.Generator(device=device).manual_seed(seed),
                             prompt_embedding=emb, decode_mode=args.decode_mode,
                             input_audio=input_audio, inpainting_mask=mask)
+    if not write:
+        return
     raw = out["raw"].float().cpu().numpy()
     for i in range(raw.shape[0]):
         path = args.output if raw.shape[0] == 1 else args.output.replace(".", f"_{i}.", 1)

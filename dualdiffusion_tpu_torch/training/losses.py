@@ -41,6 +41,11 @@ from ..ops.stft import frame_signal, stft
 from ..ops.windows import get_window
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    """A batch statistic as it is: the global batch is this one."""
+    return t
+
+
 # ---------------------------------------------------------------------------
 # 1-D multi-scale spectral loss
 # ---------------------------------------------------------------------------
@@ -176,8 +181,11 @@ class MSSLoss2D:
                              (fft[:, 0:1] - fft[:, 1:2]) * 0.5 ** 0.5], dim=1)
         return fft
 
-    def __call__(self, sample: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        """(B, C, H, W) x2 -> per-sample loss (B,)."""
+    def __call__(self, sample: torch.Tensor, target: torch.Tensor,
+                 batch_mean: Callable = _same) -> torch.Tensor:
+        """(B, C, H, W) x2 -> per-sample loss (B,). ``batch_mean`` takes a
+        statistic over this batch to one over the global batch (the data
+        axis's ``mean_of``), for the "dynamic" frequency weights."""
         cfg = self.config
         loss = torch.zeros((target.shape[0],), device=target.device)
 
@@ -192,7 +200,7 @@ class MSSLoss2D:
             s_fft = self._stft2d(sample, bw, step)
             t_abs = t_fft.abs()
             if cfg.frequency_weighting == "dynamic":
-                lw = 1.0 / t_abs.mean(dim=(0, 2, 3), keepdim=True).clamp_min(1e-2)
+                lw = 1.0 / batch_mean(t_abs.mean(dim=(0, 2, 3), keepdim=True)).clamp_min(1e-2)
             else:
                 lw = torch.as_tensor(self.loss_weights[bw], device=target.device)
             if cfg.frequency_weight_exponent != 1:
@@ -209,8 +217,13 @@ class MSSLoss2D:
         return loss
 
 
-def latents_dispersion_loss(latents: torch.Tensor, shifts: Sequence[int] = (1,)) -> torch.Tensor:
-    """Squared cosine similarity between batch-rolled latents, (B,)."""
+def latents_dispersion_loss(latents: torch.Tensor, shifts: Sequence[int] = (1,),
+                            axis=None) -> torch.Tensor:
+    """Squared cosine similarity between batch-rolled latents, (B,). With
+    ``axis`` (the data axis) the roll runs over the global batch, gathered
+    with its gradient, and this rank's rows are returned."""
+    if axis is not None:
+        return axis.share(latents_dispersion_loss(axis.gather(latents), shifts))
     flat = latents.reshape(latents.shape[0], -1)
     flat = flat / (flat.norm(dim=-1, keepdim=True) + 1e-8)
     loss = torch.zeros((latents.shape[0],), device=latents.device)
@@ -500,12 +513,14 @@ def _flat_top_window_1d(n: int) -> np.ndarray:
 
 def prime_mss_1d(sample: torch.Tensor, target: torch.Tensor,
                  block_widths: Tuple[int, ...] = PRIME_BLOCK_WIDTHS_1D,
-                 block_steps: Tuple[int, ...] = PRIME_BLOCK_STEPS_1D) -> torch.Tensor:
+                 block_steps: Tuple[int, ...] = PRIME_BLOCK_STEPS_1D,
+                 batch_mean: Callable = _same) -> torch.Tensor:
     """Prime-width 1-D multi-scale spectral loss (reference:
     dae_trainer_m1.py:136-208): reflect-pad by the widest block's half, then
     for each (width, step) the flat-top-windowed frames' ortho ``rfft2`` over
     (frame, within-frame) and the squared magnitude error, each bin weighted
-    by width / rms(target). (B, C, T) x2 -> (B,)."""
+    by width / rms(target), the rms over the global batch through
+    ``batch_mean`` (as in ``MSSLoss2D``). (B, C, T) x2 -> (B,)."""
     from ..ops.stft import reflect_pad
     pad = block_widths[-1] // 2
     s = reflect_pad(sample.float(), pad)
@@ -518,6 +533,7 @@ def prime_mss_1d(sample: torch.Tensor, target: torch.Tensor,
             return torch.fft.rfft2(frame_signal(x, bw, step) * win, norm="ortho").abs()
 
         t_abs = fft2_abs(t).detach()
-        w = bw / torch.sqrt(t_abs.square().mean(dim=(0, 1, 2), keepdim=True).clamp_min(1e-5))
+        w = bw / torch.sqrt(batch_mean(t_abs.square().mean(dim=(0, 1, 2), keepdim=True)
+                                       ).clamp_min(1e-5))
         loss = loss + ((fft2_abs(s) - t_abs).square() * w).mean(dim=(1, 2, 3))
     return loss

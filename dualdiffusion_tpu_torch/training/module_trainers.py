@@ -29,7 +29,11 @@ the live DAE reconstruction.
 
 Each step's random draws (stereo flips, phase angles, noise) are made apart
 from its arithmetic, from the state's ``torch.Generator``, so a test can
-pass in the draws of JAX's key splits. The JAX phase rotation lines its (B,)
+pass in the draws of JAX's key splits. Under data parallelism (``data``)
+each step draws the global microbatch's numbers and keeps its rows, and
+the batch statistics (the KL's latent moments, the "dynamic" MSS weights,
+the prime 1-D MSS's rms, the dispersion roll, the latent stats buffers) are
+taken over the global batch, as in ``train_state``. The JAX phase rotation lines its (B,)
 angles up with the channel axis (per sample only at B = 1, an error at B > 2
 unless B = C); the port rotates each sample by its own angle.
 """
@@ -45,6 +49,7 @@ import torch
 
 from ..models.mp import normalize
 from ..ops.kernels import mss2d_loss_fused
+from ..parallel.collectives import Axis
 from .ema import EMABank
 from .losses import (PRIME_BLOCK_STEPS_1D, PRIME_BLOCK_WIDTHS_1D, EquivarianceLossConfig,
                      MSSLoss2D, MSSLoss2DConfig, PrimeMSSDraws, draw_equivariance_offsets,
@@ -100,6 +105,15 @@ class DAEMicroDraws:
             k: getattr(self, k).to(device) for k in ("stereo_flip", "phase_theta", "mdct_theta")
             if getattr(self, k) is not None})
 
+    def share(self, axis: Axis) -> "DAEMicroDraws":
+        """This rank's rows of a global microbatch's draws; the prime MSS's
+        draws are the microbatch's own."""
+        eq = self.equivariance
+        return dataclasses.replace(
+            self, equivariance=None if eq is None else (axis.share(eq[0]), axis.share(eq[1])),
+            **{k: axis.share(getattr(self, k)) for k in ("stereo_flip", "phase_theta",
+                                                          "mdct_theta")})
+
 
 def _draw_flip_theta(generator: torch.Generator, b: int, flip: bool,
                      theta: bool) -> DAEMicroDraws:
@@ -138,12 +152,16 @@ def _check_config(cfg: DAETrainConfig) -> None:
 
 
 def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
-                        config: DAETrainConfig, total_batch_size: int):
+                        config: DAETrainConfig, total_batch_size: int,
+                        data: Optional[Axis] = None):
     """Build ``train_step(state, batch, draws=None) -> logs`` over
     ``state.module``, a DAE; it updates ``state`` in place. ``batch``:
     {"audio": (B, C, T), "audio_embeddings": (B, E) optional}, B = device
-    batch x grad_accum_steps."""
+    batch x grad_accum_steps. ``data``: the data axis of a multi-process
+    run; ``batch`` is then this rank's share and ``draws`` those of the
+    global microbatches."""
     cfg = config
+    data = data or Axis()
     _check_config(cfg)
     mss = MSSLoss2D(cfg.mss2d)
     c = cfg.crop_edges
@@ -193,7 +211,7 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
                    if emb_in is not None else None)
         with torch.no_grad():
             samples = sample_view(model, audio, draws.mdct_theta)
-        latents, recon, pre_norm = model(samples, dae_emb, training=True)
+        latents, recon, pre_norm = model(samples, dae_emb, training=True, stats_axis=data)
 
         s_cf = samples.permute(0, 3, 1, 2)
         r_cf = recon.float().permute(0, 3, 1, 2)
@@ -205,14 +223,15 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
                 block_overlap=cfg.mss2d.block_overlap,
                 use_midside=cfg.mss2d.use_midside_transform == "stack")
         else:
-            recon_loss = mss(r_cf, s_cf)
+            recon_loss = mss(r_cf, s_cf, data.mean_of)
         if cfg.mss1d_prime_loss_weight > 0:
             # over the width (time) axis of (B, C*H, W), block widths capped at W
             s1 = s_cf.reshape(s_cf.shape[0], -1, s_cf.shape[-1])
             r1 = r_cf.reshape(r_cf.shape[0], -1, r_cf.shape[-1])
             bws = tuple(b for b in PRIME_BLOCK_WIDTHS_1D if b <= s1.shape[-1])
             recon_loss = recon_loss + prime_mss_1d(
-                r1, s1, bws, PRIME_BLOCK_STEPS_1D[:len(bws)]) * cfg.mss1d_prime_loss_weight
+                r1, s1, bws, PRIME_BLOCK_STEPS_1D[:len(bws)],
+                data.mean_of) * cfg.mss1d_prime_loss_weight
         point_loss = (recon - samples).abs().mean(dim=(1, 2, 3))
         recon_loss = recon_loss + point_loss * (cfg.point_loss_weight
                                                 * decay(step, cfg.point_loss_warmup_steps))
@@ -231,7 +250,7 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
             total = total + pi.mean() * cfg.phase_invariance_loss_weight * reg_w
             logs["loss_phase_invariance"] = pi.mean()
         if cfg.latents_dispersion_loss_weight > 0:
-            disp = latents_dispersion_loss(latents)
+            disp = latents_dispersion_loss(latents, axis=data)
             total = total + disp.mean() * cfg.latents_dispersion_loss_weight * reg_w
             logs["loss_dispersion"] = disp.mean()
         if cfg.equivariance_loss_weight > 0:
@@ -241,13 +260,13 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
             total = total + eq.mean() * cfg.equivariance_loss_weight * reg_w
             logs["loss_equivariance"] = eq.mean()
 
-        var = pre_norm.square().mean(dim=(0, 1, 2)) + 1e-20
+        var = data.mean(pre_norm.square().mean(dim=(0, 1, 2))) + 1e-20
         kl = (var - 1.0 - torch.log(var)).mean() + (
-            pre_norm.mean(dim=(0, 1, 2)).square().mean() * cfg.kl_mean_weight)
+            data.mean(pre_norm.mean(dim=(0, 1, 2))).square().mean() * cfg.kl_mean_weight)
         total = total + kl * (cfg.kl_loss_weight * warmup(step, cfg.kl_warmup_steps))
         logs["loss_kl"] = kl
-        logs["latents_var"] = latents.var(correction=0)
-        logs["latents_mean"] = latents.mean()
+        logs["latents_var"] = data.var(latents)
+        logs["latents_mean"] = data.mean_of(latents.mean())
         return total, {k: v.detach() for k, v in logs.items()}, recon_loss.detach()
 
     def train_step(state: TrainState, batch: Dict[str, Any],
@@ -261,7 +280,7 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
         mb = n // accum
         if draws is None:
             hw = sample_hw_of(model, audio) if cfg.use_random_prime_mss else None
-            draws = draw_dae_step(state.generator, cfg, mb, hw)
+            draws = draw_dae_step(state.generator, cfg, data.size * mb, hw)
         optimizer.zero_grad()
         loss_sum = 0.0
         logs_seq: Dict[str, List[torch.Tensor]] = {}
@@ -269,7 +288,7 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
             loss, logs, per_sample = loss_fn(model, audio[sl], None if emb is None else emb[sl],
-                                             draws[i], state.global_step)
+                                             draws[i].share(data), state.global_step)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             for k, v in logs.items():
@@ -286,8 +305,8 @@ def make_dae_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
                             total_batch_size, state.global_step)
         state.global_step += 1
         state.total_samples_processed += total_batch_size
-        out = {k: torch.stack(v).mean() for k, v in logs_seq.items()}
-        out.update(loss=loss_sum / accum, grad_norm=optimizer.clip.last_grad_norm,
+        out = {k: data.mean_of(torch.stack(v).mean()) for k, v in logs_seq.items()}
+        out.update(loss=data.mean_of(loss_sum / accum), grad_norm=optimizer.clip.last_grad_norm,
                    sample_losses=torch.cat(sample_losses))
         return out
 
@@ -362,15 +381,17 @@ def _ddec_unet_config(config: DDECTrainConfig) -> UNetTrainConfig:
 
 
 def make_ddec_train_step(fmt, dae, optimizer: Optimizer, ema_bank: Optional[EMABank],
-                         config: DDECTrainConfig, total_batch_size: int):
+                         config: DDECTrainConfig, total_batch_size: int,
+                         data: Optional[Axis] = None):
     """The UNet diffusion step over ``state.module``, a DDEC, on the frozen
     ``dae``'s prepare stage. ``batch``: {"audio": (B, C, T),
     "audio_embeddings": optional}; ``draws`` a ``StepDraws`` whose
-    microbatches carry ``DDECPrepareDraws``."""
+    microbatches carry ``DDECPrepareDraws``; ``data`` as in
+    ``make_unet_train_step``."""
     return make_unet_train_step(optimizer, ema_bank, _ddec_unet_config(config),
                                 total_batch_size, prepare_fn=make_ddec_prepare(fmt, dae, config),
                                 draw_prepare=ddec_prepare_drawer(config),
-                                get_embeddings=no_embeddings)
+                                get_embeddings=no_embeddings, data=data)
 
 
 def make_ddec_eval_step(fmt, dae, config: DDECTrainConfig):
@@ -417,6 +438,11 @@ class JointMicroDraws:
         return JointMicroDraws(*(None if t is None else t.to(device)
                                  for t in (self.stereo_flip, self.phase_theta, self.noise)))
 
+    def share(self, axis: Axis) -> "JointMicroDraws":
+        """This rank's rows of a global microbatch's draws."""
+        return JointMicroDraws(*(axis.share(t) for t in
+                                 (self.stereo_flip, self.phase_theta, self.noise)))
+
 
 @dataclass
 class JointStepDraws:
@@ -444,7 +470,8 @@ def draw_joint_step(generator: torch.Generator, config: JointDAEDDECConfig,
 
 
 def make_joint_dae_ddec_train_step(fmt, optimizer: Optimizer, ema_bank: Optional[EMABank],
-                                   config: JointDAEDDECConfig, total_batch_size: int):
+                                   config: JointDAEDDECConfig, total_batch_size: int,
+                                   data: Optional[Axis] = None):
     """Build ``train_step(state, batch, draws=None) -> logs`` over
     ``state.module``, an ``nn.ModuleDict`` of "dae" and "ddec"; it updates
     ``state`` in place. One optimizer, one gradient clip, the forced MP
@@ -453,8 +480,9 @@ def make_joint_dae_ddec_train_step(fmt, optimizer: Optimizer, ema_bank: Optional
     the DDEC's diffusion loss is conditioned on the DAE's live
     reconstruction, so its gradient reaches the DAE. The sigmas come from
     the state's pdf, which the joint step never updates (as in JAX).
-    ``batch``: {"audio": (B, C, T)}."""
+    ``batch``: {"audio": (B, C, T)}; ``data`` as in ``make_dae_train_step``."""
     cfg = config
+    data = data or Axis()
     dae_cfg, ddec_cfg = cfg.dae, cfg.ddec
     mss = MSSLoss2D(dae_cfg.mss2d)
     sampler = SigmaSampler(ddec_cfg.unet.sigma)
@@ -464,7 +492,7 @@ def make_joint_dae_ddec_train_step(fmt, optimizer: Optimizer, ema_bank: Optional
     accum = cfg.grad_accum_steps
 
     def loss_fn(dae, ddec, audio: torch.Tensor, sigma: torch.Tensor, d: JointMicroDraws,
-                step: int, generator: torch.Generator):
+                step: int, generator: torch.Generator, ranks: int):
         audio = audio.float()
         if ddec_cfg.random_stereo_augmentation:
             audio = random_stereo_augmentation(audio, d.stereo_flip)
@@ -474,12 +502,13 @@ def make_joint_dae_ddec_train_step(fmt, optimizer: Optimizer, ema_bank: Optional
             mel = fmt.raw_to_mel_spec(fmt.mdct_to_raw(mdct))
             ds = dae.downsample_ratio
             mel = mel[:, :, : mel.shape[2] // ds * ds]
-        _, recon_mel, pre_norm = dae(mel, training=True)
+        _, recon_mel, pre_norm = dae(mel, training=True, stats_axis=data)
 
-        recon_loss = mss(recon_mel.float().permute(0, 3, 1, 2), mel.permute(0, 3, 1, 2))
+        recon_loss = mss(recon_mel.float().permute(0, 3, 1, 2), mel.permute(0, 3, 1, 2),
+                         data.mean_of)
         logvar = dae.get_recon_loss_logvar()
         dae_loss = (recon_loss / torch.exp(logvar) + logvar).mean()
-        var = pre_norm.float().square().mean(dim=(0, 1, 2)) + 1e-20
+        var = data.mean(pre_norm.float().square().mean(dim=(0, 1, 2))) + 1e-20
         kl = (var - 1.0 - torch.log(var)).mean()
         dae_loss = dae_loss + kl * (dae_cfg.kl_loss_weight
                                     * min(step / max(dae_cfg.kl_warmup_steps, 1), 1.0))
@@ -488,8 +517,9 @@ def make_joint_dae_ddec_train_step(fmt, optimizer: Optimizer, ema_bank: Optional
         lin = fmt.mel_spec_to_linear(recon_c.float())
         target = (mdct[:, :, c:-c] if c > 0 else mdct)[:, :, : lin.shape[2]].detach()
         noise = d.noise
-        if noise is None:
-            noise = torch.randn(target.shape, generator=generator, device=generator.device)
+        if noise is None:   # drawn for the global microbatch, this rank's rows kept
+            noise = data.share(torch.randn((ranks * target.shape[0],) + tuple(target.shape[1:]),
+                                           generator=generator, device=generator.device))
         sig = sigma.reshape(-1, 1, 1, 1)
         denoised = ddec(target + noise.to(target.device) * sig, sigma, None, lin, training=True)
         weight = (sig ** 2 + sd ** 2) / (sig * sd) ** 2
@@ -508,22 +538,24 @@ def make_joint_dae_ddec_train_step(fmt, optimizer: Optimizer, ema_bank: Optional
         if n % accum:
             raise ValueError(f"batch of {n} does not split into {accum} microbatches")
         mb = n // accum
+        ranks, rank = data.size, data.rank
         gen = state.generator
         quantiles = (draws.quantiles if draws is not None
                      else sampler.draw_quantiles(gen, total_batch_size))
-        sigma_all = sampler.sample(quantiles, state.sigma_pdf)[:n]
+        sigma_all = sampler.sample(quantiles, state.sigma_pdf)[:ranks * n]
         optimizer.zero_grad()
         loss_sum = 0.0
         dae_losses, ddec_losses = [], []
         for i in range(accum):
             if draws is not None:
-                d = draws.micro[i]
+                d = draws.micro[i].share(data)
             else:
-                p = draw_prepare(gen, mb)
+                p = draw_prepare(gen, ranks * mb).share(data)
                 d = JointMicroDraws(p.stereo_flip, p.phase_theta, None)
             sl = slice(i * mb, (i + 1) * mb)
-            loss, ld, ldd = loss_fn(dae, ddec, audio[sl], sigma_all[sl], d, state.global_step,
-                                    gen)
+            gsl = slice((i * ranks + rank) * mb, (i * ranks + rank + 1) * mb)
+            loss, ld, ldd = loss_fn(dae, ddec, audio[sl], sigma_all[gsl], d, state.global_step,
+                                    gen, ranks)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             dae_losses.append(ld)
@@ -539,8 +571,8 @@ def make_joint_dae_ddec_train_step(fmt, optimizer: Optimizer, ema_bank: Optional
                             total_batch_size, state.global_step)
         state.global_step += 1
         state.total_samples_processed += total_batch_size
-        return {"loss": loss_sum / accum, "grad_norm": optimizer.clip.last_grad_norm,
-                "loss_dae": torch.stack(dae_losses).mean(),
-                "loss_ddec": torch.stack(ddec_losses).mean()}
+        return {"loss": data.mean_of(loss_sum / accum), "grad_norm": optimizer.clip.last_grad_norm,
+                "loss_dae": data.mean_of(torch.stack(dae_losses).mean()),
+                "loss_ddec": data.mean_of(torch.stack(ddec_losses).mean())}
 
     return train_step

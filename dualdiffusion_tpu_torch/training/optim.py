@@ -12,6 +12,12 @@ trainer.py:407-431,639-700, src/modules/mp_tools.py:375-378).
   nor_muon.py:72-227): Newton-Schulz-5 orthogonalized momentum for the
   >= 2-D parameters whose JAX path matches ``muon_patterns``, AdamW for the
   rest, both behind the same clip.
+
+Under data parallelism (``Optimizer.axis``, the data axis) the gradients
+are averaged over the ranks before the clip, and the clip's norm is that of
+the whole gradient, row shards included (``parallel.global_grad_norm``);
+Muon gathers a row-sharded weight whole for Newton-Schulz, as GSPMD does
+in JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ import torch.nn as nn
 from ..models.layers import MP_WEIGHT_NAME
 from ..models.mp import normalize
 from ..ops.kernels.common import no_tf32
+from ..parallel.collectives import (Axis, average_gradients, full_tensor, global_grad_norm,
+                                    local_rows, shard_of)
 from ..weights import flax_key
 
 
@@ -59,9 +67,11 @@ class DynamicGradClip:
         self.last_max_norm = torch.full((), static_max_norm, dtype=torch.float32, device=device)
 
     @torch.no_grad()
-    def clip_(self, grads: Sequence[torch.Tensor]) -> None:
-        """Scale ``grads`` in place and advance the statistics."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))).float())
+    def clip_(self, grads: Sequence[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
+        """Scale ``grads`` in place and advance the statistics; ``norm`` is
+        the whole gradient's (default: the norm of ``grads``)."""
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))).float())
         finite = torch.isfinite(norm)
         norm_s = torch.clamp(torch.where(finite, norm, self.eps), min=self.eps)
         static = torch.full_like(norm, self.static_max_norm)
@@ -168,8 +178,10 @@ class Muon:
             g = p.grad
             m.mul_(beta).add_(g)
             eff = m * beta + g if self.nesterov else m
-            flat = eff.reshape(eff.shape[0], -1)
-            o = _newton_schulz5(flat, self.ns_steps)
+            # a row shard is orthogonalized whole (every rank alike), then cut
+            shard = shard_of(p)
+            flat = full_tensor(eff.reshape(eff.shape[0], -1), shard)
+            o = local_rows(_newton_schulz5(flat, self.ns_steps), shard)
             if self.use_normuon:
                 nu.mul_(self.nu_beta).add_(o.square().mean(dim=1), alpha=1 - self.nu_beta)
                 o = o / (nu.sqrt()[:, None] + self.eps)
@@ -194,7 +206,9 @@ class Optimizer:
 
     ``step(update_index)`` takes the gradients in the parameters' ``.grad``;
     a parameter without one counts as a zero gradient (as in JAX, where
-    every leaf has a gradient), so its moments still decay."""
+    every leaf has a gradient), so its moments still decay. With ``axis``,
+    the data axis of a multi-process run, the gradients are averaged over it
+    first."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  learning_rate: Union[float, Callable], betas: Sequence[float] = (0.9, 0.99),
@@ -204,6 +218,7 @@ class Optimizer:
                  muon_kwargs: Optional[dict] = None):
         self.params = list(params)
         self.learning_rate = learning_rate
+        self.axis: Optional[Axis] = None
         device = self.params[0].device if self.params else None
         self.clip = DynamicGradClip(z=dynamic_clip_z, static_max_norm=max_grad_norm,
                                     device=device)
@@ -229,7 +244,12 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        self.clip.clip_([p.grad for p in self.params])
+        grads = [p.grad for p in self.params]
+        norm = None
+        if self.axis is not None:
+            average_gradients(self.params, self.axis)
+            norm = global_grad_norm(grads, self.params)
+        self.clip.clip_(grads, norm)
         if self.muon is not None:
             self.muon.step(self.lr(self.muon.count + 1))
         if self.adamw is not None:
@@ -243,6 +263,23 @@ class Optimizer:
         if self.muon is not None:
             state["muon"] = self.muon.state_dict()
         return state
+
+    def map_moments(self, state: dict, fn: Callable) -> dict:
+        """A copy of ``state`` (a ``state_dict``) with each moment ``v`` of a
+        parameter ``p`` replaced by ``fn(v, p)``: whole for a checkpoint, or
+        this rank's rows of a whole one."""
+        out = dict(state)
+        if state.get("adamw") is not None:
+            params = self.adamw.param_groups[0]["params"]
+            out["adamw"] = dict(state["adamw"], state={
+                i: {k: fn(v, params[i]) if torch.is_tensor(v) and v.dim() > 0 else v
+                    for k, v in st.items()}
+                for i, st in state["adamw"]["state"].items()})
+        if state.get("muon") is not None:
+            out["muon"] = dict(state["muon"], **{
+                key: [fn(v, p) for v, p in zip(state["muon"][key], self.muon.params)]
+                for key in ("momentum", "nu")})
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         """Restores the moments, counts and clip statistics; the

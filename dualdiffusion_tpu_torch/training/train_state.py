@@ -22,6 +22,13 @@ and per microbatch the prepare stage's draws, the conditioning uniforms,
 noise, perturbation) are made apart from its arithmetic, from the state's
 ``torch.Generator``, so a test can pass in the draws of JAX's key splits
 instead.
+
+Under data parallelism (``data``, the data axis) each rank steps on its
+share of the global batch (``parallel.shard_batch``): it draws the whole
+global microbatch's random numbers and keeps its rows, so each sample gets
+the sigma and noise it gets on one process, and the optimizer averages the
+gradients over the ranks. The dropout masks follow the microbatch, not the
+sample: the ranks share a microbatch's seed.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..parallel.collectives import Axis
 from .ema import EMABank
 from .optim import Optimizer, normalize_mp_weights
 from .sigma_sampler import SigmaSampler, SigmaSamplerConfig
@@ -77,6 +85,12 @@ class MicroDraws:
     cond_noise: Optional[torch.Tensor]     # N(0,1), the embeddings' shape
     prepare: Any = None                    # the prepare stage's draws (its ``.to``)
     dropout_seed: Optional[torch.Tensor] = None  # () int64, seeds the UNet's dropout masks
+
+    def share(self, axis: Axis) -> "MicroDraws":
+        """This rank's rows of a global microbatch's draws; the prepare
+        stage's draws are cut where they are used, and the seed is shared."""
+        return dataclasses.replace(self, **{k: axis.share(getattr(self, k)) for k in
+                                            ("cond_u", "noise", "perturbation", "cond_noise")})
 
 
 @dataclass
@@ -148,7 +162,8 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
                          config: UNetTrainConfig, total_batch_size: int,
                          prepare_fn: Optional[Callable] = None,
                          draw_prepare: Optional[Callable] = None,
-                         get_embeddings: Callable = model_embeddings):
+                         get_embeddings: Callable = model_embeddings,
+                         data: Optional[Axis] = None):
     """Build ``train_step(state, batch, draws=None) -> logs``; it updates
     ``state`` in place. ``batch``: {"samples": (B, [Z,] H, W, C), "embeddings":
     (B, E) optional}, B = device batch x grad_accum_steps; or, with
@@ -156,9 +171,12 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
     "embeddings"?}`` (run without gradients per microbatch, its draws from
     ``draw_prepare(generator, b)``), whatever that takes.
     ``get_embeddings(model, emb_in, mask)`` gives the label embedding, None
-    for a model without one."""
+    for a model without one. ``data``: the data axis of a multi-process run;
+    ``batch`` is then this rank's share, ``total_batch_size`` the global
+    batch and ``draws`` those of the global microbatches."""
     sampler = SigmaSampler(config.sigma)
     accum = config.grad_accum_steps
+    data = data or Axis()
 
     def loss_fn(model, batch, sigma, draws: MicroDraws):
         samples = _crop(batch["samples"].float(), config)
@@ -194,7 +212,7 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
         weighted = ((denoised - samples) ** 2 * loss_weight).mean(dim=dims)
         logvar = model.get_sigma_loss_logvar(sigma).reshape(-1)
         loss = (weighted / torch.exp(logvar) + logvar).mean()
-        return loss, weighted.detach(), denoised.detach().std(correction=0)
+        return loss, weighted.detach(), data.std(denoised.detach())
 
     def bucket_losses(weighted, sigma):
         nb = config.num_loss_buckets
@@ -206,12 +224,13 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
         return sums, counts
 
     def micro_draws(state: TrainState, micro: Dict[str, Any]) -> MicroDraws:
-        """The step's own draws for a prepared microbatch."""
+        """The step's own draws for the global microbatch of a prepared one."""
         has_emb = micro.get("embeddings") is not None
         emb_ch = (state.module.emb_label.out_channels
                   if has_emb and config.conditioning_perturbation > 0 else 0)
         dropout = getattr(getattr(state.module, "cfg", None), "dropout", 0.0) > 0
-        return draw_micro(state.generator, config, _crop(micro["samples"], config).shape,
+        shape = _crop(micro["samples"], config).shape
+        return draw_micro(state.generator, config, (data.size * shape[0],) + tuple(shape[1:]),
                           has_emb, emb_ch, dropout=dropout)
 
     def train_step(state: TrainState, batch: Dict[str, Any],
@@ -221,6 +240,7 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
         if n % accum:
             raise ValueError(f"batch of {n} does not split into {accum} microbatches")
         mb = n // accum
+        ranks, rank = data.size, data.rank
         quantiles = (draws.quantiles if draws is not None
                      else sampler.draw_quantiles(state.generator, total_batch_size))
 
@@ -228,7 +248,7 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
             with torch.no_grad():
                 state.sigma_pdf = sampler.update_pdf_from_logvar(
                     model.get_sigma_loss_logvar, state.sigma_pdf, float(state.global_step))
-        sigma_all = sampler.sample(quantiles, state.sigma_pdf)[:n]
+        sigma_all = sampler.sample(quantiles, state.sigma_pdf)[:ranks * n]
 
         optimizer.zero_grad()
         loss_sum = 0.0
@@ -241,12 +261,15 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
             micro = {k: v[sl] for k, v in batch.items()}
             md = draws.micro[i] if draws is not None else None
             if prepare_fn is not None:
-                prep = md.prepare if md is not None else draw_prepare(state.generator, mb)
+                prep = (md.prepare if md is not None
+                        else draw_prepare(state.generator, ranks * mb))
                 with torch.no_grad():
-                    micro = prepare_fn(micro, prep)
+                    micro = prepare_fn(micro, prep.share(data))
             if md is None:
                 md = micro_draws(state, micro)
-            sigma = sigma_all[sl]
+            md = md.share(data)
+            # this rank's rows of the global microbatch i
+            sigma = sigma_all[(i * ranks + rank) * mb:(i * ranks + rank + 1) * mb]
             loss, weighted, std = loss_fn(model, micro, sigma, md)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
@@ -267,7 +290,9 @@ def make_unet_train_step(optimizer: Optimizer, ema_bank: Optional[EMABank],
                             total_batch_size, state.global_step)
         state.global_step += 1
         state.total_samples_processed += total_batch_size
-        return {"loss": loss_sum / accum, "denoised_std": torch.stack(dstd).mean(),
+        data.sum_(bucket_sums)
+        data.sum_(bucket_counts)
+        return {"loss": data.mean_of(loss_sum / accum), "denoised_std": torch.stack(dstd).mean(),
                 "grad_norm": optimizer.clip.last_grad_norm,
                 "max_grad_norm": optimizer.clip.last_max_norm,
                 "bucket_sums": bucket_sums, "bucket_counts": bucket_counts,

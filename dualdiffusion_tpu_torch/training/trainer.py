@@ -25,6 +25,14 @@ trainer.py).
   the train weights and the EMA profiles;
 * a ``torch.profiler`` trace of the steps [start, stop) of
   ``profile_steps`` into ``profile_dir`` (default ``<model>/profiles``).
+
+On several processes (``parallel``, a ``parallel.ParallelState``) rank 0
+alone writes files: the tensorboardX events, checkpoints, the source
+snapshot and its diff, EMA archives and the per-sample losses, which the
+data-axis ranks gather to it. A checkpoint holds whole tensors (row shards
+gathered on every rank first), so one written at any world size loads at
+any other; every rank resumes from it. Decisions to checkpoint are rank 0's,
+so all ranks take the same collectives.
 """
 
 from __future__ import annotations
@@ -42,7 +50,10 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.collectives import Axis, full_tensor, local_rows, shard_of
+from ..parallel.mesh import gathered, whole
 from ..utils import load_json, load_safetensors, save_json, save_safetensors
 from ..weights import flat_to_state, state_to_flat
 from .ema import AsyncHostEMA, EMABank, power_function_beta, save_ema_archive, trained_tensors
@@ -98,7 +109,9 @@ class LoggingConfig:
 
 @dataclass
 class ParallelConfig:
-    """Mesh layout of the JAX trainer; the port trains on one device."""
+    """The mesh: ``model_axis`` > 1 is tensor parallelism, ``fsdp`` shards
+    the weights over the data axis, ``num_dcn_slices`` groups the data
+    axis's outer blocks by node (``parallel.mesh``)."""
     model_axis: int = 1
     fsdp: bool = False
     num_dcn_slices: int = 1
@@ -180,11 +193,12 @@ class Trainer:
                  dataloader: Iterable, ema_bank: Optional[EMABank] = None,
                  validation_dataloader: Optional[Iterable] = None,
                  export_module_fn: Optional[Callable] = None,
-                 eval_step: Optional[Callable] = None):
+                 eval_step: Optional[Callable] = None, parallel=None):
         """train_step(state, batch) -> logs, updating ``state`` in place.
         export_module_fn(path, module, global_step) writes the module in
         model-directory format. eval_step(module, batch, generator) -> loss
-        enables validation over the train weights and every EMA profile."""
+        enables validation over the train weights and every EMA profile.
+        ``parallel``: the ``ParallelState`` of a multi-process run."""
         self.config = config
         self.train_step = train_step
         self.state = init_state
@@ -193,6 +207,8 @@ class Trainer:
         self.ema_bank = ema_bank
         self.export_module_fn = export_module_fn
         self.eval_step = eval_step
+        self.data = parallel.data if parallel is not None else Axis()
+        self.is_main = not dist.is_initialized() or dist.get_rank() == 0
         self.train_logger = TrainLogger()
         self.history: List[Dict[str, float]] = []
         self.last_checkpoint_time = time.time()
@@ -211,7 +227,8 @@ class Trainer:
         self._lr_fn = lr_schedule(lrc.lr_schedule, lrc.learning_rate, lrc.lr_warmup_steps,
                                   lrc.lr_reference_steps, lrc.lr_decay_exponent,
                                   lrc.min_learning_rate)
-        self.total_batch_size = config.device_batch_size * config.gradient_accumulation_steps
+        self.total_batch_size = (config.device_batch_size * config.gradient_accumulation_steps
+                                 * self.data.size)
         if config.enable_anomaly_detection:
             torch.autograd.set_detect_anomaly(True)
             logger.info("anomaly detection enabled")
@@ -219,8 +236,10 @@ class Trainer:
     # ---- observability ----------------------------------------------------
     def _make_writer(self):
         """A tensorboardX writer under ``logging.logging_dir``, else
-        ``<model>/logs/<module>``; None without a directory or without
-        tensorboardX."""
+        ``<model>/logs/<module>``; None without a directory, without
+        tensorboardX or off rank 0."""
+        if not self.is_main:
+            return None
         logdir = self.config.logging.logging_dir
         if logdir is None and self.config.model_path:
             logdir = os.path.join(self.config.model_path, "logs", self.config.module_name)
@@ -328,38 +347,52 @@ class Trainer:
     def _checkpoint_dir(self, step: int) -> Path:
         return Path(self.config.model_path) / f"{self.config.module_name}_checkpoint-{step}"
 
+    def _whole_profile(self, ema_name: str) -> Optional[Dict[str, torch.Tensor]]:
+        """An EMA profile with its row shards gathered (on every rank)."""
+        profile = self._ema_profile(ema_name)
+        return None if profile is None else whole(profile, trained_tensors(self.state.module))
+
     def save_checkpoint(self) -> Path:
         st = self.state
         ckpt = self._checkpoint_dir(st.global_step)
-        ckpt.mkdir(parents=True, exist_ok=True)
+        main = self.is_main
+        if main:
+            ckpt.mkdir(parents=True, exist_ok=True)
         if self.export_module_fn is not None:
-            self.export_module_fn(ckpt, st.module, st.global_step)
+            with gathered(st.module):
+                if main:
+                    self.export_module_fn(ckpt, st.module, st.global_step)
         if self.ema_bank is not None:
             for ema_name, cfg in self.ema_bank.configs.items():
-                profile = self._ema_profile(ema_name)
-                if profile is None:
-                    continue        # a host profile not seeded yet
+                profile = self._whole_profile(ema_name)
+                if profile is None or not main:
+                    continue        # a host profile not seeded yet, or not rank 0
                 for name, prefix in self._members().items():
                     save_safetensors(state_to_flat(self._part(profile, prefix)),
                                      ckpt / name / f"ema_{ema_name}.safetensors",
                                      metadata={"std": str(cfg.std),
                                                "global_step": str(st.global_step)})
-        torch.save({"optimizer": st.optimizer.state_dict(),
-                    "sigma_pdf": st.sigma_pdf.cpu(),
-                    "generator": st.generator.get_state(),
-                    "global_step": st.global_step,
-                    "total_samples_processed": st.total_samples_processed},
-                   ckpt / "train_state.pt")
-        save_json({"global_step": st.global_step, "epoch": self.epoch,
-                   "epoch_batch_idx": self.epoch_batch_idx,
-                   "total_samples_processed": st.total_samples_processed,
-                   "total_train_hours": self.total_train_hours}, ckpt / "trainer_state.json")
-        self._snapshot_source(ckpt / "src_snapshot")
-        if self.writer is not None:
-            self.writer.flush()
-        self._rotate_checkpoints()
+        opt_state = st.optimizer.map_moments(st.optimizer.state_dict(),
+                                             lambda v, p: full_tensor(v, shard_of(p)))
+        if main:
+            torch.save({"optimizer": opt_state,
+                        "sigma_pdf": st.sigma_pdf.cpu(),
+                        "generator": st.generator.get_state(),
+                        "global_step": st.global_step,
+                        "total_samples_processed": st.total_samples_processed},
+                       ckpt / "train_state.pt")
+            save_json({"global_step": st.global_step, "epoch": self.epoch,
+                       "epoch_batch_idx": self.epoch_batch_idx,
+                       "total_samples_processed": st.total_samples_processed,
+                       "total_train_hours": self.total_train_hours}, ckpt / "trainer_state.json")
+            self._snapshot_source(ckpt / "src_snapshot")
+            if self.writer is not None:
+                self.writer.flush()
+            self._rotate_checkpoints()
+            logger.info("saved checkpoint %s", ckpt)
+        if dist.is_initialized():
+            dist.barrier()      # the checkpoint is whole before any rank goes on
         self.last_checkpoint_time = time.time()
-        logger.info("saved checkpoint %s", ckpt)
         return ckpt
 
     @staticmethod
@@ -416,21 +449,23 @@ class Trainer:
             return False
         st = self.state
         params = trained_tensors(st.module)
+        # the checkpoint's tensors are whole: shapes to read them by, then this rank's rows
+        like = {k: torch.empty((s.rows,) + tuple(v.shape[1:]), device="meta")
+                if (s := shard_of(v)) is not None else v.detach() for k, v in params.items()}
+
+        def load_part(dst: Dict[str, torch.Tensor], prefix: str, path: Path) -> None:
+            for k, v in flat_to_state(self._part(like, prefix), load_safetensors(path)).items():
+                dst[k].copy_(local_rows(v, shard_of(params[prefix + k])))
+
         for name, prefix in self._members().items():
             module_dir = ckpt / name
-            part = self._part(params, prefix)
-            for k, v in flat_to_state(part, load_safetensors(module_dir / f"{name}.safetensors")
-                                      ).items():
-                part[k].copy_(v)
+            load_part(self._part(params, prefix), prefix, module_dir / f"{name}.safetensors")
             if self.ema_bank is not None:
                 for ema_name in st.ema_state:
-                    profile = self._part(st.ema_state[ema_name], prefix)
-                    flat = load_safetensors(module_dir / f"ema_{ema_name}.safetensors")
-                    for k, v in flat_to_state(profile, flat).items():
-                        profile[k].copy_(v)
+                    load_part(self._part(st.ema_state[ema_name], prefix), prefix,
+                              module_dir / f"ema_{ema_name}.safetensors")
         if self.ema_bank is not None and self.ema_bank.offloaded:
             # the host profiles, as fp32 CPU tensors under the state's keys
-            like = {k: v.detach().cpu().float() for k, v in params.items()}
             restored = {}
             for ema_name in self.ema_bank.offloaded:
                 profile: Dict[str, torch.Tensor] = {}
@@ -438,12 +473,14 @@ class Trainer:
                     path = ckpt / name / f"ema_{ema_name}.safetensors"
                     if path.is_file():
                         part = flat_to_state(self._part(like, prefix), load_safetensors(path))
-                        profile.update({prefix + k: v for k, v in part.items()})
+                        profile.update({prefix + k: local_rows(v, shard_of(params[prefix + k]))
+                                        for k, v in part.items()})
                 if profile:
                     restored[ema_name] = profile
             self.host_ema = restored or None
         ts = torch.load(ckpt / "train_state.pt", map_location="cpu")
-        st.optimizer.load_state_dict(ts["optimizer"])
+        st.optimizer.load_state_dict(st.optimizer.map_moments(
+            ts["optimizer"], lambda v, p: local_rows(v, shard_of(p))))
         st.sigma_pdf = ts["sigma_pdf"].to(st.sigma_pdf.device)
         st.generator.set_state(ts["generator"])
         st.global_step = int(ts["global_step"])
@@ -453,7 +490,8 @@ class Trainer:
         self.total_train_hours = meta.get("total_train_hours", 0.0)
         self.epoch_batch_idx = meta.get("epoch_batch_idx", 0)
         self._resume_skip_batches = self.epoch_batch_idx
-        self._write_src_diff(ckpt)
+        if self.is_main:
+            self._write_src_diff(ckpt)
         logger.info("resumed from %s at step %d (epoch %d, fast-forward %d batches)",
                     ckpt, st.global_step, self.epoch, self._resume_skip_batches)
         return True
@@ -528,10 +566,10 @@ class Trainer:
 
                 should_ckpt = (cfg.strict_checkpoint_time and
                                time.time() - self.last_checkpoint_time > cfg.min_checkpoint_time)
-                if trigger is not None and trigger.exists():
+                if self.is_main and trigger is not None and trigger.exists():
                     trigger.unlink()
                     should_ckpt = True
-                if should_ckpt and cfg.model_path:
+                if cfg.model_path and self._rank0_says(should_ckpt):
                     self.save_checkpoint()
                 if step >= max_steps:
                     self._flush_sample_losses()
@@ -554,10 +592,20 @@ class Trainer:
                                                       normalize_mp_weights)
                 if switched:
                     logger.info("switch EMA '%s' loaded into train weights", switched)
-            if (cfg.model_path and not cfg.strict_checkpoint_time
-                    and time.time() - self.last_checkpoint_time > cfg.min_checkpoint_time):
+            if (cfg.model_path and not cfg.strict_checkpoint_time and self._rank0_says(
+                    time.time() - self.last_checkpoint_time > cfg.min_checkpoint_time)):
                 self.save_checkpoint()
         return self.state
+
+    def _rank0_says(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank (a broadcast of one number, after
+        the step's loss has been read), so that all ranks take the same
+        collectives."""
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return bool(flag)
+        t = torch.tensor(float(flag), device=self.device)
+        dist.broadcast(t, 0)
+        return bool(t.item())
 
     def _epoch_iter(self):
         """One epoch's batches. A dataloader with ``epoch_iter(epoch,
@@ -580,8 +628,8 @@ class Trainer:
             return
         for ema_name, cfg in self.ema_bank.configs.items():
             n = cfg.num_archive_steps
-            profile = self._ema_profile(ema_name) if n and step % n == 0 else None
-            if profile is not None:
+            profile = self._whole_profile(ema_name) if n and step % n == 0 else None
+            if profile is not None and self.is_main:
                 for name, prefix in self._members().items():
                     path = (Path(self.config.model_path) / f"{name}_ema_archive"
                             / f"{step}_ema_{ema_name}.safetensors")
@@ -626,7 +674,8 @@ class Trainer:
                     batch.pop("paths", None)
                     losses.append(float(self.eval_step(module, batch, generator)))
             if losses:
-                results[cand] = float(np.mean(losses))
+                results[cand] = float(self.data.mean_of(
+                    torch.tensor(float(np.mean(losses)), device=self.device)))
         self._log_scalars({f"loss_validation/{k}": v for k, v in results.items()},
                           self.state.global_step)
         logger.info("validation @ step %d: %s", self.state.global_step,
@@ -634,16 +683,26 @@ class Trainer:
         return results
 
     def _record_sample_losses(self, paths, per_sample: torch.Tensor) -> None:
+        """This rank's losses of the step, by path, until the next flush."""
         if not self.config.model_path:
             return
         for p, v in zip(paths, per_sample.detach().cpu().reshape(-1).tolist()):
             self._pending_sample_losses[str(p)] = float(v)
 
     def _flush_sample_losses(self) -> None:
-        if not self._pending_sample_losses or not self.config.model_path:
+        """Rank 0 adds the pending losses to ``per_sample_losses.json``, the
+        data-axis ranks' gathered to it in rank order (a collective on that
+        axis, which every rank reaches at the same step)."""
+        if not self.config.model_path:
+            return
+        pending, self._pending_sample_losses = self._pending_sample_losses, {}
+        if self.data.size > 1:
+            parts: List[Any] = [None] * self.data.size
+            dist.all_gather_object(parts, pending, group=self.data.group)
+            pending = {p: v for part in parts for p, v in part.items()}
+        if not pending or not self.is_main:
             return
         out = Path(self.config.model_path) / "per_sample_losses.json"
         data = load_json(out) if out.is_file() else {}
-        data.update(self._pending_sample_losses)
-        self._pending_sample_losses.clear()
+        data.update(pending)
         save_json(dict(sorted(data.items(), key=lambda kv: -kv[1])), out)

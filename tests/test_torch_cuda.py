@@ -944,3 +944,196 @@ def test_new_format_round_trip_on_the_card_matches_cpu(cuda, name):
     assert _rel_l2(got.cpu(), want) <= 1e-5
     assert _rel_l2(back_got.cpu(), back_want) <= 1e-5
     assert torch.isfinite(back_got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cig,cog", [(8, 32, 688, 64, 32), (8, 16, 344, 128, 64),
+                                           (8, 8, 172, 192, 96), (8, 4, 86, 288, 256),
+                                           (8, 2, 43, 320, 160)])
+def test_grouped_conv_kernels_at_the_tensor_parallel_shard(cuda, b, h, w, cig, cog):
+    """The reference UNet's MLP convs on one rank of a 2-wide model axis: 4
+    of the 8 groups, half the input and output channels. K1 forward, dgrad
+    and K4 against their plain versions to one bf16 ulp of max (2**-7)."""
+    groups = 4
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((b, h, w, groups * cig), generator=g, device=cuda).bfloat16()
+    wt = prepare_weights(torch.randn((groups * cog, cig, 3, 3), generator=g, device=cuda)
+                         / (9 * cig) ** 0.5, groups)
+    gy = torch.randn((b, h, w, groups * cog), generator=g, device=cuda).bfloat16()
+    wd = dgrad_weights(wt)
+    for got, want in ((grouped_conv3x3(x, wt, groups), grouped_conv3x3_plain(x, wt, groups)),
+                      (grouped_conv3x3(gy, wd, groups), grouped_conv3x3_plain(gy, wd, groups)),
+                      (grouped_conv3x3_wgrad(x, gy, groups),
+                       grouped_conv3x3_wgrad_plain(x, gy, groups))):
+        torch.cuda.synchronize()
+        assert _rel_err(got.float().cpu(), want.float().cpu()) <= 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_world_one_nccl_step_matches_the_unwrapped_step(cuda, fsdp):
+    """A process group of one over NCCL: the data-parallel (or FSDP) UNet
+    step of a tiny grouped UNet, K1 and K4 launched, against the same step
+    without a group on a copy of the model, with the same draws: loss, grad
+    norm and parameters equal to 1e-6 (the same kernels on the same inputs;
+    FSDP over one rank leaves the weights whole, as JAX's sharding over one
+    device does)."""
+    import copy
+
+    from dualdiffusion_tpu_torch.models import UNet, UNetConfig
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.parallel import (MeshConfig, ParallelState, make_mesh,
+                                                  maybe_initialize_distributed, shutdown)
+    from dualdiffusion_tpu_torch.training import (SigmaSampler, UNetTrainConfig,
+                                                  build_optimizer, init_train_state,
+                                                  make_unet_train_step)
+    from dualdiffusion_tpu_torch.training.train_state import draw_unet_step
+    ucfg = UNetConfig(in_channels=4, out_channels=4, in_channels_emb=64, model_channels=32,
+                      channel_mult=(1, 2), num_layers_per_block=1, channels_per_head=32,
+                      mlp_multiplier=2, mlp_groups=2, attn_levels=(1,))
+    gen = torch.Generator().manual_seed(3)
+    unet = UNet(ucfg).init_weights(gen)
+    with torch.no_grad():
+        unet.core.out_gain.fill_(1.0)
+    tc = UNetTrainConfig(grad_accum_steps=2)
+    n, shape = 8, (8, 16, 64, 4)
+    batch = {"samples": torch.randn(shape, generator=gen).to(cuda),
+             "embeddings": torch.randn((n, 64), generator=gen).to(cuda)}
+    draws = draw_unet_step(gen, SigmaSampler(tc.sigma), tc, n, (n // 2,) + shape[1:], True,
+                           0).to(cuda)
+    assert maybe_initialize_distributed(device="cuda", always=True)
+    try:
+        out = {}
+        for wrapped in (False, True):
+            model = copy.deepcopy(unet).to(cuda)
+            parallel = None
+            if wrapped:
+                parallel = ParallelState(make_mesh(MeshConfig()), fsdp=fsdp)
+                parallel.prepare(model)
+            opt = build_optimizer("adamw", model.parameters(), 1e-3)
+            opt.axis = parallel.data if parallel else None
+            step = make_unet_train_step(opt, None, tc, n,
+                                        data=parallel.data if parallel else None)
+            state = init_train_state(model, opt, None, tc.sigma, torch.Generator(device=cuda))
+            before = launch_counts()
+            logs = step(state, batch, draws)
+            after = launch_counts()
+            assert all(after[k] > before[k] for k in ("grouped_conv3x3", "grouped_conv3x3_wgrad"))
+            out[wrapped] = (float(logs["loss"]), float(logs["grad_norm"]),
+                            {k: v.detach().float().cpu() for k, v in model.state_dict().items()})
+    finally:
+        shutdown()
+    (l0, g0, p0), (l1, g1, p1) = out[False], out[True]
+    assert abs(l1 - l0) <= 1e-6 * abs(l0) and abs(g1 - g0) <= 1e-6 * abs(g0)
+    for k, v in p0.items():
+        torch.testing.assert_close(p1[k], v, rtol=0, atol=1e-6, msg=k)
+
+
+@pytest.mark.cuda
+def test_pipeline_to_runs_the_dae_on_the_cpu(cuda):
+    """``Pipeline.to(device_map={"dae": "cpu"})``: the UNet samples on the
+    card (K1), the DAE decodes on the CPU, Griffin-Lim runs on the card
+    (K2, K3) and the audio is finite, of the format's shape."""
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+    from dualdiffusion_tpu_torch.models.formats import (SpectrogramFormat,
+                                                        SpectrogramFormatConfig)
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    from dualdiffusion_tpu_torch.sampling import SampleParams
+
+    g = torch.Generator().manual_seed(0)
+    ucfg = UNetConfig(in_channels=8, out_channels=8, in_channels_emb=1024, model_channels=32,
+                      channel_mult=(1, 2), num_layers_per_block=1, channels_per_head=32,
+                      mlp_multiplier=2, mlp_groups=2, attn_levels=(1,))
+    dcfg = DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                     num_enc_layers_per_block=1, num_dec_layers_per_block=1, latent_channels=8)
+    fcfg = SpectrogramFormatConfig(window_duration_ms=40, padded_duration_ms=40,
+                                   num_frequencies=64, default_raw_length=63 * 256)
+    pipe = Pipeline({
+        "unet": ModuleHandle("unet", "unet", ucfg, UNet(ucfg).init_weights(g)),
+        "dae": ModuleHandle("dae", "dae", dcfg, DAE(dcfg).init_weights(g)),
+        "format": ModuleHandle("format", "format:spectrogram", fcfg, SpectrogramFormat(fcfg))})
+    pipe.to("cuda", device_map={"dae": "cpu"})
+    assert next(pipe.modules["dae"].module.parameters()).device.type == "cpu"
+    before = launch_counts()
+    prompt = torch.randn((1, 1024), generator=g).to(cuda)
+    raw = pipe.generate(SampleParams(steps=2, num_fgla_iters=3), prompt_embedding=prompt)["raw"]
+    after = launch_counts()
+    assert raw.is_cuda and raw.shape == (1, 2, 63 * 256) and torch.isfinite(raw).all()
+    assert all(after[k] > before[k] for k in ("grouped_conv3x3", "fgla_frame", "ola_reframe"))
+
+
+def _placement_pipeline(seed: int = 0):
+    """A tiny DDEC pipeline on the CPU: the ms_mdct_dual format (64 frames),
+    an fp32 supersampled DAE (4 latent channels), a grouped UNet on
+    its (16, 32, 4) latents and the DDEC, every output gain 1."""
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+    from dualdiffusion_tpu_torch.models.formats import (MSMDCTDualFormat,
+                                                        MSMDCTDualFormatConfig)
+    from dualdiffusion_tpu_torch.pipelines.pipeline import ModuleHandle, Pipeline
+    g = torch.Generator().manual_seed(seed)
+    fcfg = MSMDCTDualFormatConfig(ms_num_filters=32, ms_window_length=256, mdct_window_len=64,
+                                  default_raw_length=63 * 32)
+    dcfg = DAEConfig(model_channels=8, channel_mult_enc=(1,), channel_mult_dec=(1, 2),
+                     num_enc_layers_per_block=2, num_dec_layers_per_block=1, latent_channels=4,
+                     supersampled=True, compute_dtype="float32")
+    ucfg = UNetConfig(in_channels=4, out_channels=4, in_channels_emb=16, model_channels=32,
+                      channel_mult=(1, 2), num_layers_per_block=1, channels_per_head=32,
+                      mlp_multiplier=2, mlp_groups=2, attn_levels=(1,))
+    ddcfg = UNetConfig(in_channels=2, out_channels=2, in_channels_emb=0, in_num_freqs=32,
+                       in_psd_freqs=128, sigma_max=20.0, sigma_min=3e-5, model_channels=16,
+                       channel_mult=(1, 2), num_layers_per_block=1, mlp_multiplier=2,
+                       logvar_channels=32, double_midblock=True, add_constant_channel=True)
+    unet, ddec = UNet(ucfg).init_weights(g), UNet(ddcfg).init_weights(g)
+    with torch.no_grad():
+        unet.core.out_gain.fill_(1.0)
+        ddec.core.out_gain.fill_(1.0)
+    return Pipeline({
+        "format": ModuleHandle("format", "format:ms_mdct_dual", fcfg, MSMDCTDualFormat(fcfg)),
+        "dae": ModuleHandle("dae", "dae", dcfg, DAE(dcfg).init_weights(g)),
+        "unet": ModuleHandle("unet", "unet", ucfg, unet),
+        "ddec": ModuleHandle("ddec", "ddec", ddcfg, ddec)})
+
+
+def check_placements(device: torch.device) -> None:
+    """``generate`` with ``decode_mode="ddec"`` after ``Pipeline.to(device,
+    device_map=...)`` against the pipeline all on ``device``: the DDEC on
+    the CPU, and img2img from audio (strength 0.5) with the DAE on the CPU.
+    Each stage runs on its module's device; the noise comes from the
+    generator on the UNet's device in every run. The DDEC on the CPU: the
+    latents of the run all on ``device`` to 1e-6 relative L2 (the same
+    stage), the audio to 0.1 (the DDEC's bf16 trunk rounds apart on the
+    CPU and the card). The DAE on the CPU: its fp32 encode and decode
+    against ``device``'s (TF32 convs on a card), the latents to 1e-2 and
+    the audio to 0.1."""
+    import dataclasses
+
+    from dualdiffusion_tpu_torch.sampling import SampleParams
+    pipe = _placement_pipeline()
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randn((1, 16), generator=g).to(device)
+    audio = torch.randn((2, 63 * 32), generator=g) * 0.1
+    params = SampleParams(steps=2, seed=5)
+
+    def run(device_map, **kw):
+        pipe.to(device, device_map=device_map)
+        for name, dev in (device_map or {}).items():
+            assert next(pipe.modules[name].module.parameters()).device.type == dev
+        p = dataclasses.replace(params, img2img_strength=0.5) if kw else params
+        out = pipe.generate(p, prompt_embedding=prompt, decode_mode="ddec", **kw)
+        assert out["raw"].device.type == device.type and out["raw"].shape == (1, 2, 63 * 32)
+        assert torch.isfinite(out["raw"]).all()
+        return {k: out[k].float().cpu() for k in ("latents", "raw")}
+
+    for device_map, kw, lat_tol in (({"ddec": "cpu"}, {}, 1e-6),
+                                    ({"dae": "cpu"}, {"input_audio": audio}, 1e-2)):
+        want, got = run(None, **kw), run(device_map, **kw)
+        assert _rel_l2(got["latents"], want["latents"]) <= lat_tol, device_map
+        assert _rel_l2(got["raw"], want["raw"]) <= 0.1, device_map
+
+
+@pytest.mark.cuda
+def test_pipeline_to_moves_each_stage_to_its_module(cuda):
+    """The UNet on the card, the DDEC or the DAE on the CPU
+    (``check_placements``)."""
+    check_placements(cuda)

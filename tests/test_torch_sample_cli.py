@@ -1,8 +1,8 @@
 """The port's sampling entry point, ``python -m dualdiffusion_tpu_torch.sample``,
 and the audio io it writes through: every option on a tiny model on the CPU
 (a WAV at -20 LUFS), the ``--inpaint`` mask against the JAX ``sample.py``'s
-inline computation, the refusals (no card without ``--device cpu``; tensor
-parallelism is not ported), ``--interactive`` handing over to the web UI,
+inline computation, the refusals (no card without ``--device cpu``; ``--tp``
+with fewer cards than ranks), ``--interactive`` handing over to the web UI,
 and loudness normalization and the FLAC gate against the JAX package's
 ``utils/utils.py``.
 """
@@ -172,9 +172,9 @@ def test_inpaint_mask_matches_sample_py(tmp_path):
 
 def test_sample_cli_refuses_what_it_does_not_take(tmp_path, monkeypatch):
     """Without a card ``--device cuda`` (the default) raises instead of
-    sampling on the CPU; ``--tp`` (tensor parallelism) is not ported and
-    raises before anything loads."""
-    with pytest.raises(NotImplementedError):
+    sampling on the CPU; ``--tp 2`` with fewer than two cards visible raises
+    before anything loads, rather than sampling on fewer."""
+    with pytest.raises(RuntimeError, match="needs 2 cards"):
         sample.main(["--model_path", str(tmp_path / "nowhere"), "--tp", "2"])
     d, _ = _model_dir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
