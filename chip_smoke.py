@@ -40,21 +40,21 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    CFG 1.5, Heun, SPSI + 100 Griffin-Lim iterations), checking the audio and
    that K1, K2 and K3 were launched (every K3 call on its Hopper route) and
    K7 was not (its "freq" attention
-   sees L <= 32); then the same at 50 steps for ``ref_scale_full_attn`` (the
+   sees L <= 32); then the same at 30 steps for ``ref_scale_full_attn`` (the
    same model with "full" attention at levels 1, 3 and 4), where K7 must be
    launched at level 1 (L 5504); then DDEC serving: the same UNet and DAE on the
    edm2_default MS-MDCT dual format with the DDEC of
    configs/models/edm2_ddec_mclt_b1a, ``generate(decode_mode="auto")``
-   twice at 50 steps (the DDEC samples (1, 256, 5504, 2) MDCT coefficients
-   with the same 50 Heun steps, conditioned on the mel's 2048-row linear PSD; no
+   twice at 30 steps (the DDEC samples (1, 256, 5504, 2) MDCT coefficients
+   with the same 30 Heun steps, conditioned on the mel's 2048-row linear PSD; no
    CFG), printing each stage's seconds and peak memory and checking the
    audio and that K1 was launched and K2, K3 and K7 were not; then one
    full-width DDEC forward (ms, analytic GFLOP, TFLOP/s, bf16 bound);
 6. drives the options of ``generate`` that ``sample.py`` and the model
    server use, on a fourth copy of the reference-scale pipeline: img2img
-   from the first serving clip at strength 0.5 (K1 for 25 of 50 steps)
+   from the first serving clip at strength 0.5 (K1 for 15 of 30 steps)
    and 0, inpainting 10-20 s on ``convert_unet_to_inpainting``'s UNet (all
-   50 steps, and one full-width forward with a zero reference against the
+   30 steps, and one full-width forward with a zero reference against the
    original), the seamless loop under Griffin-Lim and under the DDEC
    (shifts that change from step to step, the crossfaded length), a
    chunked preview aborted after 3 chunks of 10 steps, and
@@ -67,13 +67,13 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    ``python -m dualdiffusion_tpu_torch.create_new_model`` writes it from a
    seed on the card; ``serving.launch(device="cuda")`` spawns the model
    server, which loads it and warms up (``compile_model``); the UI's handlers
-   behind a local HTTP server take a plain request (45 s, 50 Heun steps, CFG
+   behind a local HTTP server take a plain request (45 s, 30 Heun steps, CFG
    1.5, the DDEC decode; its preview, WAV and spectrogram), an editor inpaint
    of 10-20 s, an editor append, a request aborted after its first preview,
    and a rating and a save, each timed against the same clip in-process;
    ``python -m dualdiffusion_tpu_torch.sample --interactive`` then answers on
    its own port; one request through an in-process ``ModelServer`` under
-   ``decode_mode="fgla"`` must launch K1 exactly 68 x 2 x 100 times, K2 and
+   ``decode_mode="fgla"`` must launch K1 exactly 68 x 2 x 30 times, K2 and
    K3 (on their Hopper routes), and no K7;
 8. drives the UNet training path: writes a synthetic latent dataset and runs
    ``python -m dualdiffusion_tpu_torch.train``'s entry in-process on that
@@ -122,7 +122,7 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    width: the reference scale with the d1 options (``use_3d``, stereo-wrapped
    io convs without bias, W reflect padding, a skip conv in every block, the
    constant and ln-freq channels, a double midblock with attention, "full"
-   attention at levels 1, 3 and 4) through ``edm_sample`` for 50 Heun
+   attention at levels 1, 3 and 4) through ``edm_sample`` for 30 Heun
    steps at CFG 1.5 on a (1, 2, 32, 688, 4) sample (K7 exactly 7 times a
    forward, K1 never: its convs are 5-D, on cuDNN), then its train step on
    5-D latents ("freq" attention at levels 3-4, dropout 0.1, device batch 8
@@ -151,12 +151,21 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    groups, half the channels) against its plain version; (d) img2img at
    strength 0.5 from 5 s of seeded audio (25 steps) on the reference-scale
    pipeline with the DAE moved to the CPU by ``Pipeline.to``: the encode and
-   the decode on the CPU, the sampler on the card.
+   the decode on the CPU, the sampler on the card; (e) on (b)'s two ranks,
+   GPipe over the reference-scale UNet's op schedule: each rank keeps only
+   its stage of the FLOP-balanced plan, ``pipelined_denoise`` streams the
+   CFG batch of 2 as 2 microbatches of 1 (the stage's state handed on in
+   one bf16 buffer), against the trunk run microbatch by microbatch in one
+   process, then a 4-step Heun sample through it against the same sample
+   there, the ranks' K1 launches summing to the microbatches' forwards';
+   (f) on the same ranks, the reference-scale DAE's encode and decode of a
+   45 s mel split in two along time, halos from ``dae_halos`` exchanged
+   between the ranks, against the unsharded encode and decode.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
 one full-width DAE train step (step 9's model, data and config). The
 arguments ``--parallel-train`` and ``--parallel-gloo`` run one rank of
-step 15 (a) and (b); step 15 starts them.
+step 15 (a) and of (b), (e) and (f); step 15 starts them.
 
 Any failure raises, so the exit code is not 0. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -178,12 +187,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SAMPLER_STEPS = 100
 SEEDS = (1, 2)
-#: steps of the generation options' and the 3-D UNet's samplers: half the
-#: serving path's, to keep the whole script within its time limit
-OPTIONS_STEPS = 50
+#: steps of the generation options' and the 3-D UNet's samplers: under a
+#: third of the serving path's, to keep the whole script within its time limit
+OPTIONS_STEPS = 30
 #: steps of the full-attention and DDEC serving paths and of the web UI's
-#: requests: half the reference-scale serving path's, for the same reason
-CUT_SERVING_STEPS = 50
+#: requests, for the same reason
+CUT_SERVING_STEPS = 30
 TRAIN_BATCH = 8          # device batch of the training path
 TRAIN_ACCUM = 2          # gradient accumulation steps
 TRAIN_STEPS = 4          # then one more after --resume
@@ -1648,12 +1657,12 @@ def seamless_conv_check(unet, lat_h: int, lat_w: int, gen) -> None:
 def generation_options_path(model_dir: Path, ddec_dir: Path, fmt, mfmt, prompt, clip,
                             k1_per_forward: int, card: str) -> None:
     """The options of ``generate`` at full width on the reference-scale
-    pipeline (50 Heun steps, CFG 1.5, SPSI + 100 Griffin-Lim iterations):
+    pipeline (30 Heun steps, CFG 1.5, SPSI + 100 Griffin-Lim iterations):
     img2img from the first serving clip at strength 0.5 (K1 launched for 25
     steps, half the latent stage) and 0 (no step: the latents are the
     input's normalized encoding plus sigma_min's noise, 0.05 relative L2 as
     tests/test_torch_generate_options.py states); inpainting 10-20 s on the
-    converted UNet (its 4 + 4 + 1 inputs, every forward of all 50 steps);
+    converted UNet (its 4 + 4 + 1 inputs, every forward of all 30 steps);
     the seamless loop under Griffin-Lim and under the DDEC (shifts that
     differ from step to step; the audio shorter by the crossfade); the
     chunked preview with an abort after 3 chunks of 10 steps; and the
@@ -1880,7 +1889,7 @@ def web_ui_serving_path(root: Path, ucfg, dcfg, raw_len: int, clip_s: dict, card
     edm2_ddec_mclt_b1a DDEC) from a seed; ``launch(device="cuda")`` spawns the
     model server, which loads it and runs ``compile_model``; the port's UI
     handlers behind a port-0 HTTP server take, at full width (45 s, batch 1,
-    50 Heun steps, CFG 1.5, decoded by the DDEC under "auto"), (a) a plain
+    30 Heun steps, CFG 1.5, decoded by the DDEC under "auto"), (a) a plain
     request (its preview PNG, WAV and spectrogram PNG), (b) an editor inpaint
     of 10-20 s of output 0, (c) an editor append, (d) a request aborted after
     its first preview and (e) a rating and a save, each checked to have come
@@ -3074,7 +3083,7 @@ def kernel_phase_flash_3d(gen) -> None:
 
 
 def unet_3d_path(gen, prompt, path_counts, smi: str) -> None:
-    """The stereo-folded 3-D UNet at full width: 50 Heun steps at CFG 1.5
+    """The stereo-folded 3-D UNet at full width: 30 Heun steps at CFG 1.5
     through ``edm_sample`` on a (1, 2, 32, 688, 4) sample ("full" attention:
     K7 at level 1, 7 calls a forward; every conv is 5-D, on cuDNN, so K1
     never launches), then the UNet's train step on 5-D latents with "freq"
@@ -3447,6 +3456,10 @@ RESUMED_MODE = "fsdp"    # (a): the run that also resumes for a step
 TO_STEPS = 25            # (d): sampler steps of the clip with the DAE on the CPU
 GLOO_RANKS = 2           # (b): data-parallel ranks on the one card
 GLOO_BATCH = 4           # (b): each rank's device batch, x TRAIN_ACCUM: half of 8 x 2
+PP_MICROBATCHES = 2      # (e): the CFG batch of 2 as microbatches of 1
+PP_SAMPLE_STEPS = 4      # (e): Heun steps of the pipelined sample
+PP_SIGMA = 10.0          # (e): the noise level of the pipelined denoise's input
+PP_SEED = 21             # (e), (f): the inputs' seed
 
 
 def torchrun(nproc: int, *args: str, timeout: float = 600) -> str:
@@ -3583,7 +3596,7 @@ def parallel_gloo_rank(model_dir: Path) -> None:
     through the data-parallel step; rank 0 writes the averaged gradient."""
     import torch
     from dualdiffusion_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from dualdiffusion_tpu_torch.parallel import (MeshConfig, ParallelState, make_mesh,
+    from dualdiffusion_tpu_torch.parallel import (Axis, MeshConfig, ParallelState, make_mesh,
                                                   maybe_initialize_distributed, shard_batch,
                                                   shutdown)
     maybe_initialize_distributed(device="cuda", backend="gloo", local_device_ids=[0])
@@ -3595,7 +3608,138 @@ def parallel_gloo_rank(model_dir: Path) -> None:
     if parallel.data.rank == 0:
         torch.save({"grad": grad.cpu(), "grad_norm": norm, "seconds": seconds,
                     "counts": launch_counts()}, model_dir / "gloo_dp.pt")
+    del grad
+    torch.cuda.empty_cache()
+    # (e) and (f) on the same two ranks, as a "model" axis
+    axis = Axis.of(make_mesh(MeshConfig(model_axis=GLOO_RANKS), device_type="cpu"), "model")
+    out = {"pp": pipeline_rank(model_dir, axis), "sp": sharded_dae_rank(model_dir, axis)}
+    torch.save(out, model_dir / f"gloo_pp_sp_{axis.rank}.pt")
     shutdown()
+
+
+def pp_inputs(unet, hwc):
+    """(e)'s denoiser input: a CFG batch of 2 latents of 45 s at sigma
+    ``PP_SIGMA``, and the conditional and unconditional embeddings of a
+    seeded prompt."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(PP_SEED)
+    x = PP_SIGMA * torch.randn((PP_MICROBATCHES,) + tuple(hwc), generator=g, device="cuda")
+    sigma = torch.full((PP_MICROBATCHES,), PP_SIGMA, device="cuda")
+    prompt = torch.randn((1, unet.cfg.in_channels_emb), generator=g, device="cuda")
+    with torch.no_grad():
+        emb = torch.cat([unet.get_embeddings(prompt, torch.full((1,), c, device="cuda"))
+                         for c in (1.0, 0.0)])
+    return x, sigma, emb
+
+
+def microbatched_denoise(core, x, sigma, emb, m: int = PP_MICROBATCHES):
+    """The sequential counterpart of ``pipelined_denoise`` on one process:
+    ``precondition`` of the batch, the trunk one microbatch at a time, the
+    combine."""
+    import torch
+    x0, e0, c_skip, c_out = core.precondition(x, sigma, emb)
+    y = torch.cat([core.run_ops(a, b, [])[0] for a, b in zip(x0.chunk(m), e0.chunk(m))])
+    return c_skip * x.float() + c_out * y.float()
+
+
+def pp_sample(denoise, cfg, hwc):
+    """(e)'s sample: ``PP_SAMPLE_STEPS`` Heun steps at CFG 1.5 through ``denoise``."""
+    import torch
+    from dualdiffusion_tpu_torch.sampling import SampleParams, edm_sample
+    return edm_sample(denoise, (1,) + tuple(hwc),
+                      SampleParams(steps=PP_SAMPLE_STEPS, cfg_scale=1.5, use_heun=True),
+                      cfg.sigma_max, cfg.sigma_min, cfg.sigma_data,
+                      generator=torch.Generator(device="cuda").manual_seed(SEEDS[0]))
+
+
+def pipeline_rank(model_dir: Path, axis) -> dict:
+    """(e) on one rank: the reference-scale UNet loaded on the host, cut to
+    this rank's stage of the plan (``keep_stage``) and moved to the card;
+    one pipelined denoise (after a warm-up) with its K1 launches and
+    seconds, then a ``PP_SAMPLE_STEPS``-step sample through it."""
+    import torch
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualdiffusion_tpu_torch.parallel import (build_stage_plan, keep_stage,
+                                                  pipelined_denoise)
+    from dualdiffusion_tpu_torch.pipelines.pipeline import load_module
+    hwc = json.loads((model_dir / "latent_shape.json").read_text())["hwc"]
+    t0 = time.perf_counter()
+    _, cfg, unet = load_module(model_dir, "unet", "cpu")
+    plan = build_stage_plan(cfg, [1] + hwc, axis.size)
+    keep_stage(unet.core, plan, axis.rank)
+    unet.to("cuda")
+    load_s = time.perf_counter() - t0
+    held = sum(p.numel() for n, p in unet.core.named_parameters()
+               if not n.startswith("emb_noise."))
+    torch.cuda.reset_peak_memory_stats()
+    x, sigma, emb = pp_inputs(unet, hwc)
+    res = {"held": held, "replicated": sum(p.numel() for p in unet.parameters()) - held,
+           "load_s": load_s}
+    with torch.no_grad():
+        def denoise(xx, ss):
+            return pipelined_denoise(unet.core, xx, ss, emb, axis, PP_MICROBATCHES, plan=plan)
+        denoise(x, sigma)       # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        y = denoise(x, sigma)
+        torch.cuda.synchronize()
+        res.update(seconds=time.perf_counter() - t0, counts=launch_counts(), y=y.cpu())
+        calls = []
+
+        def counted(xx, ss):
+            calls.append(tuple(xx.shape))
+            return denoise(xx, ss)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sample = pp_sample(counted, cfg, hwc)
+        torch.cuda.synchronize()
+        res.update(sample_s=time.perf_counter() - t0, sample_counts=launch_counts(),
+                   calls=len(calls), sample=sample.cpu())
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del unet
+    torch.cuda.empty_cache()
+    return res
+
+
+def dae_mel(fmt):
+    """(f)'s input: the mel of a seeded 45 s song, on the card."""
+    import torch
+    crop = fmt.get_raw_crop_width()
+    audio = torch.from_numpy(factory_song(PP_SEED, 45.0)[:, :crop])[None].cuda()
+    with torch.no_grad():
+        return fmt.raw_to_sample(audio)
+
+
+def sharded_dae_rank(model_dir: Path, axis) -> dict:
+    """(f) on one rank: the reference-scale DAE's encode of this rank's half
+    of a 45 s mel with ``dae_halos``' halo from its neighbour, then the
+    decode of its latents the same way (each timed after a warm-up); the
+    gathered latents and mel."""
+    import torch
+    from dualdiffusion_tpu_torch.parallel import (dae_halos, gather_w, shard_w,
+                                                  sharded_tiled_decode, sharded_tiled_encode)
+    from dualdiffusion_tpu_torch.pipelines.pipeline import load_module
+    _, dcfg, dae = load_module(model_dir, "dae", "cuda")
+    _, _, fmt = load_module(model_dir, "format", "cuda")
+    halo, halo_latent = dae_halos(dcfg)
+    ds = dae.downsample_ratio
+    res = {"halo": halo, "halo_latent": halo_latent}
+    with torch.no_grad():
+        x = shard_w(dae_mel(fmt), axis)
+        for name, fn in (("encode", lambda t: sharded_tiled_encode(dae.encode, t, axis, halo, ds)),
+                         ("decode", lambda t: sharded_tiled_decode(dae.decode, t, axis,
+                                                                   halo_latent, ds))):
+            fn(x)               # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = fn(x)
+            torch.cuda.synchronize()
+            res[f"{name}_s"] = time.perf_counter() - t0
+            res[name] = gather_w(x, axis).cpu()
+    del dae
+    torch.cuda.empty_cache()
+    return res
 
 
 def tp_shard_conv_check(conv_shapes, groups: int, gen) -> None:
@@ -3623,6 +3767,153 @@ def tp_shard_conv_check(conv_shapes, groups: int, gen) -> None:
         plain_ms += n * time_ms(lambda: grouped_conv3x3_plain(x, wt, g))
     print(f"  per UNet forward at the shard: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms",
           flush=True)
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| / max |want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def pipeline_check(model_dir: Path, ranks: list, counts: dict, smi: str) -> None:
+    """(e) in this process: the plan; each rank's parameters against its
+    stage's size; the pipelined denoise and sample against the sequential
+    trunk run microbatch by microbatch here; K1 launches summed over the
+    ranks against the microbatches' forwards; the seconds."""
+    import torch
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualdiffusion_tpu_torch.parallel import build_stage_plan
+    from dualdiffusion_tpu_torch.parallel.unet_pipeline import op_costs
+    from dualdiffusion_tpu_torch.pipelines.pipeline import load_module
+    hwc = json.loads((model_dir / "latent_shape.json").read_text())["hwc"]
+    _, cfg, unet = load_module(model_dir, "unet", "cuda")
+    plan = build_stage_plan(cfg, [1] + hwc, GLOO_RANKS)
+    costs = op_costs(cfg, plan.boundary_specs)
+    b = plan.boundaries
+    share = [float(costs[lo:hi].sum() / costs.sum()) for lo, hi in zip(b, b[1:])]
+    print(f"(e) pipelined denoise over a \"model\" axis of the {GLOO_RANKS} gloo ranks: CFG batch "
+          f"{PP_MICROBATCHES} as {PP_MICROBATCHES} microbatches of 1, latents {tuple(hwc)} at "
+          f"sigma {PP_SIGMA}; plan: ops {b} of {len(unet.core.schedule)}, stage FLOP shares "
+          f"{[round(x, 4) for x in share]}, stage params {plan.stage_param_sizes}, payload "
+          f"{plan.payload_len} bf16 elements ({plan.payload_len * 2 / 1e6:.1f} MB) a hand-off",
+          flush=True)
+    for r, res in enumerate(ranks):
+        expect(f"rank {r}'s parameters against its stage's size in the plan",
+               res["held"] == plan.stage_param_sizes[r],
+               f"{res['held']} = {plan.stage_param_sizes[r]} (ops {b[r]}-{b[r + 1] - 1} and "
+               f"out_gain; plus {res['replicated']} replicated: the noise and label "
+               f"embeddings, the logvar head), peak memory {res['peak_gib']:.2f} GiB, loaded "
+               f"and cut in {res['load_s']:.1f} s")
+    x, sigma, emb = pp_inputs(unet, hwc)
+    with torch.no_grad():
+        reset_launch_counts()
+        unet(x[:1], sigma[:1], emb[:1])
+        torch.cuda.synchronize()
+        k1_one = launch_counts()["grouped_conv3x3"]
+        want = microbatched_denoise(unet.core, x, sigma, emb)
+        plain = unet(x, sigma, emb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        unet(x, sigma, emb)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    got = ranks[0]["y"]
+    err = rel_max(got, want)
+    expect("the pipelined denoise against the sequential trunk, microbatch by microbatch",
+           err <= 2 ** -8, f"max |diff| / max {err:.3g}"
+           f"{' (bit-equal)' if torch.equal(got, want.cpu()) else ''} (tol 2^-8); against the "
+           f"plain forward of the batch {rel_max(got, plain):.3g}; every rank's output the same: "
+           f"{all(torch.equal(r['y'], got) for r in ranks)}")
+    if not all(torch.equal(r["y"], got) for r in ranks):
+        raise AssertionError("the ranks' pipelined outputs differ")
+    k1 = [r["counts"]["grouped_conv3x3"] for r in ranks]
+    expect("K1 launches summed over the ranks", sum(k1) == PP_MICROBATCHES * k1_one > 0,
+           f"{k1} = {sum(k1)} = {PP_MICROBATCHES} microbatches x {k1_one} of one forward "
+           f"at batch 1")
+    calls = ranks[0]["calls"]
+    with torch.no_grad():
+        sample = pp_sample(lambda xx, ss: microbatched_denoise(unet.core, xx, ss, emb), cfg, hwc)
+    rel = float((ranks[0]["sample"] - sample.cpu()).norm() / sample.norm())
+    k1s = [r["sample_counts"]["grouped_conv3x3"] for r in ranks]
+    expect(f"the {PP_SAMPLE_STEPS}-step Heun sample through the pipelined denoise against "
+           f"the same through the sequential trunk", rel <= 1e-3 and
+           sum(k1s) == calls * PP_MICROBATCHES * k1_one and
+           all(torch.equal(r["sample"], ranks[0]["sample"]) for r in ranks),
+           f"relative L2 {rel:.3g} (tol 1e-3); {calls} denoiser calls, K1 {k1s} = {calls} x "
+           f"{PP_MICROBATCHES} x {k1_one}")
+    for r, res in enumerate(ranks):
+        counts[f"pipelined denoise and sample, rank {r} of {GLOO_RANKS}"] = {
+            k: v + res["sample_counts"][k] for k, v in res["counts"].items()}
+    print(f"  seconds: one pipelined denoise {ranks[0]['seconds']:.4f} (rank 0), "
+          f"{ranks[1]['seconds']:.4f} (rank 1); the sample {ranks[0]['sample_s']:.3f}; one "
+          f"sequential forward of the batch on one process {seq_s:.4f}; correctness only: both "
+          f"ranks share one card and hand off through host memory ({smi})", flush=True)
+    del unet
+    torch.cuda.empty_cache()
+
+
+def sharded_dae_check(model_dir: Path, ranks: list, smi: str) -> None:
+    """(f) in this process: the ranks' sharded encode and decode against the
+    unsharded ones of the same mel and latents. In the interior the tolerance
+    is the compute dtype's: each bf16 result's relative L2 from the same DAE
+    in fp32 (TF32 off), the sharded one's at most twice the unsharded one's,
+    over the interior and within two halos of the seam between the ranks; at
+    the clip's true edges the difference is bounded by the output's largest
+    magnitude."""
+    import dataclasses
+
+    import torch
+    from dualdiffusion_tpu_torch.models import DAE
+    from dualdiffusion_tpu_torch.ops.kernels.common import no_tf32
+    from dualdiffusion_tpu_torch.pipelines.pipeline import load_module
+    _, dcfg, dae = load_module(model_dir, "dae", "cuda")
+    _, _, fmt = load_module(model_dir, "format", "cuda")
+    dae32 = DAE(dataclasses.replace(dcfg, compute_dtype="float32"), device="cuda").eval()
+    dae32.load_state_dict(dae.state_dict())
+    res = ranks[0]
+    halo, halo_latent, ds = res["halo"], res["halo_latent"], dae.downsample_ratio
+    mel = dae_mel(fmt)
+    print(f"(f) the DAE ({dcfg.model_channels} ch x {dcfg.channel_mult_enc}, ds {ds}, "
+          f"{dcfg.compute_dtype}) on a 45 s mel {tuple(mel.shape)} split over the "
+          f"{GLOO_RANKS} gloo ranks: halo {halo} mel columns, {halo_latent} latent columns "
+          f"(dae_halos: the encoder's and the decoder's receptive fields)", flush=True)
+    lat = res["encode"].cuda()
+    with torch.no_grad():
+        whole = {"encode": dae.encode(mel), "decode": dae.decode(lat)}
+        with no_tf32():
+            fp32 = {"encode": dae32.encode(mel), "decode": dae32.decode(lat)}
+        torch.cuda.synchronize()
+        secs = {}
+        for name, fn, arg in (("encode", dae.encode, mel), ("decode", dae.decode, lat)):
+            t0 = time.perf_counter()
+            fn(arg)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+    for name, edge in (("encode", halo // ds), ("decode", halo_latent * ds)):
+        got, want, ref = res[name], whole[name].cpu(), fp32[name].cpu()
+        w = got.shape[2]
+        seam = w // GLOO_RANKS
+
+        def rel(a, b, lo=edge, hi=w - edge):
+            return float((a - b)[:, :, lo:hi].norm() / b[:, :, lo:hi].norm())
+        e = {"interior": (rel(got, ref), rel(want, ref)),
+             "seam": (rel(got, ref, seam - 2 * edge, seam + 2 * edge),
+                      rel(want, ref, seam - 2 * edge, seam + 2 * edge))}
+        diff = (got - want).abs()
+        scale = float(want.abs().max())
+        expect(f"sharded {name} against the unsharded one", got.shape == want.shape
+               and all(a <= 2 * b for a, b in e.values())
+               and float(diff.max()) <= scale and all(torch.equal(r[name], got) for r in ranks),
+               f"{tuple(got.shape)}: relative L2 from the fp32 DAE, sharded and unsharded "
+               f"(tol 2x), in the interior (past {edge} columns of each true edge) "
+               f"{e['interior'][0]:.3g} and {e['interior'][1]:.3g}, within {2 * edge} columns "
+               f"of the seam {e['seam'][0]:.3g} and {e['seam'][1]:.3g}; between them "
+               f"{rel(got, want):.3g}, max |diff| {float(diff[:, :, edge:w - edge].max()):.3g} "
+               f"in the interior, {float(diff.max()):.3g} in all against max |ref| {scale:.3g}; "
+               f"seconds {res[name + '_s']:.4f} (rank 0) against {secs[name]:.4f} unsharded "
+               f"({smi}), correctness only")
+    del dae, dae32, whole, fp32
+    torch.cuda.empty_cache()
 
 
 def parallel_path(root: Path, plain_first: dict, plain_stats: dict, counts: dict,
@@ -3703,6 +3994,13 @@ def parallel_path(root: Path, plain_first: dict, plain_stats: dict, counts: dict
           f"card, {seconds:.3f} on one process; correctness only, they measure no speed "
           f"({smi})", flush=True)
     del grad, dp
+    torch.cuda.empty_cache()
+
+    ranks = [torch.load(root / "model" / f"gloo_pp_sp_{r}.pt", weights_only=False)
+             for r in range(GLOO_RANKS)]
+    pipeline_check(root / "model", [r["pp"] for r in ranks], counts, smi)
+    sharded_dae_check(root / "model", [r["sp"] for r in ranks], smi)
+    del ranks
     torch.cuda.empty_cache()
 
     # (c) K1 at the tensor-parallel shard's shapes

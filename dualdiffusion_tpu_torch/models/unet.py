@@ -353,23 +353,21 @@ class UNetCore(nn.Module):
             emb = mp_silu(mp_sum(emb, embeddings.to(emb.dtype), t=cfg.label_balance))
         return x, emb.to(ACT_DTYPE), c_skip, c_out
 
-    def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
-                embeddings: Optional[torch.Tensor] = None,
-                x_ref: Optional[torch.Tensor] = None, training: bool = False,
-                x_perturbed: Optional[torch.Tensor] = None,
-                ln_freqs: Optional[torch.Tensor] = None,
-                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def run_ops(self, x: torch.Tensor, emb: torch.Tensor, skips: Sequence[torch.Tensor],
+                lo: int = 0, hi: Optional[int] = None, training: bool = False,
+                dropout_generator: Optional[torch.Generator] = None):
+        """Run ops [lo, hi) of ``self.schedule`` (the whole trunk by default)
+        on the trunk input ``x`` after ``precondition`` (JAX unet.py:483-546,
+        without its W-packing). ``skips`` are the skip activations alive
+        before op ``lo``: the encoder ops push theirs, each ``dec_layer``
+        pops one. Returns (x, skips). A pipeline stage runs its own range on
+        a core that holds only that range's modules
+        (``parallel/unet_pipeline.py``)."""
         cfg = self.cfg
-        div = 1 << (len(cfg.channel_mult) - 1)
-        h, w = x_in.shape[-3], x_in.shape[-2]
-        if h % div or w % div:
-            raise ValueError(f"UNet input H,W=({h},{w}) must be divisible by {div} "
-                             f"(2^(levels-1), {len(cfg.channel_mult)} levels)")
-        x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings, x_ref, training,
-                                                  x_perturbed, ln_freqs)
-        skips = []
+        hi = len(self.schedule) if hi is None else hi
+        skips = list(skips)
         drop = dropout_generator
-        for name, kind, _, _, _ in self.schedule:
+        for name, kind, _, _, _ in self.schedule[lo:hi]:
             mod = getattr(self, name)
             if kind == "enc_in":
                 x = mod(x, training=training)
@@ -384,6 +382,23 @@ class UNetCore(nn.Module):
                         drop)
             else:
                 x = mod(x, gain=self.out_gain, training=training)
+        return x, skips
+
+    def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
+                embeddings: Optional[torch.Tensor] = None,
+                x_ref: Optional[torch.Tensor] = None, training: bool = False,
+                x_perturbed: Optional[torch.Tensor] = None,
+                ln_freqs: Optional[torch.Tensor] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        cfg = self.cfg
+        div = 1 << (len(cfg.channel_mult) - 1)
+        h, w = x_in.shape[-3], x_in.shape[-2]
+        if h % div or w % div:
+            raise ValueError(f"UNet input H,W=({h},{w}) must be divisible by {div} "
+                             f"(2^(levels-1), {len(cfg.channel_mult)} levels)")
+        x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings, x_ref, training,
+                                                  x_perturbed, ln_freqs)
+        x, _ = self.run_ops(x, emb, [], training=training, dropout_generator=dropout_generator)
         return c_skip * x_in.float() + c_out * x.float()
 
 

@@ -16,6 +16,9 @@ gradients that reach it from all ranks, and the averaging divides once.
   and their gradient reduce-scattered (``gather_rows``), ``tp`` ones compute
   column-parallel (``models/layers.py`` ``MPConv``) with the Megatron pair
   ``copy_to_group`` (f) and ``gather_last_dim`` (g).
+* ``exchange``: this rank's sends to and receives from other ranks of an
+  axis, posted at once (the hand-offs of JAX's ``lax.ppermute``, for the
+  pipeline and the halo exchange), and ``broadcast_from`` one rank of it.
 """
 
 from __future__ import annotations
@@ -221,6 +224,64 @@ def _group_device(axis: Axis) -> torch.device:
     if dist.get_backend(axis.group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# point to point
+# ---------------------------------------------------------------------------
+
+def _global_rank(axis: Axis, rank: int) -> int:
+    return rank if axis.group is None else dist.get_global_rank(axis.group, rank)
+
+
+@torch.no_grad()
+def start_point_to_point(axis: Axis) -> None:
+    """One collective on every rank of ``axis``: NCCL wants every rank of a
+    group in its first ``batch_isend_irecv``, which a pipeline's first tick
+    does not have. Call it on every rank before the first ``exchange``."""
+    if axis.size > 1:
+        axis.sum_(torch.zeros(1, device=_group_device(axis)))
+
+
+@torch.no_grad()
+def exchange(axis: Axis, sends: Sequence = (), recvs: Sequence = ()) -> None:
+    """Post this rank's sends, (tensor, axis rank) pairs, and receives,
+    (buffer, axis rank) pairs, in one ``dist.batch_isend_irecv`` and wait for
+    them; each receive fills its buffer in place. A rank with nothing to post
+    returns at once. At most one message may pass from one rank to another
+    in a call, and the two ends must agree on its shape and dtype. The
+    process group picks the transport: over NCCL the tensors stay on the
+    card; gloo's point-to-point takes CPU tensors only, so there they pass
+    through host copies."""
+    if not sends and not recvs:
+        return
+    dev = _group_device(axis)
+    staged = [t.to(dev).contiguous() for t, _ in sends]
+    bufs = [b if b.device == dev and b.is_contiguous() else
+            torch.empty(b.shape, dtype=b.dtype, device=dev) for b, _ in recvs]
+    ops = ([dist.P2POp(dist.isend, t, _global_rank(axis, r), axis.group)
+            for t, (_, r) in zip(staged, sends)]
+           + [dist.P2POp(dist.irecv, b, _global_rank(axis, r), axis.group)
+              for b, (_, r) in zip(bufs, recvs)])
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for b, (want, _) in zip(bufs, recvs):
+        if b is not want:
+            want.copy_(b)
+
+
+@torch.no_grad()
+def broadcast_from(t: torch.Tensor, axis: Axis, src: int) -> torch.Tensor:
+    """``t`` of axis rank ``src`` on every rank, in place (through a copy on
+    the group's device where ``t`` lies elsewhere); returns ``t``."""
+    if axis.size == 1:
+        return t
+    dev = _group_device(axis)
+    work = t if t.device == dev and t.is_contiguous() else t.to(dev).contiguous()
+    dist.broadcast(work, _global_rank(axis, src), group=axis.group)
+    if work is not t:
+        t.copy_(work)
+    return t
 
 
 # ---------------------------------------------------------------------------

@@ -1137,3 +1137,84 @@ def test_pipeline_to_moves_each_stage_to_its_module(cuda):
     """The UNet on the card, the DDEC or the DAE on the CPU
     (``check_placements``)."""
     check_placements(cuda)
+
+
+def _tiny_grouped_unet(cuda):
+    """A tiny UNet whose MLP convs take K1 (8 groups of 8 channels), on the
+    card, out_gain 1."""
+    from dualdiffusion_tpu_torch.models import UNet, UNetConfig
+    cfg = UNetConfig(in_channels=4, out_channels=4, in_channels_emb=16, model_channels=32,
+                     channel_mult=(1, 2, 3), num_layers_per_block=1, channels_per_head=32,
+                     mlp_multiplier=2, mlp_groups=8, attn_levels=(2,))
+    unet = UNet(cfg).init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        unet.core.out_gain.fill_(1.0)
+    g = torch.Generator().manual_seed(1)
+    x = 3.0 * torch.randn((4, 16, 64, 4), generator=g)
+    emb = unet.get_embeddings(torch.randn((4, 16), generator=g), torch.ones(4))
+    return unet.to(cuda), x.to(cuda), torch.full((4,), 3.0, device=cuda), emb.detach().to(cuda)
+
+
+@pytest.mark.cuda
+def test_run_ops_split_at_every_boundary_on_the_card(cuda):
+    """The trunk run one op at a time on the card, the state handed on at
+    every boundary, then the combine: the forward bit for bit, K1 launched."""
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts
+    unet, x, sigma, emb = _tiny_grouped_unet(cuda)
+    core = unet.core
+    with torch.no_grad():
+        want = core(x, sigma, emb)
+        before = launch_counts()["grouped_conv3x3"]
+        h, e, c_skip, c_out = core.precondition(x, sigma, emb)
+        skips = []
+        for b in range(len(core.schedule)):
+            h, skips = core.run_ops(h, e, skips, b, b + 1)
+        got = c_skip * x + c_out * h.float()
+        torch.cuda.synchronize()
+    assert launch_counts()["grouped_conv3x3"] > before and skips == []
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_pipelined_denoise_and_sharded_encode_over_a_group_of_one_nccl(cuda):
+    """A process group of one over NCCL: ``pipelined_denoise`` over its one
+    stage (2 microbatches) against the trunk run microbatch by microbatch,
+    bit for bit, and against the forward of the batch (bf16: 2e-2 of max);
+    ``sharded_tiled_encode`` over the group against the encode of the
+    zero-extended mel, bit for bit."""
+    from dualdiffusion_tpu_torch.models import DAE, DAEConfig
+    from dualdiffusion_tpu_torch.parallel import (Axis, MeshConfig, build_stage_plan, dae_halos,
+                                                  keep_stage, make_mesh,
+                                                  maybe_initialize_distributed,
+                                                  pipelined_denoise, sharded_tiled_encode,
+                                                  shutdown)
+    unet, x, sigma, emb = _tiny_grouped_unet(cuda)
+    core = unet.core
+    dae = DAE(DAEConfig(model_channels=16, channel_mult_enc=(1, 2, 4), channel_mult_dec=(1, 2, 4),
+                        num_enc_layers_per_block=1, num_dec_layers_per_block=1,
+                        latent_channels=4)).init_weights(torch.Generator().manual_seed(2))
+    dae = dae.to(cuda).eval()
+    mel = torch.randn((1, 32, 256, 2), generator=torch.Generator().manual_seed(3)).to(cuda)
+    assert maybe_initialize_distributed(device="cuda", always=True)
+    try:
+        axis = Axis.of(make_mesh(MeshConfig()), "model")
+        plan = build_stage_plan(core.cfg, (2,) + tuple(x.shape[1:]), axis.size)
+        keep_stage(core, plan, axis.rank)
+        halo, _ = dae_halos(dae.cfg)
+        with torch.no_grad():
+            got = pipelined_denoise(core, x, sigma, emb, axis, 2, plan=plan)
+            lat = sharded_tiled_encode(dae.encode, mel, axis, halo, dae.downsample_ratio)
+            torch.cuda.synchronize()
+    finally:
+        shutdown()
+    with torch.no_grad():
+        h, e, c_skip, c_out = core.precondition(x, sigma, emb)
+        y = torch.cat([core.run_ops(a, b, [])[0] for a, b in zip(h.chunk(2), e.chunk(2))])
+        want = c_skip * x + c_out * y.float()
+        plain = core(x, sigma, emb)
+        pad = mel.new_zeros((1, 32, halo, 2))
+        h_lat = halo // dae.downsample_ratio
+        want_lat = dae.encode(torch.cat([pad, mel, pad], dim=2))[:, :, h_lat:-h_lat]
+    assert torch.equal(got, want)
+    assert _rel_err(got.cpu(), plain.cpu()) <= 2e-2
+    assert torch.equal(lat, want_lat)

@@ -12,15 +12,20 @@ import uuid
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import dualdiffusion_tpu_torch.models.unet as port_unet_module
 from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+from dualdiffusion_tpu_torch.models.unet import UNetBlock, UNetCore
 from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
-from dualdiffusion_tpu_torch.parallel import (MeshConfig, ParallelState, gathered, make_mesh,
+from dualdiffusion_tpu_torch.parallel import (Axis, MeshConfig, ParallelState, build_stage_plan,
+                                              gather_w, gathered, keep_stage, make_mesh,
                                               maybe_initialize_distributed,
-                                              param_sharding_rule, shard_batch,
-                                              shard_train_state, shutdown, whole)
+                                              param_sharding_rule, pipeline_apply,
+                                              pipelined_denoise, shard_batch, shard_train_state,
+                                              shard_w, sharded_tiled_decode,
+                                              sharded_tiled_encode, shutdown, whole)
 from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline, save_module
 from dualdiffusion_tpu_torch.sampling import SampleParams, edm_sample
 from dualdiffusion_tpu_torch.training import (DAETrainConfig, EMABank, EMAConfig,
@@ -210,3 +215,74 @@ def dae_steps(rank: int, world: int, tmp: Path) -> None:
     if rank == 0:
         torch.save({"logs": logs, "params": to_flat(model),
                     "ema": state_to_flat(state.ema_state["std0.05"])}, tmp / "dae_dp.pt")
+
+
+def _axes(rank: int, world: int, sizes=()):
+    """{n: this rank's Axis over ranks [0, n)} for n = world (the mesh's
+    model axis) and each of ``sizes`` (a group of its own; None where this
+    rank is outside it)."""
+    axes = {world: Axis.of(make_mesh(MeshConfig(model_axis=world)), "model")}
+    for n in sizes:
+        group = dist.new_group(list(range(n)))      # a collective: every rank calls it
+        axes[n] = Axis(group, rank, n) if rank < n else None
+    return axes
+
+
+def pipeline_runs(rank: int, world: int, tmp: Path) -> None:
+    """Four ranks: the UNetBlock stages through ``pipeline_apply`` (rank r
+    holds block r); ``pipelined_denoise`` of each UNet of ``tmp/
+    pipeline_inputs.pt`` on its ranks, in fp32 and bf16 trunks, each rank
+    keeping only its stage; rank 0 saves the outputs and every rank's
+    parameter counts."""
+    inp = _load(tmp / "pipeline_inputs.pt")
+    axes = _axes(rank, world, sorted({c["stages"] for c in inp["unets"]} - {world}))
+    blk = inp["block"]
+    block = UNetBlock(UNetConfig(**blk["cfg"]), *blk["channels"])
+    block.load_state_dict(blk["states"][rank])
+    res = {"block": pipeline_apply(lambda b, x: b(x, None), block, blk["x"], axes[world],
+                                   blk["m"])}
+    counts = {}
+    for case in inp["unets"]:
+        axis = axes[case["stages"]]
+        if axis is None:
+            continue
+        cfg = UNetConfig(**case["cfg"])
+        for dtype in (torch.float32, torch.bfloat16):
+            port_unet_module.ACT_DTYPE = dtype
+            core = UNetCore(cfg)
+            core.load_state_dict(case["state"])
+            plan = build_stage_plan(cfg, case["mb_shape"], axis.size)
+            keep_stage(core, plan, axis.rank)
+            out = pipelined_denoise(core, case["x"], case["sigma"], case["emb"], axis, case["m"],
+                                    plan=plan)
+            res[(case["name"], str(dtype))] = out
+            counts[case["name"]] = sum(p.numel() for n, p in core.named_parameters()
+                                       if not n.startswith("emb_noise."))
+    port_unet_module.ACT_DTYPE = torch.bfloat16
+    everyone = [None] * world
+    dist.all_gather_object(everyone, counts)
+    if rank == 0:
+        res["param_counts"] = everyone
+        torch.save(res, tmp / "pipeline_out.pt")
+
+
+def sharded_dae_runs(rank: int, world: int, tmp: Path) -> None:
+    """The DAE of ``tmp/dae_inputs.pt`` encoding and decoding the W shards of
+    its mel and latents over 4 ranks and over ranks [0, 2); rank 0 saves
+    the gathered latents and decoded mel of each."""
+    inp = _load(tmp / "dae_inputs.pt")
+    dae = DAE(DAEConfig(**inp["dae_kw"]))
+    dae.load_state_dict(inp["state"])
+    dae.eval()
+    ds = dae.downsample_ratio
+    res = {}
+    for n, axis in _axes(rank, world, inp["sizes"]).items():
+        if axis is None:
+            continue
+        with torch.no_grad():
+            lat = sharded_tiled_encode(dae.encode, shard_w(inp["x"], axis), axis, inp["halo"], ds)
+            dec = sharded_tiled_decode(dae.decode, shard_w(inp["latents"], axis), axis,
+                                       inp["halo_latent"], ds)
+        res[n] = {"encode": gather_w(lat, axis), "decode": gather_w(dec, axis)}
+    if rank == 0:
+        torch.save(res, tmp / "dae_out.pt")
