@@ -160,7 +160,16 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    there, the ranks' K1 launches summing to the microbatches' forwards';
    (f) on the same ranks, the reference-scale DAE's encode and decode of a
    45 s mel split in two along time, halos from ``dae_halos`` exchanged
-   between the ranks, against the unsharded encode and decode.
+   between the ranks, against the unsharded encode and decode;
+16. the primitive library at the reference scale's shapes: every function
+   of ``models/mp.py`` and the filtered resamplers of ``models/layers.py``
+   on the level-0 activation (2, 32, 688, 256) or a stereo-folded
+   (2, 2, 32, 688, 64), ``FilteredDownsample2D`` on the 45 s mel, each on
+   the card against the same on the CPU (the random ones with their draws
+   passed in); the MLP conv (512 -> 512, 8 groups, bf16) with a (2,) and a
+   (2, 512) per-sample gain through K1, and a training backward with the
+   gain requiring grad (K1 dgrad, K4), against K1's plain version times the
+   gain; ``AdaptiveGroupBalance`` with and without an embedding.
 
 ``python3 chip_smoke.py --profile`` instead builds the kernels and profiles
 one full-width DAE train step (step 9's model, data and config). The
@@ -3369,6 +3378,172 @@ def spectrogram_encode_path(root: Path, model_dir: Path, smi: str) -> None:
            f"{json.dumps(report['launches'])}")
 
 
+#: the primitives phase: the inputs' seed, and the bounds of a function on the
+#: card against the same on the CPU (fp32; cuFFT against pocketfft included)
+PRIM_SEED = 31
+PRIM_REL_L2 = 1e-5
+
+
+def primitive_cases(mel, gen, device: str = "cuda") -> list:
+    """(name, function, inputs) of each function of the primitive library
+    (``models/mp.py``, the filtered resamplers and ``FilteredDownsample2D``
+    of ``models/layers.py``) at the reference scale's shapes: the level-0
+    activation (2, 32, 688, 256), a stereo-folded (2, 2, 32, 688, 64) for
+    the 3-D ones, the 45 s mel ``mel`` for ``FilteredDownsample2D``; random
+    functions take draws from ``gen``."""
+    import torch
+    from dualdiffusion_tpu_torch.models import layers, mp
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x4, y4, x5 = randn(2, 32, 688, 256), randn(2, 32, 688, 256), randn(2, 2, 32, 688, 64)
+    t = torch.rand((2, 8), generator=gen, device=device)
+    hp = (randn(2, 32, 345, 256), randn(2, 32, 345, 256))
+    crop = (torch.rand((2,), generator=gen, device=device) >= 0.5,
+            torch.randint(0, 8, (2,), generator=gen, device=device),
+            torch.randint(0, 8, (2,), generator=gen, device=device))
+    fd = {}     # a module on each device: its filter is a buffer
+    return [
+        ("mp_sum_groups", lambda a, b, t: mp.mp_sum_groups(a, b, t, 8), (x4, y4, t)),
+        ("mp_cat_interleave", lambda a, b: mp.mp_cat_interleave(a, b, t=0.3), (x4, y4)),
+        ("resample_1d down", lambda a: mp.resample_1d(a, "down"), (x4,)),
+        ("resample_1d up", lambda a: mp.resample_1d(a, "up"), (x4,)),
+        ("patchify_2d", lambda a: mp.patchify_2d(a, 2, 4), (x4,)),
+        ("unpatchify_2d", lambda a: mp.unpatchify_2d(a, 2, 4), (x4,)),
+        ("space_to_channel_2d", mp.space_to_channel_2d, (x4,)),
+        ("channel_to_space_2d", mp.channel_to_space_2d, (x4,)),
+        ("space_to_channel_3d", mp.space_to_channel_3d, (x5,)),
+        ("channel_to_space_3d", mp.channel_to_space_3d, (x5,)),
+        ("lowpass_2d", mp.lowpass_2d, (x4,)),
+        ("lowpass_2d square", lambda a: mp.lowpass_2d(a, 8.0, use_circular_filter=False),
+         (x4,)),
+        ("randn_like_hp_2d (draws)", lambda a, zr, zi: mp.randn_like_hp_2d(a, draws=(zr, zi)),
+         (x4,) + hp),
+        ("random_crop_2d (draws)", lambda a, b, k, h, w: mp.random_crop_2d(a, b, draws=(k, h, w)),
+         (x4, y4) + crop),
+        ("normalize_weight", layers.normalize_weight, (randn(512, 64, 3, 3),)),
+        ("filtered_downsample_1d", layers.filtered_downsample_1d, (x4,)),
+        ("filtered_upsample_1d", layers.filtered_upsample_1d, (x4,)),
+        ("filtered_mp_silu_2d", layers.filtered_mp_silu_2d, (x4,)),
+        ("FilteredDownsample2D", lambda a: fd.setdefault(
+            a.device, layers.FilteredDownsample2D(device=a.device))(a), (mel,)),
+        ("filtered_downsample_3d", layers.filtered_downsample_3d, (x5,)),
+        ("filtered_upsample_3d", layers.filtered_upsample_3d, (x5,)),
+        ("filtered_mp_silu_3d", layers.filtered_mp_silu_3d, (x5,)),
+        ("filtered_downsample_1d3", layers.filtered_downsample_1d3, (x5,)),
+        ("filtered_upsample_1d3", layers.filtered_upsample_1d3, (x5,)),
+    ]
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in float64 on the host."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def primitives_phase(fmt, path_counts, reset_counts, smi: str) -> None:
+    """The primitive library on the card at the reference scale's shapes:
+    each function of ``primitive_cases`` against the same function on the
+    CPU (relative L2 <= ``PRIM_REL_L2``); the reference-scale MLP conv
+    (512 -> 512 in 8 groups, bf16, on the level-0 activation) with a (2,) and
+    a (2, 512) per-sample gain through K1, and one training backward with
+    the (2, 512) gain requiring grad (K1 dgrad, K4), against K1's plain
+    version times the gain (2**-7 of max); ``AdaptiveGroupBalance`` at that
+    width with and without the embedding against the CPU. K1's and K4's
+    launches are this path's."""
+    import torch
+    from dualdiffusion_tpu_torch.models import AdaptiveGroupBalance, MPConv
+    from dualdiffusion_tpu_torch.ops.kernels import grouped_conv3x3_plain, prepare_weights
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(PRIM_SEED)
+    print(f"primitives phase ({smi})", flush=True)
+    worst, card_ms = 0.0, 0.0
+    cases = primitive_cases(dae_mel(fmt), gen)
+    for name, fn, args in cases:
+        got = fn(*args)
+        torch.cuda.synchronize()
+        want = fn(*(a.cpu() for a in args))
+        outs = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        for o in outs:
+            if o.device.type != "cuda" or not torch.isfinite(o).all():
+                raise AssertionError(f"{name}: an output on {o.device} or not finite")
+        err = max(rel_l2(o, w) for o, w in zip(outs, wants))
+        worst = max(worst, err)
+        ms = time_ms(lambda: fn(*args), 5)
+        card_ms += ms
+        expect(name, err <= PRIM_REL_L2,
+               f"{tuple(args[0].shape)} -> {', '.join(str(tuple(o.shape)) for o in outs)}; "
+               f"card {ms:.4f} ms; relative L2 against the CPU {err:.3g} (<= {PRIM_REL_L2:g})")
+    # ---- MPConv's per-sample gains through K1; AdaptiveGroupBalance --------
+    groups = 8
+    conv = MPConv(512, 512, (3, 3), groups=groups, device="cuda")
+    conv.init_weights(gen)
+    x = torch.randn((2, 32, 688, 512), generator=gen, device="cuda").bfloat16()
+    gains = {"(2,)": torch.rand((2,), generator=gen, device="cuda") + 0.5,
+             "(2, 512)": torch.rand((2, 512), generator=gen, device="cuda") + 0.5}
+    probe = torch.randn((2, 32, 688, 512), generator=gen, device="cuda")
+    emb = torch.randn((2, 768), generator=gen, device="cuda")
+    balances = [AdaptiveGroupBalance(768, groups, device="cuda"),
+                AdaptiveGroupBalance(0, groups, device="cuda")]
+    with torch.no_grad():
+        balances[0].emb_balance.w_raw.normal_(generator=gen)
+        balances[1].balance.normal_(generator=gen)
+    y = [torch.randn((2, 32, 688, 512), generator=gen, device="cuda") for _ in range(2)]
+    reset_counts()
+    with torch.no_grad():
+        outs = {k: conv(x, gain=g) for k, g in gains.items()}
+    g_train = gains["(2, 512)"].clone().requires_grad_()
+    x_train = x.clone().requires_grad_()
+    out_train = conv(x_train, gain=g_train, training=True)
+    (out_train.float() * probe).sum().backward()
+    with torch.no_grad():
+        mixed = [m(y[0], y[1], emb) for m in balances]
+    torch.cuda.synchronize()
+    c = path_counts("primitives", ("grouped_conv3x3", "grouped_conv3x3_wgrad"))
+    expect("K1 launches", c["grouped_conv3x3"] == 4,
+           f"{c['grouped_conv3x3']} (2 forwards, a training forward and its dgrad), K4 "
+           f"{c['grouped_conv3x3_wgrad']}")
+
+    def shaped(g):
+        return g.reshape((2, 1, 1, -1)).bfloat16()
+
+    wt = prepare_weights(conv._scaled_weight(conv.w_mp.detach(), 1.0, False), groups)
+    base = grouped_conv3x3_plain(x, wt, groups)
+    for k, g in gains.items():
+        check_close(f"MPConv 512 -> 512, 8 groups, gain {k}, through K1 against the plain "
+                    f"version x gain", outs[k], base * shaped(g), 2 ** -7)
+    wt_train = prepare_weights(conv._scaled_weight(conv.w_mp.detach(), 1.0, True), groups)
+    g_ref, x_ref = gains["(2, 512)"].clone().requires_grad_(), x.clone().requires_grad_()
+    ref = grouped_conv3x3_plain(x_ref, wt_train, groups) * shaped(g_ref)
+    (ref.float() * probe).sum().backward()
+    check_close("training forward, gain (2, 512)", out_train, ref, 2 ** -7)
+    check_close("the gain's gradient", g_train.grad, g_ref.grad, 2 ** -7)
+    check_close("the input's gradient (K1 dgrad)", x_train.grad, x_ref.grad, 2 ** -7)
+    with torch.no_grad():
+        g = gains["(2, 512)"]
+        conv_ms = {"K1, no gain": time_ms(lambda: conv(x)),
+                   "K1, gain (2, 512)": time_ms(lambda: conv(x, gain=g)),
+                   "plain x gain": time_ms(
+                       lambda: grouped_conv3x3_plain(x, wt, groups) * shaped(g), 3)}
+    print("  MPConv (2, 32, 688, 512) ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in conv_ms.items()), flush=True)
+    for m, out, what in zip(balances, mixed, ("with emb", "without emb")):
+        m_cpu = AdaptiveGroupBalance(m.emb_channels, groups)
+        m_cpu.load_state_dict(m.state_dict())
+        with torch.no_grad():
+            want = m_cpu(y[0].cpu(), y[1].cpu(), emb.cpu())
+        err = rel_l2(out, want)
+        worst = max(worst, err)
+        expect(f"AdaptiveGroupBalance (768 -> 8 groups) {what}", err <= PRIM_REL_L2,
+               f"(2, 32, 688, 512); relative L2 against the CPU {err:.3g}")
+    print(f"primitives: {len(cases)} functions and 2 modules ok, worst relative L2 {worst:.3g}; "
+          f"the functions {card_ms:.3f} card ms summed; K1 with a (2, 512) gain "
+          f"{conv_ms['K1, gain (2, 512)']:.4f} ms against {conv_ms['K1, no gain']:.4f} "
+          f"without; phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
 def model_surface_paths(gen, prompt, path_counts, smi: str) -> None:
     """K7 at the 3-D level 1, then the 3-D UNet, the formats, the harnesses
     and the spectrogram encode, each timed."""
@@ -4312,6 +4487,10 @@ def main() -> int:
 
     # ---- the 3-D UNet, every format, the component harnesses ----------------
     model_surface_paths(gen, prompt, path_counts, smi)
+
+    # ---- the primitive library; MPConv's per-sample gains through K1 --------
+    torch.cuda.empty_cache()
+    primitives_phase(fmt, path_counts, reset_launch_counts, smi)
 
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": sum(c[name] for c in counts.values()), **measured[name]}

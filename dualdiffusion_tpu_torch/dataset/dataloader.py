@@ -241,3 +241,13 @@ class DualDiffusionDataset:
 
 def _unit(v: np.ndarray) -> np.ndarray:
     return v / (np.linalg.norm(v) + 1e-8)
+
+
+def custom_collate(items: List[dict]) -> Dict[str, Any]:
+    """Stack a list of sample dicts (reference: dataset.py:43-55)."""
+    batch: Dict[str, Any] = {"paths": [it.get("path") for it in items]}
+    for k in items[0]:
+        if k == "path":
+            continue
+        batch[k] = np.stack([np.asarray(it[k]) for it in items])
+    return batch

@@ -1,9 +1,11 @@
 """Magnitude-preserving layers, channel last (JAX: dualdiffusion_tpu/models/
-layers.py:160-269, 451-625, 629-650, 680-748; reference: src/modules/mp_tools.py:316-378).
+layers.py:102-104, 160-269, 451-625, 629-841; reference: src/modules/
+mp_tools.py:316-495, src/utils/resample.py:28-280): MPConv, MPFourier,
+AdaptiveGroupBalance, FilteredDownsample2D and the kaiser-windowed-sinc
+filtered resamplers.
 
 MP weights are stored reference-style as (out, in/groups, *kernel) under
 the parameter name ``w_mp`` (``w_raw`` when weight norm is disabled).
-The filtered resamplers at the end back the equivariance loss.
 """
 
 from __future__ import annotations
@@ -18,10 +20,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import GroupedConv3x3Fn, grouped_conv3x3, prepare_weights
 from ..parallel.collectives import copy_to_group, gather_last_dim, gather_rows, shard_of
-from .mp import normalize
+from .mp import mp_silu, mp_sum_groups, normalize
 
 MP_WEIGHT_NAME = "w_mp"
 RAW_WEIGHT_NAME = "w_raw"
+
+
+def normalize_weight(w: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """Unit RMS per output channel (dim 0) of a weight."""
+    return normalize(w, dim=tuple(range(1, w.dim())), eps=eps)
 
 
 class MPConv(nn.Module):
@@ -40,6 +47,14 @@ class MPConv(nn.Module):
     JAX package leaves those to XLA; its Pallas conv never takes 5-D input).
     ``training`` re-normalizes the weight in the forward (JAX layers.py
     MPConv: ``normalize_weight`` when training).
+
+    ``gain``: a number or a 0-d tensor scales the weight; a (B,) or
+    (B, C_out) tensor, a per-sample gain, scales the output before the bias
+    (JAX layers.py:250-257), so K1's prepared weights, cached at gain 1,
+    serve every sample. Under tensor parallelism such a gain multiplies the
+    gathered output, which every rank holds whole, so its gradient is the
+    whole layer's on every rank; under FSDP it stays outside the
+    checkpointed layer.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -92,7 +107,7 @@ class MPConv(nn.Module):
 
     def _scaled_weight(self, w: torch.Tensor, gain, training: bool) -> torch.Tensor:
         if training and not self.disable_weight_norm:
-            w = normalize(w)
+            w = normalize_weight(w)
         w = w / np.sqrt(float(np.prod(w.shape[1:])))
         if not (isinstance(gain, (int, float)) and gain == 1.0):
             w = w * gain
@@ -116,8 +131,9 @@ class MPConv(nn.Module):
 
     def forward(self, x: torch.Tensor, gain: Union[float, torch.Tensor] = 1.0,
                 training: bool = False) -> torch.Tensor:
+        out_gain = None
         if isinstance(gain, torch.Tensor) and gain.dim() > 0:
-            raise NotImplementedError("per-sample gains are not ported")
+            out_gain, gain = gain, 1.0
         shard = shard_of(self.weight)
         if shard is None:
             out = self._layer(x, self.weight, self.groups, gain, training, cacheable=True)
@@ -125,6 +141,13 @@ class MPConv(nn.Module):
             out = self._forward_column_parallel(x, gain, training, shard)
         else:
             out = self._forward_gathered(x, gain, training, shard)
+        if out_gain is not None:
+            if out_gain.dim() == 2:     # (B, C_out) -> (B, 1, ..., 1, C_out)
+                g = out_gain.reshape((out_gain.shape[0],) + (1,) * (out.dim() - 2)
+                                     + (out_gain.shape[1],))
+            else:                       # (B,) -> (B, 1, ..., 1)
+                g = out_gain.reshape(out_gain.shape + (1,) * (out.dim() - out_gain.dim()))
+            out = out * g.to(out.dtype)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
@@ -243,8 +266,45 @@ class MPFourier(nn.Module):
         return (torch.cos(y) * np.sqrt(2.0)).to(x.dtype)
 
 
+class AdaptiveGroupBalance(nn.Module):
+    """A learned per-group ``mp_sum`` balance of two activations, from the
+    embedding through a zero-initialised linear ``emb_balance`` (or, with
+    ``emb_channels`` 0, a zero-initialised parameter ``balance`` of shape
+    (groups,)), sigmoid of the logits plus ``balance_logits_offset`` clipped
+    to [min_balance, max_balance] (JAX layers.py:652-673; reference:
+    mp_tools.py:380-411)."""
+
+    def __init__(self, emb_channels: int, groups: int = 1,
+                 balance_logits_offset: float = 0.0, min_balance: float = 0.1,
+                 max_balance: float = 0.9, device=None):
+        super().__init__()
+        self.emb_channels = emb_channels
+        self.groups = groups
+        self.balance_logits_offset = balance_logits_offset
+        self.min_balance = min_balance
+        self.max_balance = max_balance
+        if emb_channels > 0:
+            self.emb_balance = MPConv(emb_channels, groups, kernel=(),
+                                      disable_weight_norm=True, zero_init=True, device=device)
+            self.emb_balance.init_weights(None)
+        else:
+            self.balance = nn.Parameter(torch.zeros(groups, device=device))
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, emb: Optional[torch.Tensor],
+                training: bool = False) -> torch.Tensor:
+        """x, y (B, ..., C) channel last; emb (B, emb_channels), unused
+        without ``emb_balance``."""
+        if self.emb_channels > 0:
+            balance = self.emb_balance(emb, training=training)
+        else:
+            balance = self.balance.expand(x.shape[0], self.groups)
+        balance = torch.sigmoid(balance + self.balance_logits_offset)
+        balance = balance.clamp(self.min_balance, self.max_balance)
+        return mp_sum_groups(x, y, balance, self.groups)
+
+
 # ---------------------------------------------------------------------------
-# filtered (anti-aliased) resamplers on channel-last tensors (JAX layers.py:680-748)
+# filtered (anti-aliased) resamplers on channel-last tensors (JAX layers.py:680-841)
 # ---------------------------------------------------------------------------
 
 # copied from dualdiffusion_tpu/models/layers.py
@@ -283,7 +343,105 @@ def filtered_upsample_2d(x: torch.Tensor, k_size: int = 15, beta: float = 1.5,
                          factor: int = 2) -> torch.Tensor:
     """(..., H, W, C) zero-stuffed, then low-passed: an anti-aliased upsample."""
     k = _kaiser_sinc_1d(k_size, 1.0 / factor, beta) * factor
-    h, w = x.shape[-3], x.shape[-2]
-    z = x.new_zeros(x.shape[:-3] + (h * factor, w * factor, x.shape[-1]))
-    z[..., ::factor, ::factor, :] = x
+    z = _zero_stuff(x, factor, (-3, -2))
     return _sep_conv_axis(_sep_conv_axis(z, k, -2, 1), k, -3, 1)
+
+
+def _zero_stuff(x: torch.Tensor, factor: int, dims: Tuple[int, ...]) -> torch.Tensor:
+    """``x`` with ``factor - 1`` zeros after each entry along each of ``dims``."""
+    shape = list(x.shape)
+    index = [slice(None)] * x.dim()
+    for d in dims:
+        shape[d] *= factor
+        index[d] = slice(None, None, factor)
+    z = x.new_zeros(shape)
+    z[tuple(index)] = x
+    return z
+
+
+def filtered_downsample_1d(x: torch.Tensor, k_size: int = 7, beta: float = 1.5,
+                           factor: int = 2) -> torch.Tensor:
+    """(..., T, C) anti-aliased downsample along T by ``factor``."""
+    return _sep_conv_axis(x, _kaiser_sinc_1d(k_size, 1.0 / factor, beta), -2, factor)
+
+
+def filtered_upsample_1d(x: torch.Tensor, k_size: int = 15, beta: float = 1.5,
+                         factor: int = 2) -> torch.Tensor:
+    """(..., T, C) zero-stuffed along T, then low-passed (gain ``factor``)."""
+    k = _kaiser_sinc_1d(k_size, 1.0 / factor, beta) * factor
+    return _sep_conv_axis(_zero_stuff(x, factor, (-2,)), k, -2, 1)
+
+
+def filtered_mp_silu_2d(x: torch.Tensor, k_size: int = 7, beta: float = 1.5) -> torch.Tensor:
+    """Alias-suppressed MP-SiLU of (..., H, W, C): upsample 2x, silu,
+    downsample 2x (reference: resample.py:155-165)."""
+    up = filtered_upsample_2d(x, k_size=k_size * 2 + k_size % 2, beta=beta, factor=2)
+    return filtered_downsample_2d(mp_silu(up), k_size=k_size, beta=beta, factor=2)
+
+
+class FilteredDownsample2D(nn.Module):
+    """The sin^2-separable FIR anti-aliased strided downsample of the
+    supersampled-latent DAE encoders (JAX layers.py:757-784; reference:
+    mp_tools.py:455-495): a normalised ``kernel`` x ``kernel`` filter,
+    reflect padding (k//2, k//2 - (k+1)%2) on H and W, a depthwise conv at
+    ``stride``. Takes (..., H, W, C) with any leading dims, the stereo-folded
+    (B, Z, H, W, C) filtered one z-plane at a time. No parameters: the filter
+    is a buffer that the state dict does not hold."""
+
+    def __init__(self, kernel: int = 16, stride: int = 8, device=None):
+        super().__init__()
+        self.kernel = kernel
+        self.stride = stride
+        k = np.sin(np.arange(kernel) / kernel * np.pi)
+        k2 = k[:, None] * k[None, :]
+        self.register_buffer("filter", torch.as_tensor(k2 / k2.sum(), dtype=torch.float64,
+                                                       device=device), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p1, p2 = self.kernel // 2, self.kernel // 2 - (self.kernel + 1) % 2
+        lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
+        xp = F.pad(x.reshape((-1, h, w, c)).permute(0, 3, 1, 2), (p1, p2, p1, p2),
+                   mode="reflect")
+        wk = self.filter.to(x.dtype).expand(c, 1, self.kernel, self.kernel)
+        y = F.conv2d(xp, wk, stride=self.stride, groups=c).permute(0, 2, 3, 1)
+        return y.reshape(lead + y.shape[1:])
+
+
+def filtered_downsample_3d(x: torch.Tensor, k_size: int = 7, beta: float = 1.5,
+                           factor: int = 2) -> torch.Tensor:
+    """Stereo-folded (..., Z, H, W, C) anti-aliased downsample of H and W, Z
+    untouched, each axis's filter with gain sqrt(factor) (reference:
+    resample.py:196-199; the 2-D version has gain 1)."""
+    k = _kaiser_sinc_1d(k_size, 1.0 / factor, beta) * np.sqrt(factor)
+    return _sep_conv_axis(_sep_conv_axis(x, k, -2, factor), k, -3, factor)
+
+
+def filtered_upsample_3d(x: torch.Tensor, k_size: int = 15, beta: float = 1.5,
+                         factor: int = 2) -> torch.Tensor:
+    """Stereo-folded (..., Z, H, W, C): H and W zero-stuffed, then
+    interpolated, each axis's filter with gain sqrt(factor) (reference:
+    resample.py:201-215)."""
+    k = _kaiser_sinc_1d(k_size, 1.0 / factor, beta) * np.sqrt(factor)
+    z = _zero_stuff(x, factor, (-3, -2))
+    return _sep_conv_axis(_sep_conv_axis(z, k, -2, 1), k, -3, 1)
+
+
+def filtered_mp_silu_3d(x: torch.Tensor, k_size: int = 7, beta: float = 1.5) -> torch.Tensor:
+    """``filtered_mp_silu_2d`` on stereo-folded (..., Z, H, W, C) tensors
+    (reference: resample.py:216-225)."""
+    up = filtered_upsample_3d(x, k_size=k_size * 2 + k_size % 2, beta=beta, factor=2)
+    return filtered_downsample_3d(mp_silu(up), k_size=k_size, beta=beta, factor=2)
+
+
+def filtered_downsample_1d3(x: torch.Tensor, k_size: int = 7, beta: float = 1.5,
+                            factor: int = 2) -> torch.Tensor:
+    """W-only filtered downsample of a stereo-folded (..., Z, H, W, C) tensor
+    (reference: resample.py:262-265): ``filtered_downsample_1d`` along W."""
+    return filtered_downsample_1d(x, k_size, beta, factor)
+
+
+def filtered_upsample_1d3(x: torch.Tensor, k_size: int = 15, beta: float = 1.5,
+                          factor: int = 2) -> torch.Tensor:
+    """W-only filtered upsample, gain ``factor`` (reference:
+    resample.py:267-280): ``filtered_upsample_1d`` along W."""
+    return filtered_upsample_1d(x, k_size, beta, factor)

@@ -97,3 +97,11 @@ def istft(spec: torch.Tensor, window: np.ndarray, n_fft: int, hop_length: int,
     elif sig.shape[-1] < out_len:
         sig = F.pad(sig, (0, out_len - sig.shape[-1]))
     return sig
+
+
+def stft_num_frames(t: int, hop_length: int, center: bool = True, n_fft: int = 0) -> int:
+    """Frames of the STFT of ``t`` samples: centred, t // hop + 1; else
+    (t - n_fft) // hop + 1 (JAX ops/stft.py:180)."""
+    if center:
+        return t // hop_length + 1
+    return (t - n_fft) // hop_length + 1

@@ -1,1 +1,2 @@
-from .pipeline import Pipeline
+from .pipeline import (Pipeline, ModuleHandle, register_module, get_module_class, save_module,
+                       load_module)

@@ -55,6 +55,14 @@ for _name, (_cls, _cfg_cls) in _FORMAT_REGISTRY.items():
     MODULE_REGISTRY[f"format:{_name}"] = ((lambda c: lambda cfg, device: c(cfg))(_cls), _cfg_cls)
 
 
+def register_module(name: str, factory: Callable, config_class: type) -> None:
+    """Register a module type: ``factory(config, device)`` -> the module (an
+    ``nn.Module``, or a format), built from a ``config_class`` (JAX
+    pipeline.py:47; its factories take the config alone). ``Pipeline`` then
+    loads a model directory whose ``model_index.json`` names ``name``."""
+    MODULE_REGISTRY[name] = (factory, config_class)
+
+
 def get_module_class(name: str) -> Tuple[Callable, type]:
     if name not in MODULE_REGISTRY:
         raise KeyError(f"unknown module type '{name}'; known: {sorted(MODULE_REGISTRY)}")

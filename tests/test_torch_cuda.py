@@ -25,6 +25,7 @@ from dualdiffusion_tpu_torch.ops.kernels import (GroupedConv3x3Fn, dft_twiddles,
                                                  mss2d_block_loss_plain, mss2d_loss_fused,
                                                  ola_plan, ola_reframe, ola_reframe_plain,
                                                  prepare_weights, stockham_everywhere)
+from dualdiffusion_tpu_torch.models import layers, mp
 from dualdiffusion_tpu_torch.training.losses import _window_2d, product_weights
 
 
@@ -1218,3 +1219,117 @@ def test_pipelined_denoise_and_sharded_encode_over_a_group_of_one_nccl(cuda):
     assert torch.equal(got, want)
     assert _rel_err(got.cpu(), plain.cpu()) <= 2e-2
     assert torch.equal(lat, want_lat)
+
+
+#: name -> (function, input shapes) of the primitive library, at small shapes
+PRIMITIVES = {
+    "mp_sum_groups": (lambda a, b, t: mp.mp_sum_groups(a, b, t, 4),
+                      [(2, 8, 40, 16), (2, 8, 40, 16), (2, 4)]),
+    "mp_cat_interleave": (mp.mp_cat_interleave, [(2, 8, 40, 16), (2, 8, 40, 16)]),
+    "resample_1d": (lambda a: mp.resample_1d(mp.resample_1d(a, "down"), "up"), [(2, 40, 16)]),
+    "patchify_2d": (lambda a: mp.unpatchify_2d(mp.patchify_2d(a, 2, 4), 4, 2),
+                    [(2, 8, 40, 16)]),
+    "space_to_channel_2d": (lambda a: mp.channel_to_space_2d(mp.space_to_channel_2d(a) * 2),
+                            [(2, 8, 40, 16)]),
+    "space_to_channel_3d": (lambda a: mp.channel_to_space_3d(mp.space_to_channel_3d(a) * 2),
+                            [(2, 2, 8, 40, 16)]),
+    "lowpass_2d": (mp.lowpass_2d, [(2, 9, 41, 8)]),
+    "lowpass_2d_square": (lambda a: mp.lowpass_2d(a, 4.0, use_circular_filter=False),
+                          [(2, 2, 8, 40, 8)]),
+    "randn_like_hp_2d": (lambda a, zr, zi: mp.randn_like_hp_2d(a, draws=(zr, zi)),
+                         [(2, 9, 40, 8), (2, 9, 21, 8), (2, 9, 21, 8)]),
+    "randn_like_hp_2d_odd": (lambda a, zr, zi: mp.randn_like_hp_2d(a, draws=(zr, zi)),
+                             [(2, 8, 41, 8), (2, 8, 21, 8), (2, 8, 21, 8)]),
+    "random_crop_2d": (lambda a, b: mp.random_crop_2d(
+        a, b, draws=(torch.tensor([True, False]), torch.tensor([3, 5]), torch.tensor([7, 1]))),
+                       [(2, 16, 40, 8), (2, 16, 40, 4)]),
+    "normalize_weight": (layers.normalize_weight, [(32, 8, 3, 3)]),
+    "filtered_1d": (lambda a: layers.filtered_upsample_1d(layers.filtered_downsample_1d(a)),
+                    [(2, 40, 16)]),
+    "filtered_mp_silu_2d": (layers.filtered_mp_silu_2d, [(2, 8, 40, 16)]),
+    "FilteredDownsample2D": (lambda a: layers.FilteredDownsample2D(device=a.device)(a),
+                             [(1, 2, 64, 128, 2)]),
+    "filtered_3d": (lambda a: layers.filtered_upsample_3d(layers.filtered_downsample_3d(a)),
+                    [(2, 2, 8, 40, 16)]),
+    "filtered_mp_silu_3d": (layers.filtered_mp_silu_3d, [(2, 2, 8, 40, 16)]),
+    "filtered_1d3": (lambda a: layers.filtered_upsample_1d3(layers.filtered_downsample_1d3(a)),
+                     [(2, 2, 8, 40, 16)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PRIMITIVES))
+def test_primitive_on_the_card_matches_the_cpu(cuda, name):
+    """Each function of the primitive library on CUDA tensors against the
+    same on CPU copies, fp32: relative L2 <= 1e-5 (cuFFT against pocketfft
+    for the spectral ones, whose draws are passed in)."""
+    fn, shapes = PRIMITIVES[name]
+    g = torch.Generator(device=cuda).manual_seed(20)
+    args = [torch.rand(s, generator=g, device=cuda) + 0.1 if s == (2, 4) else
+            torch.randn(s, generator=g, device=cuda) for s in shapes]
+    got, want = fn(*args), fn(*(a.cpu() for a in args))
+    for o, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert o.device.type == "cuda" and torch.isfinite(o).all()
+        assert _rel_l2(o.cpu(), w) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gain_shape", [(2,), (2, 64)])
+def test_mpconv_per_sample_gain_runs_through_k1(cuda, gain_shape):
+    """A grouped 3x3 MPConv on bf16 input with a per-sample gain launches K1
+    once a call on weights cached at gain 1, and equals K1's plain version
+    times the gain; in training (K1, its dgrad and K4) the gain's gradient
+    equals the plain version's, each to one bf16 ulp of max (2**-7)."""
+    from dualdiffusion_tpu_torch.models import MPConv
+    g = torch.Generator(device=cuda).manual_seed(21)
+    conv = MPConv(64, 64, (3, 3), groups=8, device=cuda)
+    conv.init_weights(g)
+    x = torch.randn((2, 8, 40, 64), generator=g, device=cuda).bfloat16()
+    gains = [torch.rand(gain_shape, generator=g, device=cuda) + 0.5 for _ in range(2)]
+    probe = torch.randn((2, 8, 40, 64), generator=g, device=cuda)
+
+    def shaped(t):
+        return t.reshape((2, 1, 1, -1)).bfloat16()
+
+    wt = prepare_weights(conv._scaled_weight(conv.w_mp.detach(), 1.0, False), 8)
+    before = grouped_conv3x3.launches
+    with torch.no_grad():
+        outs = [conv(x, gain=gain) for gain in gains]
+        cached = conv._kernel_weight_cache
+        outs.append(conv(x, gain=gains[0]))
+    torch.cuda.synchronize()
+    assert grouped_conv3x3.launches == before + 3 and conv._kernel_weight_cache is cached
+    for out, gain in zip(outs, gains + gains[:1]):
+        assert out.device.type == "cuda"
+        assert _rel_err(out.float().cpu(),
+                        (grouped_conv3x3_plain(x, wt, 8) * shaped(gain)).float().cpu()) <= 2 ** -7
+    wt = prepare_weights(conv._scaled_weight(conv.w_mp.detach(), 1.0, True), 8)
+    grads = []
+    for route in ("kernel", "plain"):
+        gain = gains[0].clone().requires_grad_()
+        xr = x.clone().requires_grad_()
+        out = (conv(xr, gain=gain, training=True) if route == "kernel"
+               else grouped_conv3x3_plain(xr, wt, 8) * shaped(gain))
+        (out.float() * probe).sum().backward()
+        grads.append((gain.grad.float().cpu(), xr.grad.float().cpu()))
+    for got, want in zip(*grads):
+        assert _rel_err(got, want) <= 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emb_channels", [24, 0])
+def test_adaptive_group_balance_on_the_card_matches_the_cpu(cuda, emb_channels):
+    from dualdiffusion_tpu_torch.models import AdaptiveGroupBalance
+    g = torch.Generator(device=cuda).manual_seed(22)
+    m = AdaptiveGroupBalance(emb_channels, 4, balance_logits_offset=0.2, device=cuda)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.normal_(generator=g)
+    x, y = (torch.randn((2, 8, 40, 16), generator=g, device=cuda) for _ in range(2))
+    emb = torch.randn((2, 24), generator=g, device=cuda)
+    cpu = AdaptiveGroupBalance(emb_channels, 4, balance_logits_offset=0.2)
+    cpu.load_state_dict(m.state_dict())
+    with torch.no_grad():
+        got, want = m(x, y, emb), cpu(x.cpu(), y.cpu(), emb.cpu())
+    assert got.device.type == "cuda" and _rel_l2(got.cpu(), want) <= 1e-5

@@ -120,6 +120,18 @@ def test_sharded_dae_over_one_rank_is_zero_padding(runs):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("op", ["encode", "decode"])
+def test_sharded_dae_at_zero_halo_is_each_shard_alone(runs, op):
+    """At halo 0 each of two ranks returns exactly the encode (decode) of its
+    own shard alone. JAX's ``x_shard[:, :, -halo:]`` is the whole shard at
+    halo 0, so JAX would put both neighbours' whole shards around each
+    shard; the port sends nothing (a reference fault it repairs)."""
+    zero = runs[3]["zero_halo"]
+    assert zero[op].shape == runs[3][2][op].shape
+    assert torch.equal(zero[op], zero[f"{op}_alone"])
+    assert not torch.equal(zero[op], runs[3][2][op])
+
+
 def test_shard_w_and_gather_w_round_trip():
     x = torch.randn(1, 3, 12, 2)
     assert torch.equal(shard_w(x, Axis(None, 2, 3)), x[:, :, 8:12])

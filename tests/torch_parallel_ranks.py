@@ -16,15 +16,15 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import dualdiffusion_tpu_torch.models.unet as port_unet_module
-from dualdiffusion_tpu_torch.models import DAE, DAEConfig, UNet, UNetConfig
+from dualdiffusion_tpu_torch.models import DAE, DAEConfig, MPConv, UNet, UNetConfig
 from dualdiffusion_tpu_torch.models.unet import UNetBlock, UNetCore
 from dualdiffusion_tpu_torch.models.formats import MSMDCTDualFormat, MSMDCTDualFormatConfig
 from dualdiffusion_tpu_torch.parallel import (Axis, MeshConfig, ParallelState, build_stage_plan,
                                               gather_w, gathered, keep_stage, make_mesh,
                                               maybe_initialize_distributed,
                                               param_sharding_rule, pipeline_apply,
-                                              pipelined_denoise, shard_batch, shard_train_state,
-                                              shard_w, sharded_tiled_decode,
+                                              pipelined_denoise, shard_batch, shard_of,
+                                              shard_train_state, shard_w, sharded_tiled_decode,
                                               sharded_tiled_encode, shutdown, whole)
 from dualdiffusion_tpu_torch.pipelines.pipeline import Pipeline, save_module
 from dualdiffusion_tpu_torch.sampling import SampleParams, edm_sample
@@ -269,7 +269,8 @@ def pipeline_runs(rank: int, world: int, tmp: Path) -> None:
 def sharded_dae_runs(rank: int, world: int, tmp: Path) -> None:
     """The DAE of ``tmp/dae_inputs.pt`` encoding and decoding the W shards of
     its mel and latents over 4 ranks and over ranks [0, 2); rank 0 saves
-    the gathered latents and decoded mel of each."""
+    the gathered latents and decoded mel of each. Over ranks [0, 2) also at
+    halo 0, beside each rank's encode and decode of its shard alone."""
     inp = _load(tmp / "dae_inputs.pt")
     dae = DAE(DAEConfig(**inp["dae_kw"]))
     dae.load_state_dict(inp["state"])
@@ -284,5 +285,36 @@ def sharded_dae_runs(rank: int, world: int, tmp: Path) -> None:
             dec = sharded_tiled_decode(dae.decode, shard_w(inp["latents"], axis), axis,
                                        inp["halo_latent"], ds)
         res[n] = {"encode": gather_w(lat, axis), "decode": gather_w(dec, axis)}
+        if n == 2:
+            x, latents = shard_w(inp["x"], axis), shard_w(inp["latents"], axis)
+            with torch.no_grad():
+                zero = {"encode": sharded_tiled_encode(dae.encode, x, axis, 0, ds),
+                        "decode": sharded_tiled_decode(dae.decode, latents, axis, 0, ds),
+                        "encode_alone": dae.encode(x), "decode_alone": dae.decode(latents)}
+            res["zero_halo"] = {k: gather_w(v, axis) for k, v in zero.items()}
     if rank == 0:
         torch.save(res, tmp / "dae_out.pt")
+
+
+def mpconv_gain_runs(rank: int, world: int, tmp: Path) -> None:
+    """Each MPConv of ``tmp/gain_inputs.pt`` with its per-sample gain, in
+    training, tensor-parallel (a 1 x 2 mesh) and under FSDP (2 x 1), every
+    rank fed the same input and output gradient; rank 0 saves each output
+    and the gradients of the input and of the gain."""
+    inp = _load(tmp / "gain_inputs.pt")
+    res = {}
+    for mode in ("tp", "fsdp"):
+        mesh = make_mesh(MeshConfig(model_axis=2 if mode == "tp" else 1))
+        for i, case in enumerate(inp["cases"]):
+            conv = MPConv(**case["kw"])
+            conv.load_state_dict(case["state"])
+            ParallelState(mesh, fsdp=mode == "fsdp").prepare(conv)
+            if shard_of(conv.weight) is None:
+                raise AssertionError(f"case {i} was not sharded under {mode}")
+            x = case["x"].clone().requires_grad_()
+            g = case["gain"].clone().requires_grad_()
+            out = conv(x, gain=g, training=True)
+            (out * case["probe"]).sum().backward()
+            res[(mode, i)] = {"out": out.detach(), "x": x.grad, "gain": g.grad}
+    if rank == 0:
+        torch.save(res, tmp / "gain_out.pt")
