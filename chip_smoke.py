@@ -40,13 +40,13 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    CFG 1.5, Heun, SPSI + 100 Griffin-Lim iterations), checking the audio and
    that K1, K2 and K3 were launched (every K3 call on its Hopper route) and
    K7 was not (its "freq" attention
-   sees L <= 32); then the same at 30 steps for ``ref_scale_full_attn`` (the
+   sees L <= 32); then the same at 20 steps for ``ref_scale_full_attn`` (the
    same model with "full" attention at levels 1, 3 and 4), where K7 must be
    launched at level 1 (L 5504); then DDEC serving: the same UNet and DAE on the
    edm2_default MS-MDCT dual format with the DDEC of
    configs/models/edm2_ddec_mclt_b1a, ``generate(decode_mode="auto")``
-   twice at 30 steps (the DDEC samples (1, 256, 5504, 2) MDCT coefficients
-   with the same 30 Heun steps, conditioned on the mel's 2048-row linear PSD; no
+   twice at 20 steps (the DDEC samples (1, 256, 5504, 2) MDCT coefficients
+   with the same 20 Heun steps, conditioned on the mel's 2048-row linear PSD; no
    CFG), printing each stage's seconds and peak memory and checking the
    audio and that K1 was launched and K2, K3 and K7 were not; then one
    full-width DDEC forward (ms, analytic GFLOP, TFLOP/s, bf16 bound);
@@ -67,20 +67,28 @@ Runs from the root of a checkout, with no arguments, on one CUDA card:
    ``python -m dualdiffusion_tpu_torch.create_new_model`` writes it from a
    seed on the card; ``serving.launch(device="cuda")`` spawns the model
    server, which loads it and warms up (``compile_model``); the UI's handlers
-   behind a local HTTP server take a plain request (45 s, 30 Heun steps, CFG
+   behind a local HTTP server take a plain request (45 s, 20 Heun steps, CFG
    1.5, the DDEC decode; its preview, WAV and spectrogram), an editor inpaint
    of 10-20 s, an editor append, a request aborted after its first preview,
    and a rating and a save, each timed against the same clip in-process;
    ``python -m dualdiffusion_tpu_torch.sample --interactive`` then answers on
    its own port; one request through an in-process ``ModelServer`` under
-   ``decode_mode="fgla"`` must launch K1 exactly 68 x 2 x 30 times, K2 and
+   ``decode_mode="fgla"`` must launch K1 exactly 68 x 2 x 20 times, K2 and
    K3 (on their Hopper routes), and no K7;
 8. drives the UNet training path: writes a synthetic latent dataset and runs
    ``python -m dualdiffusion_tpu_torch.train``'s entry in-process on that
    model directory for 4 steps, then ``--resume`` for 1 more (device batch
    8, gradient accumulation 2, AdamW, one EMA), checking the losses, that
    params and EMA moved, that the checkpoint round-trips and that K1 and K4
-   were launched;
+   were launched; then UNet block rematerialization (``remat_blocks``): the
+   trainer's step on one microbatch of 8, plain and rematerialized from the
+   same weights and draws (K1 / K4 136 / 68 and 204 / 68 a microbatch, the
+   same loss bit for bit, gradients within 1e-3 relative L2, the
+   rematerialized peak memory below the plain one, seconds and peaks
+   printed), rematerialized at 32; the same training entry on a copy of
+   the model whose unet.json sets ``"remat_blocks": true`` (2 steps, then 1
+   after ``--resume``); one 3-D UNet microbatch at dropout 0.1, plain
+   against rematerialized;
 9. drives the DAE training path the same way: the edm2_default DAE
    (configs/models/edm2_default) on the MS-MDCT dual format, its trainer
    config with the fused MSS2D loss, 32 synthetic stereo WAVs, 5.5 s crops,
@@ -200,8 +208,9 @@ SEEDS = (1, 2)
 #: third of the serving path's, to keep the whole script within its time limit
 OPTIONS_STEPS = 30
 #: steps of the full-attention and DDEC serving paths and of the web UI's
-#: requests, for the same reason
-CUT_SERVING_STEPS = 30
+#: requests, for the same reason (20 since the remat phase, which costs
+#: about as much as the 10 steps cut)
+CUT_SERVING_STEPS = 20
 TRAIN_BATCH = 8          # device batch of the training path
 TRAIN_ACCUM = 2          # gradient accumulation steps
 TRAIN_STEPS = 4          # then one more after --resume
@@ -1898,7 +1907,7 @@ def web_ui_serving_path(root: Path, ucfg, dcfg, raw_len: int, clip_s: dict, card
     edm2_ddec_mclt_b1a DDEC) from a seed; ``launch(device="cuda")`` spawns the
     model server, which loads it and runs ``compile_model``; the port's UI
     handlers behind a port-0 HTTP server take, at full width (45 s, batch 1,
-    30 Heun steps, CFG 1.5, decoded by the DDEC under "auto"), (a) a plain
+    20 Heun steps, CFG 1.5, decoded by the DDEC under "auto"), (a) a plain
     request (its preview PNG, WAV and spectrogram PNG), (b) an editor inpaint
     of 10-20 s of output 0, (c) an editor append, (d) a request aborted after
     its first preview and (e) a rating and a save, each checked to have come
@@ -2273,6 +2282,159 @@ def unet_training_path(model_dir: Path, latent_chw, emb_dim: int, device: str,
           flush=True)
     return run_training(model_dir, data_dir, unet_train_config(latent_chw[-1]), device,
                         first=first)
+
+
+#: the remat phase: its microbatches (the training path's, plain and
+#: rematerialized; 4x it, rematerialized only), the timed steps after a
+#: warm-up, the 3-D check's microbatch, the seed of its weights and data
+REMAT_MICROBATCHES = (8, 32)
+REMAT_TIMED = 3
+REMAT_3D_BATCH = 2
+REMAT_SEED = 40
+#: K1 and K4 launches per microbatch of the reference-scale UNet: its 34
+#: blocks hold all 68 grouped convs; plain, forward + dgrad and wgrad; under
+#: remat the blocks' recompute runs the 68 forwards once more
+REMAT_LAUNCHES = {False: (136, 68), True: (204, 68)}
+
+
+def remat_microbatch(cfg, batch_size: int, shape, emb_dim: int, timed: int = REMAT_TIMED,
+                     want_grads=None) -> dict:
+    """The UNet trainer's step over one microbatch of ``batch_size`` on a
+    seeded ``cfg`` UNet (every scalar gain 1, so every weight has a
+    gradient), AdamW, a seeded batch: a warm-up step, whose loss, K1 / K4
+    launches and gradients it keeps (the gradients on the host, or, given
+    ``want_grads``, the worst per-tensor relative L2 from those), then
+    ``timed`` steps: their median s and the peak memory above what was
+    allocated before them."""
+    import torch
+    from dualdiffusion_tpu_torch.models import UNet
+    from dualdiffusion_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualdiffusion_tpu_torch.training import (SigmaSamplerConfig, UNetTrainConfig,
+                                                  build_optimizer, init_train_state,
+                                                  make_unet_train_step)
+    model = UNet(cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(REMAT_SEED))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 0 and "gain" in name:
+                p.fill_(1.0)
+    opt = build_optimizer("adamw", model.parameters(), 1e-4)
+    tc = UNetTrainConfig(sigma=SigmaSamplerConfig())
+    step = make_unet_train_step(opt, None, tc, batch_size)
+    state = init_train_state(model, opt, None, tc.sigma,
+                             torch.Generator(device="cuda").manual_seed(REMAT_SEED + 1))
+    data = torch.Generator(device="cuda").manual_seed(REMAT_SEED + 2)
+    batch = {"samples": torch.randn((batch_size,) + tuple(shape), generator=data,
+                                    device="cuda"),
+             "embeddings": torch.randn((batch_size, emb_dim), generator=data, device="cuda")}
+    reset_launch_counts()
+    out = {"loss": step(state, batch)["loss"].detach().cpu()}
+    torch.cuda.synchronize()
+    c = launch_counts()
+    out["launches"] = (c["grouped_conv3x3"], c["grouped_conv3x3_wgrad"])
+    grads = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
+    if want_grads is None:
+        out["grads"] = {k: g.float().cpu() for k, g in grads.items()}
+    else:
+        if sorted(grads) != sorted(want_grads):
+            raise AssertionError("the two runs have gradients for different parameters")
+        worst = 0.0
+        for k, g in grads.items():
+            w = want_grads[k].to("cuda")
+            worst = max(worst, float((g.float() - w).norm() / w.norm().clamp_min(1e-30)))
+        out["grad_rel_l2"] = worst
+    del grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    secs = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out["s"] = sorted(secs)[len(secs) // 2] if secs else float("nan")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["above_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del model, opt, state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_phase(root: Path, model_dir: Path, data_dir: Path, latent_chw, emb_dim: int,
+                path_counts, reset_counts, smi: str) -> None:
+    """UNet block rematerialization (``UNetConfig.remat_blocks``) on the
+    reference-scale UNet: the trainer's microbatch step at microbatch 8,
+    plain and rematerialized from the same weights and draws (the same loss
+    bit for bit, gradients within 1e-3 relative L2, K1 / K4 136 / 68 plain
+    and 204 / 68 rematerialized, the rematerialized peak below the plain
+    one), at 32 rematerialized; ``train.py``'s entry on a copy of
+    ``model_dir`` whose unet.json sets ``remat_blocks`` (2 steps, then 1
+    after ``--resume``); one rematerialized 3-D UNet step at dropout 0.1
+    against the plain one with the same dropout seed."""
+    import dataclasses
+    import torch
+    from dualdiffusion_tpu_torch.models import UNetConfig
+    from dualdiffusion_tpu_torch.utils import config_from_dict
+    raw = json.loads((model_dir / "unet" / "unet.json").read_text())
+    cfg = config_from_dict(UNetConfig, {k: v for k, v in raw.items() if not k.startswith("__")})
+    shape = (latent_chw[1], latent_chw[2], latent_chw[0])
+    print(f"remat phase: reference-scale UNet, latents {shape}; {smi}", flush=True)
+    runs, want = {}, None
+    for mb, remat in [(REMAT_MICROBATCHES[0], False)] + [(b, True) for b in REMAT_MICROBATCHES]:
+        runs[mb, remat] = r = remat_microbatch(dataclasses.replace(cfg, remat_blocks=remat), mb,
+                                               shape, emb_dim, want_grads=want if remat else None)
+        want = r.pop("grads", want)
+        ok = r["launches"] == REMAT_LAUNCHES[remat]
+        expect(f"microbatch {mb}, {'remat' if remat else 'plain'}: {r['s']:.4f} s a step "
+               f"(median of {REMAT_TIMED}), peak {r['peak_gib']:.2f} GiB ({r['above_gib']:.2f} "
+               f"above the step's start), K1 / K4 {r['launches'][0]} / {r['launches'][1]}",
+               ok, f"K1 / K4 {REMAT_LAUNCHES[remat][0]} / {REMAT_LAUNCHES[remat][1]}")
+    plain, remat = runs[REMAT_MICROBATCHES[0], False], runs[REMAT_MICROBATCHES[0], True]
+    expect(f"microbatch {REMAT_MICROBATCHES[0]}: loss {plain['loss'].item()!r} plain, "
+           f"{remat['loss'].item()!r} remat; worst gradient {remat['grad_rel_l2']:.3g} relative "
+           f"L2; peak {remat['peak_gib']:.2f} against {plain['peak_gib']:.2f} GiB (above the "
+           f"step's start {remat['above_gib'] / plain['above_gib']:.3f}x), "
+           f"{remat['s'] / plain['s']:.3f}x the s",
+           torch.equal(plain["loss"], remat["loss"]) and remat["grad_rel_l2"] <= 1e-3
+           and remat["peak_gib"] < plain["peak_gib"],
+           "losses bit-equal, gradients within 1e-3, the remat peak below the plain one")
+
+    # the training entry point with the option in the model's unet.json
+    remat_dir = root / "remat_model"
+    remat_dir.mkdir()
+    for name in ("model_index.json", "unet", "dae", "format"):
+        copy = shutil.copytree if (model_dir / name).is_dir() else shutil.copy2
+        copy(model_dir / name, remat_dir / name)
+    raw["remat_blocks"] = True
+    (remat_dir / "unet" / "unet.json").write_text(json.dumps(raw))
+
+    def after(trainer, saved):
+        if not trainer.state.module.cfg.remat_blocks:
+            raise AssertionError("the trainer's UNet does not have remat_blocks")
+    reset_counts()
+    t0 = time.perf_counter()
+    print(f"UNet training with remat_blocks: device batch {TRAIN_BATCH} x accumulation "
+          f"{TRAIN_ACCUM}, 2 steps then --resume for 1", flush=True)
+    run_training(remat_dir, data_dir, unet_train_config(latent_chw[-1]), "cuda", steps=2,
+                 after=after)
+    c = path_counts("UNet remat training", ("grouped_conv3x3", "grouped_conv3x3_wgrad"))
+    micro = 3 * TRAIN_ACCUM
+    k1, k4 = (micro * n for n in REMAT_LAUNCHES[True])
+    expect(f"train.py with remat_blocks: {time.perf_counter() - t0:.2f} s",
+           (c["grouped_conv3x3"], c["grouped_conv3x3_wgrad"]) == (k1, k4),
+           f"K1 / K4 {k1} / {k4} = {micro} microbatches x {REMAT_LAUNCHES[True]}")
+
+    # the 3-D UNet with dropout: the recompute draws the forward's masks
+    c3 = unet_3d_config(attn_axis="freq", attn_levels=(3, 4), dropout=0.1)
+    p3 = remat_microbatch(c3, REMAT_3D_BATCH, UNET3D_SHAPE[1:], c3.in_channels_emb, timed=0)
+    r3 = remat_microbatch(dataclasses.replace(c3, remat_blocks=True), REMAT_3D_BATCH,
+                          UNET3D_SHAPE[1:], c3.in_channels_emb, timed=0, want_grads=p3["grads"])
+    expect(f"3-D UNet (dropout {c3.dropout}) microbatch {REMAT_3D_BATCH}: loss "
+           f"{p3['loss'].item()!r} plain, {r3['loss'].item()!r} remat; worst gradient "
+           f"{r3['grad_rel_l2']:.3g} relative L2",
+           torch.equal(p3["loss"], r3["loss"]) and r3["grad_rel_l2"] <= 1e-3,
+           "losses bit-equal, gradients within 1e-3")
 
 
 def dae_training_path(model_dir: Path, device: str = "cuda", steps: int = TRAIN_STEPS):
@@ -4427,6 +4589,15 @@ def main() -> int:
         shutil.copytree(Path(tmp) / "latents", par_root / "latents")
         (par_root / "model" / "latent_shape.json").write_text(json.dumps(
             {"hwc": list(lat_shape[1:3]) + [ucfg.in_channels]}))
+
+        # ---- UNet block rematerialization: the trainer's microbatch step,
+        # train.py with remat_blocks in the model's config, the 3-D UNet ----
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        remat_phase(Path(tmp), Path(tmp), Path(tmp) / "latents",
+                    (ucfg.in_channels,) + lat_shape[1:3], ucfg.in_channels_emb, path_counts,
+                    reset_launch_counts, smi)
+        print(f"remat phase: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- DAE training path: train 4 steps, --resume 1 more ------------------
     with tempfile.TemporaryDirectory(prefix="dd_smoke_dae_") as tmp:

@@ -10,6 +10,8 @@ the parameter name ``w_mp`` (``w_raw`` when weight norm is disabled).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+from contextvars import ContextVar
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -24,6 +26,23 @@ from .mp import mp_silu, mp_sum_groups, normalize
 
 MP_WEIGHT_NAME = "w_mp"
 RAW_WEIGHT_NAME = "w_raw"
+
+#: set while the layers run inside an enclosing activation checkpoint
+_REMATERIALIZED = ContextVar("dd_rematerialized", default=False)
+
+
+@contextmanager
+def rematerialized():
+    """Run the enclosed layers inside an enclosing non-reentrant
+    ``checkpoint`` (a rematerialized UNet block): an FSDP layer then gathers
+    its weight without a checkpoint of its own, since the enclosing one
+    already keeps nothing made from the whole weight and runs the gather
+    again in its recompute (two gathers a step, not three)."""
+    token = _REMATERIALIZED.set(True)
+    try:
+        yield
+    finally:
+        _REMATERIALIZED.reset(token)
 
 
 def normalize_weight(w: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
@@ -159,12 +178,13 @@ class MPConv(nn.Module):
         gradient). Under autograd the gather and the layer run again in the
         backward (``checkpoint``), so no whole weight, and nothing made from
         one, outlives the layer: between the forward and the backward the
-        step keeps each layer's input and row shard alone."""
+        step keeps each layer's input and row shard alone. Inside a
+        ``rematerialized`` block the block's checkpoint does this."""
         def layer(x, w, gain):
             whole = gather_rows(w, shard.axis, 1.0 / shard.axis.size)
             return self._layer(x, whole, self.groups, gain, training, cacheable=False)
 
-        if not torch.is_grad_enabled():
+        if not torch.is_grad_enabled() or _REMATERIALIZED.get():
             return layer(x, self.weight, gain)
         return checkpoint(layer, x, self.weight, gain, use_reentrant=False,
                           preserve_rng_state=False)

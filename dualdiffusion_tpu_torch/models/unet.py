@@ -19,10 +19,11 @@ from typing import Literal, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.mel import hz_to_mel, mel_to_hz
 from .attention import scaled_dot_product_attention
-from .layers import MPConv, MPFourier
+from .layers import MPConv, MPFourier, rematerialized
 from .mp import mp_cat, mp_silu, mp_sum, normalize, resample_2d, resample_3d
 
 #: the trunk's activation dtype (JAX unet.py:562)
@@ -71,17 +72,18 @@ class UNetConfig:
     conv_w_pad: str = "zeros"
     add_constant_channel: bool = False
     add_ln_freqs_channel: bool = False
-    #: TPU-only (activation rematerialization); only the default is taken
+    #: recompute each UNetBlock's activations in the backward (training
+    #: only): a training forward keeps each block's input instead of its
+    #: internals, for one more forward of the blocks (JAX unet.py:99-103)
     remat_blocks: bool = False
     #: TPU-only (W-axis lane packing); only the default is taken
     w_pack_channels: int = 0
 
 
 def _check_supported(cfg: UNetConfig) -> None:
-    unported = {"w_pack_channels": 0, "remat_blocks": False}
-    for name, default in unported.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(f"UNetConfig.{name}={getattr(cfg, name)!r} is not ported")
+    if cfg.w_pack_channels != 0:
+        raise NotImplementedError(f"UNetConfig.w_pack_channels={cfg.w_pack_channels!r} "
+                                  f"is not ported")
 
 
 def _conv_kernel(cfg: UNetConfig, k: Tuple[int, int], kz: int = 1) -> Tuple[int, ...]:
@@ -268,6 +270,31 @@ class UNetBlock(nn.Module):
         return mp_sum(x, y, t=cfg.attn_balance)
 
 
+def remat_block(block: UNetBlock, x: torch.Tensor, emb: Optional[torch.Tensor],
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x, emb, True, generator)`` under a non-reentrant
+    ``checkpoint`` (JAX's ``nn.remat`` of the block): the forward keeps the
+    block's inputs alone and the backward runs the block again. ``checkpoint``
+    restores torch's default generators for the recompute, never one passed
+    in, so the recompute draws its dropout masks from a copy of
+    ``generator`` at its state before the block; ``generator`` advances once,
+    as without remat."""
+    state = generator.get_state() if generator is not None else None
+    recompute = False
+
+    def run(x, emb):
+        nonlocal recompute
+        g = generator
+        if recompute and generator is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(state)
+        recompute = True
+        with rematerialized():
+            return block(x, emb, True, g)
+
+    return checkpoint(run, x, emb, use_reentrant=False)
+
+
 class UNetCore(nn.Module):
     """EDM2-preconditioned MP-UNet trunk (JAX unet.py:363-638)."""
 
@@ -362,24 +389,31 @@ class UNetCore(nn.Module):
         before op ``lo``: the encoder ops push theirs, each ``dec_layer``
         pops one. Returns (x, skips). A pipeline stage runs its own range on
         a core that holds only that range's modules
-        (``parallel/unet_pipeline.py``)."""
+        (``parallel/unet_pipeline.py``). With ``cfg.remat_blocks``, a
+        training forward under autograd runs each ``UNetBlock`` through
+        ``remat_block``; ``dec_layer``'s concatenation with its skip stays
+        outside, as in JAX, where it is the block's input."""
         cfg = self.cfg
         hi = len(self.schedule) if hi is None else hi
         skips = list(skips)
         drop = dropout_generator
+        remat = cfg.remat_blocks and training and torch.is_grad_enabled()
+
+        def block(mod, x):
+            return remat_block(mod, x, emb, drop) if remat else mod(x, emb, training, drop)
+
         for name, kind, _, _, _ in self.schedule[lo:hi]:
             mod = getattr(self, name)
             if kind == "enc_in":
                 x = mod(x, training=training)
                 skips.append(x)
             elif kind in ("enc_down", "enc_layer"):
-                x = mod(x, emb, training, drop)
+                x = block(mod, x)
                 skips.append(x)
             elif kind in ("dec_mid", "dec_up"):
-                x = mod(x, emb, training, drop)
+                x = block(mod, x)
             elif kind == "dec_layer":
-                x = mod(mp_cat(x, skips.pop(), dim=-1, t=cfg.concat_balance), emb, training,
-                        drop)
+                x = block(mod, mp_cat(x, skips.pop(), dim=-1, t=cfg.concat_balance))
             else:
                 x = mod(x, gain=self.out_gain, training=training)
         return x, skips

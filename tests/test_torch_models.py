@@ -161,9 +161,12 @@ def test_unet_fwd_flops_matches_jax(path):
 
 
 def test_tpu_only_fields_raise_when_set():
+    """W-packing is the one TPU-only field; ``remat_blocks`` is ported and
+    builds, but does not excuse W-packing."""
     with pytest.raises(NotImplementedError):
         UNet(UNetConfig(**UNET_KW, w_pack_channels=128))
+    assert UNet(UNetConfig(**UNET_KW, remat_blocks=True)).cfg.remat_blocks
     with pytest.raises(NotImplementedError):
-        UNet(UNetConfig(**UNET_KW, remat_blocks=True))
+        UNet(UNetConfig(**UNET_KW, remat_blocks=True, w_pack_channels=128))
     with pytest.raises(NotImplementedError):
         DAE(DAEConfig(**DAE_KW, w_pack_channels=128))

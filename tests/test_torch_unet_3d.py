@@ -199,11 +199,12 @@ def test_d1_unet_fp32_trunk_matches_jax(monkeypatch):
 
 
 def test_unported_fields_are_only_the_tpu_ones():
+    """W-packing alone is refused; ``remat_blocks`` builds, with dropout too."""
     UNet(UNetConfig(**D1_KW, dropout=0.1))
     UNet(UNetConfig(**{**D1_KW, "use_3d": False, "conv_w_pad": "reflect"}))
-    for name, value in (("w_pack_channels", 128), ("remat_blocks", True)):
-        with pytest.raises(NotImplementedError):
-            UNet(UNetConfig(**{**D1_KW, name: value}))
+    assert UNet(UNetConfig(**D1_KW, dropout=0.1, remat_blocks=True)).cfg.remat_blocks
+    with pytest.raises(NotImplementedError):
+        UNet(UNetConfig(**{**D1_KW, "w_pack_channels": 128}))
 
 
 @pytest.mark.parametrize("shape", [(3, 37, 70, 4), (2, 2, 37, 70, 4)])

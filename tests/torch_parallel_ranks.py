@@ -7,6 +7,7 @@ and the test module reads back what rank 0 saved. A rank that raises, or a
 run past its timeout, fails the test.
 """
 
+import collections
 import time
 import uuid
 from pathlib import Path
@@ -15,6 +16,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+import dualdiffusion_tpu_torch.models.layers as port_layers_module
 import dualdiffusion_tpu_torch.models.unet as port_unet_module
 from dualdiffusion_tpu_torch.models import DAE, DAEConfig, MPConv, UNet, UNetConfig
 from dualdiffusion_tpu_torch.models.unet import UNetBlock, UNetCore
@@ -146,6 +148,54 @@ def unet_steps(rank: int, world: int, tmp: Path) -> None:
             if mode == "tp":
                 res["rule"] = rule
             torch.save(res, tmp / f"unet_{mode}.pt")
+
+
+def remat_steps(rank: int, world: int, tmp: Path) -> None:
+    """The UNet steps of ``inp`` under FSDP (2 x 1) and tensor parallelism
+    (1 x 2), each with and without ``remat_blocks``, each rank fed its share
+    of the global batches and the global draws. Rank 0 saves the whole
+    parameters and the logs, how many whole weights the steps saved for
+    their backward, and, per step, how often each sharded weight was
+    gathered whole."""
+    inp = _load(tmp / "remat_inputs.pt")
+    gathers = collections.Counter()
+    gather_rows = port_layers_module.gather_rows
+
+    def counted(w, axis, scale):
+        gathers[w.data_ptr()] += 1
+        return gather_rows(w, axis, scale)
+    port_layers_module.gather_rows = counted
+    whole_shapes = {tuple(v.shape) for k, v in UNet(UNetConfig(**inp["unet_kw"]))
+                    .state_dict().items() if k.endswith(".w_mp") and v.shape[0] % 2 == 0}
+    for mode in ("fsdp", "tp"):
+        for remat in (False, True):
+            mesh = make_mesh(MeshConfig(model_axis=2 if mode == "tp" else 1))
+            parallel = ParallelState(mesh, fsdp=mode == "fsdp")
+            model, _, tc, step, state = unet_step_setup(
+                dict(inp, unet_kw=dict(inp["unet_kw"], remat_blocks=remat)), parallel)
+            own = {p.data_ptr() for p in model.parameters()}
+            logs, saved, per_step = [], [], []
+
+            def keep(t):
+                if t.data_ptr() not in own:
+                    saved.append(tuple(t.shape))
+                return t
+
+            for batch, draws in zip(inp["batches"], inp["draws"]):
+                gathers.clear()
+                with torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t):
+                    out = step(state, shard_batch(mesh, batch, tc.grad_accum_steps), draws)
+                per_step.append(dict(gathers))
+                logs.append({"loss": float(out["loss"]), "grad_norm": float(out["grad_norm"])})
+            sharded = {p.data_ptr() for p in model.parameters()
+                       if getattr(p, "dd_shard", None) is not None}
+            with gathered(model):
+                params = to_flat(model)
+            if rank == 0:
+                torch.save({"logs": logs, "params": params, "n_sharded": len(sharded),
+                            "gathers": [sorted(c.get(p, 0) for p in sharded) for c in per_step],
+                            "saved_whole": sum(shape in whole_shapes for shape in saved)},
+                           tmp / f"remat_{mode}_{remat}.pt")
 
 
 def tp_denoise(rank: int, world: int, tmp: Path) -> None:
