@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence, Set, Tuple
 import torch
 import torch.nn as nn
 
+from ..utils.trace import span
 from .layers import MPConv
 from .mp import mp_silu, mp_sum, normalize, normalize_groups, resample_2d
 
@@ -259,11 +260,12 @@ class DAE(nn.Module):
     def decode(self, latents: torch.Tensor, embeddings: Optional[torch.Tensor] = None,
                training: bool = False) -> torch.Tensor:
         """(B, h, w, latent_channels) -> (B, h*ds, w*ds, out_channels) fp32."""
-        x = latents.to(getattr(torch, self.cfg.compute_dtype))
-        x = self.conv_latents_in(x, training=training)
-        for block in self.dec:
-            x = block(x, embeddings, training=training)
-        return self.conv_out(x, gain=self.out_gain, training=training).float()
+        with span("dd.model.forward"):
+            x = latents.to(getattr(torch, self.cfg.compute_dtype))
+            x = self.conv_latents_in(x, training=training)
+            for block in self.dec:
+                x = block(x, embeddings, training=training)
+            return self.conv_out(x, gain=self.out_gain, training=training).float()
 
     def forward(self, samples: torch.Tensor, embeddings: Optional[torch.Tensor] = None,
                 latents_sigma: Optional[torch.Tensor] = None,

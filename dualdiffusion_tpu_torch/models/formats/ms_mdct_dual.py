@@ -36,6 +36,7 @@ from ...ops.mdct import imdct, mdct
 from ...ops.mel import FrequencyScale, mel_density
 from ...ops.stft import stft
 from ...ops.windows import get_window
+from ...utils.trace import span
 from .format import Format, FormatConfig, register_format
 
 
@@ -192,13 +193,14 @@ class MSMDCTDualFormat(Format):
 
     def mel_spec_to_linear(self, mel_spec: torch.Tensor) -> torch.Tensor:
         """(B, F, T', C) -> (B, bins - 1, T', C) linear PSD conditioning."""
-        cfg = self.config
-        ms = mel_spec * cfg.raw_to_mel_spec_scale - cfg.raw_to_mel_spec_offset
-        ms = ms.clamp_min(0.0) ** (1.0 / cfg.ms_abs_exponent)
-        lin = torch.einsum("bftc,nf->bntc", ms, self._const(self._filters_pinv, ms))
-        lin = lin * self._const(np.sqrt(self.ms_stft_mel_density), ms)[None, :, None, None]
-        lin = lin[:, :-1]
-        return (lin + cfg.mel_spec_to_linear_offset) / cfg.mel_spec_to_linear_scale
+        with span("dd.pipeline.mel_to_linear"):
+            cfg = self.config
+            ms = mel_spec * cfg.raw_to_mel_spec_scale - cfg.raw_to_mel_spec_offset
+            ms = ms.clamp_min(0.0) ** (1.0 / cfg.ms_abs_exponent)
+            lin = torch.einsum("bftc,nf->bntc", ms, self._const(self._filters_pinv, ms))
+            lin = lin * self._const(np.sqrt(self.ms_stft_mel_density), ms)[None, :, None, None]
+            lin = lin[:, :-1]
+            return (lin + cfg.mel_spec_to_linear_offset) / cfg.mel_spec_to_linear_scale
 
     def sample_to_raw_fgla(self, mel_spec: torch.Tensor, n_fgla_iters: int = 200,
                            phase_init: Optional[str] = None) -> torch.Tensor:
@@ -207,15 +209,17 @@ class MSMDCTDualFormat(Format):
         dropped last bin restored, then Griffin-Lim on the ``ms_window_length``
         STFT grid with a periodic Hann window. JAX's ``key`` feeds only its
         random phase init, which this decode never takes."""
-        cfg = self.config
-        lin = self.mel_spec_to_linear(mel_spec)
-        lin = (lin * cfg.mel_spec_to_linear_scale - cfg.mel_spec_to_linear_offset).clamp_min(0.0)
-        lin = torch.nn.functional.pad(lin, (0, 0, 0, 0, 0, 1))     # the last stft bin
-        mag = lin.permute(0, 3, 2, 1)                                # (B, C, frames, bins)
-        win = get_window("hann", cfg.ms_window_length, periodic=True)
-        return griffinlim(mag, win, cfg.ms_window_length, cfg.ms_hop_length,
-                          n_iter=n_fgla_iters, stereo=cfg.num_raw_channels == 2,
-                          phase_init=phase_init or "flat")
+        with span("dd.pipeline.fgla"):
+            cfg = self.config
+            lin = self.mel_spec_to_linear(mel_spec)
+            lin = (lin * cfg.mel_spec_to_linear_scale
+                   - cfg.mel_spec_to_linear_offset).clamp_min(0.0)
+            lin = torch.nn.functional.pad(lin, (0, 0, 0, 0, 0, 1))     # the last stft bin
+            mag = lin.permute(0, 3, 2, 1)                                # (B, C, frames, bins)
+            win = get_window("hann", cfg.ms_window_length, periodic=True)
+            return griffinlim(mag, win, cfg.ms_window_length, cfg.ms_hop_length,
+                              n_iter=n_fgla_iters, stereo=cfg.num_raw_channels == 2,
+                              phase_init=phase_init or "flat")
 
     # ---- mdct path -------------------------------------------------------------
     def _mclt(self, raw: torch.Tensor, theta: Optional[torch.Tensor]):
@@ -240,10 +244,11 @@ class MSMDCTDualFormat(Format):
 
     def mdct_to_raw(self, coeffs: torch.Tensor) -> torch.Tensor:
         """(B, N, frames, C) -> (B, C, T)."""
-        cfg = self.config
-        x = coeffs.permute(0, 3, 1, 2)
-        x = x * self._const(self.mdct_mel_density, x)[:, None] * cfg.raw_to_mdct_scale
-        return imdct(x, cfg.mdct_window_len, window_fn=self.mdct_window_fn)
+        with span("dd.pipeline.imdct"):
+            cfg = self.config
+            x = coeffs.permute(0, 3, 1, 2)
+            x = x * self._const(self.mdct_mel_density, x)[:, None] * cfg.raw_to_mdct_scale
+            return imdct(x, cfg.mdct_window_len, window_fn=self.mdct_window_fn)
 
     sample_to_raw = mdct_to_raw
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ...ops import FrequencyScale, get_window, griffinlim, stft
+from ...utils.trace import span
 from .format import Format, FormatConfig, register_format
 
 
@@ -129,13 +130,14 @@ class SpectrogramFormat(Format):
     def sample_to_raw(self, sample: torch.Tensor, n_fgla_iters: Optional[int] = None,
                       phase_init: Optional[str] = None) -> torch.Tensor:
         """(B, F, T', C) -> (B, C, T) via mel unscale + FGLA."""
-        cfg = self.config
-        mel = sample.float() / cfg.raw_to_sample_scale + cfg.sample_mean
-        mel = mel.permute(0, 3, 1, 2).clamp_min(0.0)                     # (B, C, F, T')
-        mag_lin = self.freq_scale.unscale(mel ** (1.0 / cfg.abs_exponent))  # (B, C, bins, T')
-        return griffinlim(mag_lin.transpose(-1, -2), self.window, cfg.padded_length,
-                          cfg.hop_length, n_iter=n_fgla_iters or cfg.num_fgla_iters,
-                          momentum=cfg.fgla_momentum, stereo=cfg.stereo,
-                          stereo_coherence=cfg.stereo_coherence,
-                          work_dtype=cfg.fgla_work_dtype,
-                          phase_init=phase_init or cfg.fgla_phase_init)
+        with span("dd.pipeline.fgla"):
+            cfg = self.config
+            mel = sample.float() / cfg.raw_to_sample_scale + cfg.sample_mean
+            mel = mel.permute(0, 3, 1, 2).clamp_min(0.0)                     # (B, C, F, T')
+            mag_lin = self.freq_scale.unscale(mel ** (1.0 / cfg.abs_exponent))  # (B, C, bins, T')
+            return griffinlim(mag_lin.transpose(-1, -2), self.window, cfg.padded_length,
+                              cfg.hop_length, n_iter=n_fgla_iters or cfg.num_fgla_iters,
+                              momentum=cfg.fgla_momentum, stereo=cfg.stereo,
+                              stereo_coherence=cfg.stereo_coherence,
+                              work_dtype=cfg.fgla_work_dtype,
+                              phase_init=phase_init or cfg.fgla_phase_init)

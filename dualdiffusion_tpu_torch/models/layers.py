@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import GroupedConv3x3Fn, grouped_conv3x3, prepare_weights
 from ..parallel.collectives import copy_to_group, gather_last_dim, gather_rows, shard_of
+from ..utils.trace import span
 from .mp import mp_silu, mp_sum_groups, normalize
 
 MP_WEIGHT_NAME = "w_mp"
@@ -124,13 +125,25 @@ class MPConv(nn.Module):
             sign = np.where(np.arange(self.out_channels) % 2 == 0, 1.0, -1.0)
             self.bias.copy_(torch.as_tensor(sign / np.sqrt(group_dim), dtype=torch.float32))
 
-    def _scaled_weight(self, w: torch.Tensor, gain, training: bool) -> torch.Tensor:
+    def _scaled_weight(self, w: torch.Tensor, gain, training: bool,
+                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The layer's weight as it multiplies: normalized (training), scaled
+        by its fan-in and ``gain``, cast to ``dtype``. Outside training this
+        is work on an unchanged weight, redone each forward: a
+        ``dd.model.weight_prep`` span."""
+        if training:
+            return self._scale(w, gain, True, dtype)
+        with span("dd.model.weight_prep"):
+            return self._scale(w, gain, False, dtype)
+
+    def _scale(self, w: torch.Tensor, gain, training: bool,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if training and not self.disable_weight_norm:
             w = normalize_weight(w)
         w = w / np.sqrt(float(np.prod(w.shape[1:])))
         if not (isinstance(gain, (int, float)) and gain == 1.0):
             w = w * gain
-        return w
+        return w if dtype is None else w.to(dtype)
 
     def _uses_kernel(self, x: torch.Tensor, groups: int) -> bool:
         return groups > 1 and self.kernel == (3, 3) and self.stride == 1 and x.dim() == 4
@@ -143,10 +156,13 @@ class MPConv(nn.Module):
         gain_key = gain if isinstance(gain, (int, float)) else (id(gain), gain._version)
         key = (w._version, w.data_ptr(), gain_key, dtype)
         if self._kernel_weight_cache is None or self._kernel_weight_cache[0] != key:
-            with torch.no_grad():
-                wt = prepare_weights(self._scaled_weight(w, gain, False), groups, dtype)
-            self._kernel_weight_cache = (key, wt)
+            self._kernel_weight_cache = (key, self._prepared_weight(w, gain, groups, dtype))
         return self._kernel_weight_cache[1]
+
+    def _prepared_weight(self, w: torch.Tensor, gain, groups: int, dtype) -> torch.Tensor:
+        """K1's pre-arranged eval weights of ``w``: a ``dd.model.weight_prep`` span."""
+        with torch.no_grad(), span("dd.model.weight_prep"):
+            return prepare_weights(self._scale(w, gain, False), groups, dtype)
 
     def forward(self, x: torch.Tensor, gain: Union[float, torch.Tensor] = 1.0,
                 training: bool = False) -> torch.Tensor:
@@ -213,23 +229,23 @@ class MPConv(nn.Module):
         groups, without the bias; ``cacheable``: ``w`` is the module's own
         parameter, whose K1 weights may be kept."""
         if len(self.kernel) == 0:
-            w = self._scaled_weight(w, gain, training)
+            w = self._scaled_weight(w, gain, training, x.dtype)
             if groups > 1:
                 cin, cout = x.shape[-1], w.shape[0]
                 xg = x.reshape(x.shape[:-1] + (groups, cin // groups))
-                wg = w.to(x.dtype).reshape(groups, cout // groups, cin // groups)
+                wg = w.reshape(groups, cout // groups, cin // groups)
                 out = torch.einsum("...gi,goi->...go", xg, wg)
                 return out.reshape(x.shape[:-1] + (cout,))
-            return torch.matmul(x, w.t().to(x.dtype))
+            return torch.matmul(x, w.t())
         if self._uses_kernel(x, groups) and training:
             # no weight cache: the prepared weights carry the parameter's grad
             wt = prepare_weights(self._scaled_weight(w, gain, True), groups, x.dtype)
             return GroupedConv3x3Fn.apply(x.contiguous(), wt, groups)
         if self._uses_kernel(x, groups):
             wt = (self._kernel_weight(gain, x.dtype, groups) if cacheable else
-                  prepare_weights(self._scaled_weight(w.detach(), gain, False), groups, x.dtype))
+                  self._prepared_weight(w, gain, groups, x.dtype))
             return grouped_conv3x3(x.contiguous(), wt, groups)
-        return self._conv(x, self._scaled_weight(w, gain, training).to(x.dtype), groups)
+        return self._conv(x, self._scaled_weight(w, gain, training, x.dtype), groups)
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:
         if len(self.kernel) == 3:

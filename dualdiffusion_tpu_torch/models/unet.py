@@ -22,6 +22,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.mel import hz_to_mel, mel_to_hz
+from ..utils.trace import span
 from .attention import scaled_dot_product_attention
 from .layers import MPConv, MPFourier, rematerialized
 from .mp import mp_cat, mp_silu, mp_sum, normalize, resample_2d, resample_3d
@@ -338,47 +339,48 @@ class UNetCore(nn.Module):
         ``x_in`` (JAX unet.py:570). ``ln_freqs`` (H,) are the log
         frequencies of the ln-freq channel, standardized here (default:
         ``default_ln_freqs``)."""
-        cfg = self.cfg
-        sigma = sigma.reshape((-1,) + (1,) * (x_in.dim() - 1)).float()
-        sd = cfg.sigma_data
-        c_skip = sd ** 2 / (sigma ** 2 + sd ** 2)
-        c_out = sigma * sd / torch.sqrt(sigma ** 2 + sd ** 2)
-        c_in = 1.0 / torch.sqrt(sd ** 2 + sigma ** 2)
-        c_noise = torch.log(sigma.reshape(-1)) / 4.0
-        net_in = x_in if x_perturbed is None else x_perturbed
-        x = (c_in * net_in.float()).to(ACT_DTYPE)
-        if x_ref is not None and cfg.in_psd_freqs > 0:
-            # (B, pbins, W, C) -> (B, pbins / per, W, per * C): the per PSD
-            # rows under each model row become channels, row-major over
-            # (row, C); the row count follows the ref (JAX unet.py:573-582)
-            b, pbins, w, c = x_ref.shape
-            per = cfg.in_psd_freqs // cfg.in_num_freqs
-            r = x_ref.reshape(b, pbins // per, per, w, c).permute(0, 1, 3, 2, 4)
-            r = r.reshape(b, pbins // per, w, per * c)
-            x = mp_cat(x, r.to(ACT_DTYPE), dim=-1, t=cfg.label_balance)
-        elif x_ref is not None:
-            # the inpainting reference and mask as extra input channels (JAX
-            # unet.py:583-587; models/convert.py sizes the input conv)
-            x = torch.cat([x, x_ref.to(ACT_DTYPE)], dim=-1)
-        if cfg.add_constant_channel:
-            x = torch.cat([x, torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)],
-                          dim=-1)
-        if cfg.add_ln_freqs_channel:
-            # the standardized ln-freq positional channel, broadcast along H
-            # (JAX unet.py:595-608)
-            h_ax = 2 if cfg.use_3d else 1
-            if ln_freqs is None:
-                ln_freqs = torch.as_tensor(default_ln_freqs(x.shape[h_ax]))
-            lf = ln_freqs.to(device=x.device, dtype=torch.float32)
-            lf = (lf - lf.mean()) / lf.std(correction=0)
-            shape = [1] * x.dim()
-            shape[h_ax] = x.shape[h_ax]
-            pos = lf.reshape(shape).expand(x.shape[:-1] + (1,)).to(x.dtype)
-            x = torch.cat([x, pos], dim=-1)
-        emb = self.emb_noise(self.emb_fourier(c_noise), training=training)
-        if cfg.in_channels_emb > 0 and embeddings is not None:
-            emb = mp_silu(mp_sum(emb, embeddings.to(emb.dtype), t=cfg.label_balance))
-        return x, emb.to(ACT_DTYPE), c_skip, c_out
+        with span("dd.model.precondition"):
+            cfg = self.cfg
+            sigma = sigma.reshape((-1,) + (1,) * (x_in.dim() - 1)).float()
+            sd = cfg.sigma_data
+            c_skip = sd ** 2 / (sigma ** 2 + sd ** 2)
+            c_out = sigma * sd / torch.sqrt(sigma ** 2 + sd ** 2)
+            c_in = 1.0 / torch.sqrt(sd ** 2 + sigma ** 2)
+            c_noise = torch.log(sigma.reshape(-1)) / 4.0
+            net_in = x_in if x_perturbed is None else x_perturbed
+            x = (c_in * net_in.float()).to(ACT_DTYPE)
+            if x_ref is not None and cfg.in_psd_freqs > 0:
+                # (B, pbins, W, C) -> (B, pbins / per, W, per * C): the per PSD
+                # rows under each model row become channels, row-major over
+                # (row, C); the row count follows the ref (JAX unet.py:573-582)
+                b, pbins, w, c = x_ref.shape
+                per = cfg.in_psd_freqs // cfg.in_num_freqs
+                r = x_ref.reshape(b, pbins // per, per, w, c).permute(0, 1, 3, 2, 4)
+                r = r.reshape(b, pbins // per, w, per * c)
+                x = mp_cat(x, r.to(ACT_DTYPE), dim=-1, t=cfg.label_balance)
+            elif x_ref is not None:
+                # the inpainting reference and mask as extra input channels (JAX
+                # unet.py:583-587; models/convert.py sizes the input conv)
+                x = torch.cat([x, x_ref.to(ACT_DTYPE)], dim=-1)
+            if cfg.add_constant_channel:
+                x = torch.cat([x, torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)],
+                              dim=-1)
+            if cfg.add_ln_freqs_channel:
+                # the standardized ln-freq positional channel, broadcast along H
+                # (JAX unet.py:595-608)
+                h_ax = 2 if cfg.use_3d else 1
+                if ln_freqs is None:
+                    ln_freqs = torch.as_tensor(default_ln_freqs(x.shape[h_ax]))
+                lf = ln_freqs.to(device=x.device, dtype=torch.float32)
+                lf = (lf - lf.mean()) / lf.std(correction=0)
+                shape = [1] * x.dim()
+                shape[h_ax] = x.shape[h_ax]
+                pos = lf.reshape(shape).expand(x.shape[:-1] + (1,)).to(x.dtype)
+                x = torch.cat([x, pos], dim=-1)
+            emb = self.emb_noise(self.emb_fourier(c_noise), training=training)
+            if cfg.in_channels_emb > 0 and embeddings is not None:
+                emb = mp_silu(mp_sum(emb, embeddings.to(emb.dtype), t=cfg.label_balance))
+            return x, emb.to(ACT_DTYPE), c_skip, c_out
 
     def run_ops(self, x: torch.Tensor, emb: torch.Tensor, skips: Sequence[torch.Tensor],
                 lo: int = 0, hi: Optional[int] = None, training: bool = False,
@@ -404,18 +406,19 @@ class UNetCore(nn.Module):
 
         for name, kind, _, _, _ in self.schedule[lo:hi]:
             mod = getattr(self, name)
-            if kind == "enc_in":
-                x = mod(x, training=training)
-                skips.append(x)
-            elif kind in ("enc_down", "enc_layer"):
-                x = block(mod, x)
-                skips.append(x)
-            elif kind in ("dec_mid", "dec_up"):
-                x = block(mod, x)
-            elif kind == "dec_layer":
-                x = block(mod, mp_cat(x, skips.pop(), dim=-1, t=cfg.concat_balance))
-            else:
-                x = mod(x, gain=self.out_gain, training=training)
+            with span("dd.model.block"):
+                if kind == "enc_in":
+                    x = mod(x, training=training)
+                    skips.append(x)
+                elif kind in ("enc_down", "enc_layer"):
+                    x = block(mod, x)
+                    skips.append(x)
+                elif kind in ("dec_mid", "dec_up"):
+                    x = block(mod, x)
+                elif kind == "dec_layer":
+                    x = block(mod, mp_cat(x, skips.pop(), dim=-1, t=cfg.concat_balance))
+                else:
+                    x = mod(x, gain=self.out_gain, training=training)
         return x, skips
 
     def forward(self, x_in: torch.Tensor, sigma: torch.Tensor,
@@ -430,10 +433,12 @@ class UNetCore(nn.Module):
         if h % div or w % div:
             raise ValueError(f"UNet input H,W=({h},{w}) must be divisible by {div} "
                              f"(2^(levels-1), {len(cfg.channel_mult)} levels)")
-        x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings, x_ref, training,
-                                                  x_perturbed, ln_freqs)
-        x, _ = self.run_ops(x, emb, [], training=training, dropout_generator=dropout_generator)
-        return c_skip * x_in.float() + c_out * x.float()
+        with span("dd.model.forward"):
+            x, emb, c_skip, c_out = self.precondition(x_in, sigma, embeddings, x_ref, training,
+                                                      x_perturbed, ln_freqs)
+            x, _ = self.run_ops(x, emb, [], training=training,
+                                dropout_generator=dropout_generator)
+            return c_skip * x_in.float() + c_out * x.float()
 
 
 class UNet(nn.Module):

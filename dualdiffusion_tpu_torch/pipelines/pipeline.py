@@ -19,6 +19,7 @@ ranks of a process group (``parallel.mesh``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import re
@@ -41,6 +42,7 @@ from ..models.vae import VAE, VAEConfig
 from ..sampling import SampleParams, edm_sample, seamless_loop_crossfade
 from ..utils import (config_from_dict, config_to_dict, load_json, load_safetensors,
                      save_json, save_safetensors)
+from ..utils.trace import span
 from ..weights import SCALAR_SUFFIX, flax_key, load_flat, to_flat
 
 #: module type -> (factory(config, device), config class)
@@ -321,60 +323,62 @@ class Pipeline:
         ``init_sample * (1 - mask)`` and the thresholded mask, or zeros and
         an all-ones mask without a mask. ``sample_shape`` defaults to
         ``init_sample``'s."""
-        if (inpainting_mask is not None and module_name == "unet"
-                and "unet_inpainting" in self.modules):
-            module_name = "unet_inpainting"
-        h = self.modules[module_name]
-        unet, ucfg = h.module, h.config
-        device = next(unet.parameters()).device
-        if init_sample is not None:
-            init_sample = init_sample.to(device).float()
-        if sample_shape is None:
-            if init_sample is None:
-                raise ValueError("sample_shape or init_sample is required")
-            sample_shape = tuple(init_sample.shape)
-        sample_shape = tuple(sample_shape)
-        if ucfg.in_channels > ucfg.out_channels and ucfg.in_psd_freqs == 0 and x_ref is None:
-            base = (init_sample if init_sample is not None
-                    else torch.zeros(sample_shape, device=device))
-            if inpainting_mask is not None:
-                mask = (torch.as_tensor(inpainting_mask, device=device) > 0.5).float()
-                mask = mask.expand(base.shape[:-1] + (1,))
-            else:
-                mask = torch.ones(base.shape[:-1] + (1,), device=device)
-                base = torch.zeros_like(base)
-            x_ref = torch.cat([base * (1.0 - mask), mask], dim=-1)
-        emb2 = None
-        if audio_embedding is not None and ucfg.in_channels_emb > 0:
-            e = audio_embedding.to(device)
-            ones = torch.ones((e.shape[0],), device=device)
-            emb2 = torch.cat([unet.get_embeddings(e, ones),
-                              unet.get_embeddings(e, torch.zeros_like(ones))], dim=0)
-        ref = None
-        if x_ref is not None:
-            ref = x_ref.to(device)
-            if emb2 is not None:
-                ref = torch.cat([ref, ref], dim=0)
+        with span("dd.sampler.run"):
+            if (inpainting_mask is not None and module_name == "unet"
+                    and "unet_inpainting" in self.modules):
+                module_name = "unet_inpainting"
+            h = self.modules[module_name]
+            unet, ucfg = h.module, h.config
+            device = next(unet.parameters()).device
+            if init_sample is not None:
+                init_sample = init_sample.to(device).float()
+            if sample_shape is None:
+                if init_sample is None:
+                    raise ValueError("sample_shape or init_sample is required")
+                sample_shape = tuple(init_sample.shape)
+            sample_shape = tuple(sample_shape)
+            if ucfg.in_channels > ucfg.out_channels and ucfg.in_psd_freqs == 0 and x_ref is None:
+                base = (init_sample if init_sample is not None
+                        else torch.zeros(sample_shape, device=device))
+                if inpainting_mask is not None:
+                    mask = (torch.as_tensor(inpainting_mask, device=device) > 0.5).float()
+                    mask = mask.expand(base.shape[:-1] + (1,))
+                else:
+                    mask = torch.ones(base.shape[:-1] + (1,), device=device)
+                    base = torch.zeros_like(base)
+                x_ref = torch.cat([base * (1.0 - mask), mask], dim=-1)
+            emb2 = None
+            if audio_embedding is not None and ucfg.in_channels_emb > 0:
+                # one prompt's (1, E) embedding serves every sample of the batch
+                e = audio_embedding.to(device).expand(sample_shape[0], -1)
+                ones = torch.ones((e.shape[0],), device=device)
+                emb2 = torch.cat([unet.get_embeddings(e, ones),
+                                  unet.get_embeddings(e, torch.zeros_like(ones))], dim=0)
+            ref = None
+            if x_ref is not None:
+                ref = x_ref.to(device)
+                if emb2 is not None:
+                    ref = torch.cat([ref, ref], dim=0)
 
-        def denoise(x, sigma, r=None):
-            return unet(x, sigma, emb2, r)
+            def denoise(x, sigma, r=None):
+                return unet(x, sigma, emb2, r)
 
-        if generator is not None and generator.device != device:
-            # the sampler runs where its noise is drawn; the module on its own device
-            def denoise(x, sigma, r=None, run=denoise, at=device, home=generator.device):
-                return run(x.to(at), sigma.to(at), None if r is None else r.to(at)).to(home)
-            device = generator.device
-            ref = None if ref is None else ref.to(device)
-            init_sample = None if init_sample is None else init_sample.to(device)
+            if generator is not None and generator.device != device:
+                # the sampler runs where its noise is drawn; the module on its own device
+                def denoise(x, sigma, r=None, run=denoise, at=device, home=generator.device):
+                    return run(x.to(at), sigma.to(at), None if r is None else r.to(at)).to(home)
+                device = generator.device
+                ref = None if ref is None else ref.to(device)
+                init_sample = None if init_sample is None else init_sample.to(device)
 
-        return edm_sample(denoise, sample_shape, params,
-                          params.sigma_max or ucfg.sigma_max,
-                          params.sigma_min or ucfg.sigma_min,
-                          params.sigma_data or ucfg.sigma_data,
-                          generator=generator, device=device, init_sample=init_sample,
-                          init_noise=init_noise, step_noise=step_noise,
-                          use_cfg=emb2 is not None, x_ref=ref, step_shifts=step_shifts,
-                          chunk_size=chunk_size, chunk_callback=chunk_callback, debug=debug)
+            return edm_sample(denoise, sample_shape, params,
+                              params.sigma_max or ucfg.sigma_max,
+                              params.sigma_min or ucfg.sigma_min,
+                              params.sigma_data or ucfg.sigma_data,
+                              generator=generator, device=device, init_sample=init_sample,
+                              init_noise=init_noise, step_noise=step_noise,
+                              use_cfg=emb2 is not None, x_ref=ref, step_shifts=step_shifts,
+                              chunk_size=chunk_size, chunk_callback=chunk_callback, debug=debug)
 
     @torch.no_grad()
     def encode_input_audio(self, input_audio, length: Optional[int] = None) -> torch.Tensor:
@@ -384,23 +388,24 @@ class Pipeline:
         multiple of the DAE's downsample ratio and DAE-encoded on the DAE's
         device (the format sample itself without a DAE). fp32, on the UNet's
         device."""
-        fmt = self.format
-        device = next(self.modules["unet"].module.parameters()).device
-        audio = torch.as_tensor(input_audio, dtype=torch.float32, device=device)
-        if audio.dim() == 2:
-            audio = audio[None]
-        want = fmt.get_raw_crop_width(length)
-        t = audio.shape[-1]
-        audio = (torch.nn.functional.pad(audio, (0, want - t)) if t < want
-                 else audio[..., :want])
-        sample = fmt.raw_to_sample(audio)
-        dae_h = self.modules.get("dae")
-        if dae_h is not None:
-            ds = dae_h.module.downsample_ratio
-            sample = sample[:, :, : sample.shape[2] // ds * ds]
-            dae_device = next(dae_h.module.parameters()).device
-            sample = dae_h.module.encode(sample.to(dae_device)).to(device)
-        return sample.float()
+        with span("dd.pipeline.encode"):
+            fmt = self.format
+            device = next(self.modules["unet"].module.parameters()).device
+            audio = torch.as_tensor(input_audio, dtype=torch.float32, device=device)
+            if audio.dim() == 2:
+                audio = audio[None]
+            want = fmt.get_raw_crop_width(length)
+            t = audio.shape[-1]
+            audio = (torch.nn.functional.pad(audio, (0, want - t)) if t < want
+                     else audio[..., :want])
+            sample = fmt.raw_to_sample(audio)
+            dae_h = self.modules.get("dae")
+            if dae_h is not None:
+                ds = dae_h.module.downsample_ratio
+                sample = sample[:, :, : sample.shape[2] // ds * ds]
+                dae_device = next(dae_h.module.parameters()).device
+                sample = dae_h.module.encode(sample.to(dae_device)).to(device)
+            return sample.float()
 
     @torch.no_grad()
     def generate(self, params: SampleParams, generator: Optional[torch.Generator] = None,
@@ -465,76 +470,83 @@ class Pipeline:
         device = next(unet.parameters()).device
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(params.seed or 0)
+        ends = [time.perf_counter()]
 
-        def mark(stage: str, t0: float) -> float:
+        @contextlib.contextmanager
+        def stage(name: str):
+            """A stage of ``timings``: from the end of the stage before it to
+            a device synchronize at its own end."""
+            yield
             if timings is not None:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-                now = time.perf_counter()
-                timings[stage] = now - t0
-                return now
-            return t0
+                ends.append(time.perf_counter())
+                timings[name] = ends[-1] - ends[-2]
 
-        t0 = time.perf_counter()
-        init = input_latents
-        if init is None and input_audio is not None:
-            init = self.encode_input_audio(input_audio, params.length)
-            t0 = mark("encode", t0)
-        if init is not None:
-            init = init.to(device).float()
-            if init.shape[0] < params.batch_size:
-                init = init.expand((params.batch_size,) + tuple(init.shape[1:]))
-        sample_params = params
-        if inpainting_mask is not None:
-            sample_params = dataclasses.replace(params, img2img_strength=1.0)
-        stage_kw = dict(init_sample=init, inpainting_mask=inpainting_mask,
-                        step_shifts=step_shifts, chunk_size=chunk_size,
-                        chunk_callback=chunk_callback, debug=debug)
-        mel_shape = fmt.get_sample_shape(params.batch_size, params.length)
-        dae_h = self.modules.get("dae")
-        latents = None
-        if dae_h is not None:
-            lat_shape = dae_h.module.get_latent_shape(mel_shape)
-            if init is not None and tuple(init.shape[1:]) != tuple(lat_shape[1:]):
-                raise ValueError(f"init sample shape {tuple(init.shape)} does not match the "
-                                 f"latent shape {tuple(lat_shape)}")
-            latents = self.diffusion_decode(sample_params, lat_shape, prompt_embedding,
-                                            generator, init_noise, step_noise, **stage_kw)
-            t0 = mark("sampler", t0)
-            dae_device = next(dae_h.module.parameters()).device
-            mel = dae_h.module.decode(latents.to(dae_device)).float().to(device)
-            t0 = mark("dae_decode", t0)
-        else:
-            mel = self.diffusion_decode(sample_params, tuple(mel_shape), prompt_embedding,
-                                        generator, init_noise, step_noise, **stage_kw)
-            t0 = mark("sampler", t0)
-        if decode_mode == "ddec":
-            lin = fmt.mel_spec_to_linear(mel)
-            mdct_shape = fmt.get_mdct_shape_for_mel_frames(params.batch_size, lin.shape[2])
-            ddec_debug = {} if debug is not None else None
-            coeffs = self.diffusion_decode(params, mdct_shape, generator=generator,
-                                           init_noise=ddec_init_noise,
-                                           step_noise=ddec_step_noise,
-                                           module_name="ddec", x_ref=lin,
-                                           step_shifts=ddec_step_shifts, debug=ddec_debug)
-            if debug is not None:
-                debug["ddec"] = ddec_debug
-            t0 = mark("ddec", t0)
-            raw = fmt.mdct_to_raw(coeffs)
-            stage = "mdct_to_raw"
-        else:
-            # the format's FGLA decode where it has one (ms_mdct_dual's
-            # sample_to_raw is the MDCT inverse); phase_init where it takes one
-            decode = getattr(fmt, "sample_to_raw_fgla", fmt.sample_to_raw)
-            kw = {}
-            if params.fgla_phase_init and "phase_init" in inspect.signature(decode).parameters:
-                kw["phase_init"] = params.fgla_phase_init
-            raw = decode(mel, n_fgla_iters=params.num_fgla_iters, **kw)
-            stage = "fgla"
-        if params.seamless_loop:
-            raw = seamless_loop_crossfade(raw, loop_hop_length(fmt.config))
-        mark(stage, t0)
-        return {"raw": raw, "sample": mel, "latents": latents}
+        with span("dd.pipeline.generate"):
+            init = input_latents
+            if init is None and input_audio is not None:
+                with stage("encode"):
+                    init = self.encode_input_audio(input_audio, params.length)
+            if init is not None:
+                init = init.to(device).float()
+                if init.shape[0] < params.batch_size:
+                    init = init.expand((params.batch_size,) + tuple(init.shape[1:]))
+            sample_params = params
+            if inpainting_mask is not None:
+                sample_params = dataclasses.replace(params, img2img_strength=1.0)
+            stage_kw = dict(init_sample=init, inpainting_mask=inpainting_mask,
+                            step_shifts=step_shifts, chunk_size=chunk_size,
+                            chunk_callback=chunk_callback, debug=debug)
+            mel_shape = fmt.get_sample_shape(params.batch_size, params.length)
+            dae_h = self.modules.get("dae")
+            latents = None
+            if dae_h is not None:
+                lat_shape = dae_h.module.get_latent_shape(mel_shape)
+                if init is not None and tuple(init.shape[1:]) != tuple(lat_shape[1:]):
+                    raise ValueError(f"init sample shape {tuple(init.shape)} does not match "
+                                     f"the latent shape {tuple(lat_shape)}")
+                with stage("sampler"):
+                    latents = self.diffusion_decode(sample_params, lat_shape, prompt_embedding,
+                                                    generator, init_noise, step_noise,
+                                                    **stage_kw)
+                with stage("dae_decode"):
+                    dae_device = next(dae_h.module.parameters()).device
+                    mel = dae_h.module.decode(latents.to(dae_device)).float().to(device)
+            else:
+                with stage("sampler"):
+                    mel = self.diffusion_decode(sample_params, tuple(mel_shape),
+                                                prompt_embedding, generator, init_noise,
+                                                step_noise, **stage_kw)
+            if decode_mode == "ddec":
+                with stage("ddec"):
+                    lin = fmt.mel_spec_to_linear(mel)
+                    mdct_shape = fmt.get_mdct_shape_for_mel_frames(params.batch_size,
+                                                                   lin.shape[2])
+                    ddec_debug = {} if debug is not None else None
+                    coeffs = self.diffusion_decode(params, mdct_shape, generator=generator,
+                                                   init_noise=ddec_init_noise,
+                                                   step_noise=ddec_step_noise,
+                                                   module_name="ddec", x_ref=lin,
+                                                   step_shifts=ddec_step_shifts,
+                                                   debug=ddec_debug)
+                    if debug is not None:
+                        debug["ddec"] = ddec_debug
+            with stage("mdct_to_raw" if decode_mode == "ddec" else "fgla"):
+                if decode_mode == "ddec":
+                    raw = fmt.mdct_to_raw(coeffs)
+                else:
+                    # the format's FGLA decode where it has one (ms_mdct_dual's
+                    # sample_to_raw is the MDCT inverse); phase_init where it takes one
+                    decode = getattr(fmt, "sample_to_raw_fgla", fmt.sample_to_raw)
+                    kw = {}
+                    if (params.fgla_phase_init
+                            and "phase_init" in inspect.signature(decode).parameters):
+                        kw["phase_init"] = params.fgla_phase_init
+                    raw = decode(mel, n_fgla_iters=params.num_fgla_iters, **kw)
+                if params.seamless_loop:
+                    raw = seamless_loop_crossfade(raw, loop_hop_length(fmt.config))
+            return {"raw": raw, "sample": mel, "latents": latents}
 
 
 def loop_hop_length(format_config) -> int:

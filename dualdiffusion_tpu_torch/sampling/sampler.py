@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.mp import mp_sum, normalize
+from ..utils.trace import span
 from .schedule import get_schedule
 
 
@@ -211,32 +212,34 @@ def edm_sample(denoise_fn: Callable[..., torch.Tensor],
 
     done = 0
     for j in range(run_steps):
-        c = {k: float(v[skip_steps + j]) for k, v in consts.items()}
-        x, ref = sample, x_ref
-        if params.seamless_loop:
-            shift = int(step_shifts[j])
-            x = circular_pad_w(torch.roll(sample, shift, dims=-2), LOOP_PAD)
-            if ref is not None:
-                ref = circular_pad_w(torch.roll(ref, shift, dims=-2), LOOP_PAD)
-        cfg_out = run_model(x, c["sigma_curr"], ref)
-        if params.use_heun:
-            x_hat = cfg_out + (x - cfg_out) * c["t_hat"]
-            cfg_out = 0.5 * (cfg_out + run_model(x_hat, c["sigma_hat"], ref))
-        new = cfg_out + (x - cfg_out) * c["t_lerp"]
-        if params.seamless_loop:
-            new = torch.roll(new[..., LOOP_PAD:-LOOP_PAD, :], -shift, dims=-2)
-            cfg_out = torch.roll(cfg_out[..., LOOP_PAD:-LOOP_PAD, :], -shift, dims=-2)
-        fresh = (step_noise[j].float() if step_noise is not None
-                 else draw_noise(sample_shape, params.stereo_fix, generator, sample.device))
-        new = new + fresh * c["readd"]
-        if renorm_steps:
-            new = normalize(new) * c["renorm"]
-        sample = new
-        if debug is not None:
-            stats["sample_std"].append(new.std(correction=0))
-            stats["cfg_output_mean"].append(cfg_out.mean())
-            stats["cfg_output_std"].append(cfg_out.std(correction=0))
-        done = j + 1
+        # the step closes before the callback, which may start or stop a profile
+        with span("dd.sampler.step"):
+            c = {k: float(v[skip_steps + j]) for k, v in consts.items()}
+            x, ref = sample, x_ref
+            if params.seamless_loop:
+                shift = int(step_shifts[j])
+                x = circular_pad_w(torch.roll(sample, shift, dims=-2), LOOP_PAD)
+                if ref is not None:
+                    ref = circular_pad_w(torch.roll(ref, shift, dims=-2), LOOP_PAD)
+            cfg_out = run_model(x, c["sigma_curr"], ref)
+            if params.use_heun:
+                x_hat = cfg_out + (x - cfg_out) * c["t_hat"]
+                cfg_out = 0.5 * (cfg_out + run_model(x_hat, c["sigma_hat"], ref))
+            new = cfg_out + (x - cfg_out) * c["t_lerp"]
+            if params.seamless_loop:
+                new = torch.roll(new[..., LOOP_PAD:-LOOP_PAD, :], -shift, dims=-2)
+                cfg_out = torch.roll(cfg_out[..., LOOP_PAD:-LOOP_PAD, :], -shift, dims=-2)
+            fresh = (step_noise[j].float() if step_noise is not None
+                     else draw_noise(sample_shape, params.stereo_fix, generator, sample.device))
+            new = new + fresh * c["readd"]
+            if renorm_steps:
+                new = normalize(new) * c["renorm"]
+            sample = new
+            if debug is not None:
+                stats["sample_std"].append(new.std(correction=0))
+                stats["cfg_output_mean"].append(cfg_out.mean())
+                stats["cfg_output_std"].append(cfg_out.std(correction=0))
+            done = j + 1
         if (chunked and (done % chunk_size == 0 or done == run_steps)
                 and chunk_callback(done, sample)):
             break
